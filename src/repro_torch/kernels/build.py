@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in `repro_torch/csrc/*.cu` have a plain C interface. Each is
+compiled by its own `nvcc -c` (all started together), and the objects
+are linked into one shared library under `build/repro_torch/` in the
+checkout, named by a hash of the sources and flags: the build runs at
+first use and again whenever a source changes. The library is loaded
+with `ctypes`; the wrappers pass `data_ptr()` pointers and the current
+stream as `c_void_p`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("forest.cu", "template.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry points: name -> argument types. Each returns cudaGetLastError().
+SIGNATURES = {
+    "forest_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "criticality_scores": [_P, _P, _I, _I, _I, _I, _P],
+}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when the toolkit is absent."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (Path(home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                       "build repro_torch's kernels")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile the sources (in parallel) and link the library unless it
+    is already built. Returns ``{"path", "seconds", "log"}``; `log` holds
+    nvcc's output (`-Xptxas -v`: registers, shared memory, spills)."""
+    lib = library_path()
+    if lib.exists():
+        return {"path": str(lib), "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    cc = nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{Path(s).stem}.o" for s in SOURCES]
+        procs = [subprocess.Popen(
+            [cc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for s, p, log in zip(SOURCES, procs, logs):
+            if p.returncode:
+                raise RuntimeError(f"nvcc failed on {s}:\n{log}")
+        part = Path(tmp) / lib.name
+        link = subprocess.run(
+            [cc, *NVCC_FLAGS[:2], "-shared", *map(str, objs), "-o",
+             str(part)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(part, lib)           # atomic: concurrent builds agree
+    return {"path": str(lib), "seconds": time.perf_counter() - t0,
+            "log": "".join(logs) + link.stdout}
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The built library with every entry point's signature declared."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
