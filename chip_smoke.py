@@ -3,15 +3,24 @@
 
     python3 chip_smoke.py [--seed N]
 
-It builds the port's CUDA kernels from `src/repro_torch/csrc`, holds each
-kernel against its plain torch version on the card, and drives the
-port's main path at the full width of one real cluster: label an 8,000-VM
-history with the template kernel, train the four forests on the host,
-and serve 4,096 arrivals in micro-batches of 256 on 720 servers (60
-chassis x 12 blades x 40 cores) under a chassis watt budget, with the
-forest kernel on every micro-batch. It then checks the decisions
-(outcome counts, capacity and power ceilings, kernel launch counts, and
-identical servers from the same serve run through the port on the CPU).
+It builds the port's four CUDA kernels from `src/repro_torch/csrc`, holds
+each kernel against its plain torch version on the card, and drives the
+port's two paths:
+
+- the placement path at the full width of one real cluster: label an
+  8,000-VM history with the template kernel, train the four forests on
+  the host, and serve 4,096 arrivals in micro-batches of 256 on 720
+  servers (60 chassis x 12 blades x 40 cores) under a chassis watt
+  budget, with the forest kernel on every micro-batch. It checks the
+  decisions (outcome counts, capacity and power ceilings, launch counts,
+  and identical servers from the same serve through the port on the CPU);
+- LM serving of Zamba2-2.7B at full width (54 Mamba2 layers, d 2,560, a
+  shared attention block after every 6, seeded random bf16 weights):
+  the batch prefill of 8 prompts of 512 tokens through the flash-attention
+  and SSD kernels, then `serve_batch` on the same prompts with 32
+  generated tokens through the cache path. It checks the launch counts
+  (9 flash, 54 SSD per prefill), finite logits, prefill against the
+  cache path, and the kernel forward against the plain forward.
 
 Each phase prints one JSON line. Then come the card's name and power
 limit as `nvidia-smi` prints them, a `{"kernels": [...]}` line with each
@@ -33,10 +42,15 @@ from pathlib import Path
 
 import numpy as np
 
-#: H100 SXM data-sheet peaks: HBM bytes/s and
-#: float32 operations/s outside the tensor cores.
+#: H100 SXM data-sheet peaks: HBM bytes/s, float32 operations/s
+#: outside the tensor cores, dense bf16 tensor-core operations/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+#: The peaks the flash and SSD bounds divide by, printed beside them.
+BF16_PEAKS = {"bytes_per_s": HBM_BYTES_PER_S, "bytes": "HBM",
+              "ops_per_s": BF16_OPS_PER_S,
+              "ops": "dense bf16 tensor cores"}
 
 #: Main-path cluster: the 720-server cluster of BENCH_serve.json.
 N_SERVERS, CORES, BLADES = 720, 40, 12
@@ -45,6 +59,21 @@ FLEET_ROWS = 65536
 TEMPLATE_RTOL, TEMPLATE_ATOL = 5e-3, 5e-4
 FOREST_ATOL = 1e-5
 TIMED_RUNS = 20
+
+#: LM path: Zamba2-2.7B, 8 prompts of 512 tokens, 32 generated; the long
+#: prompt of the kernel phases.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "zamba2-2.7b", 8, 512, 32
+LONG_PROMPT = 4096
+#: Bars of tests/test_kernels.py: flash in float32 and bf16, SSD in
+#: float32. An SSD output in bf16 (|y| reaches ~200 at Zamba2's inputs)
+#: can round to the neighbouring bf16 value, so it gets the bf16 bar plus
+#: one bf16 ulp (at most 2^-7 relative).
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_ATOL, SSD_BF16_ATOL, SSD_BF16_RTOL = 2e-4, 2e-2, 2.0 ** -7
+#: Prefill against the cache path, and the kernel forward against the
+#: plain forward, in bf16: the reference's prefill/decode bar
+#: (tests/test_models_smoke.py), held here at 54 layers.
+LM_ATOL, LM_RTOL = 0.15, 0.1
 
 
 def emit(phase: str, **kw) -> None:
@@ -75,27 +104,32 @@ def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """Least ms for `nbytes` moved once and `ops` at `ops_per_s`, and
+    which of the two bounds it."""
+    by = nbytes / HBM_BYTES_PER_S * 1e3
+    op = ops / ops_per_s * 1e3
+    return (by, "bytes") if by >= op else (op, "operations")
+
+
 def template_bound_ms(b: int, t: int) -> tuple[float, str]:
     """Least time for (B, T) template scores: each series read once and
     two ratios written, against the float32 operations of the sort-based
     oracle (de-trend and normalize ~8 per slot; per period a median sort
     over the repetitions, deviation, a sort of the deviations and the
     sum of the smallest 80 %)."""
-    by = (b * t + b * 2) * 4 / HBM_BYTES_PER_S * 1e3
     per_period = sum(t * math.log2(max(t // p, 2)) + 2 * t
                      + t * math.log2(t) + 0.8 * t for p in (48, 24, 16))
-    ops = b * (8 * t + per_period) / FP32_OPS_PER_S * 1e3
-    return (by, "bytes") if by >= ops else (ops, "operations")
+    return bound((b * t + b * 2) * 4, b * (8 * t + per_period),
+                 FP32_OPS_PER_S)
 
 
 def forest_bound_ms(b, f, nf, t, d, k) -> tuple[float, str]:
     """Least time for summed leaf values of NF stacked forests: features,
     forest tables and outputs moved once, against D compares and bit
     packs plus K adds per (row, forest, tree)."""
-    by = (b * f * 4 + nf * t * d * 8 + nf * t * (1 << d) * k * 4
-          + b * nf * k * 4) / HBM_BYTES_PER_S * 1e3
-    ops = b * nf * t * (2 * d + k) / FP32_OPS_PER_S * 1e3
-    return (by, "bytes") if by >= ops else (ops, "operations")
+    return bound(b * f * 4 + nf * t * d * 8 + nf * t * (1 << d) * k * 4
+                 + b * nf * k * 4, b * nf * t * (2 * d + k), FP32_OPS_PER_S)
 
 
 def fleet_series(pop, rows: int, seed: int) -> np.ndarray:
@@ -224,33 +258,264 @@ def forest_phase(x, stacked, svc=None) -> dict:
             "leaf_indices_equal": True}
 
 
-def serve_profile(pipe, batch_a, batch_b) -> dict:
-    """Where a served micro-batch's time goes: host wall of `batch_a`,
-    unprofiled, against the device time the profiler traces while
-    `batch_b`, a batch like it, is served."""
+def device_profile(fn, traced=None) -> dict:
+    """Host wall of one unprofiled call of `fn` against the device time
+    the profiler traces in a call of `traced` (default `fn` again): the
+    busy and idle share, kernel launches and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pipe.serve(batch_a)
+    fn()
+    torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipe.serve(batch_b)
+        (traced or fn)()
         torch.cuda.synchronize()
     events = prof.key_averages()
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or "not measured",
             "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms
             else "not measured",
-            "launches_per_arrival": launches / len(batch_b),
+            "launches": sum(e.count for e in events
+                            if e.key == "cudaLaunchKernel"),
             "top_device_ms": [[e.key[:48], e.self_device_time_total / 1e3,
                                e.count] for e in top]}
+
+
+def serve_profile(pipe, batch_a, batch_b) -> dict:
+    """Where a served micro-batch's time goes: host wall of `batch_a`,
+    unprofiled, against the device time the profiler traces while
+    `batch_b`, a batch like it, is served."""
+    out = device_profile(lambda: pipe.serve(batch_a),
+                         lambda: pipe.serve(batch_b))
+    out["launches_per_arrival"] = out.pop("launches") / len(batch_b)
+    return out
+
+
+def flash_bound_ms(b, h, lq, lk, d, itemsize) -> tuple[float, str]:
+    """q, k, v read once and o written once, against the QK and PV
+    products of the (q, k) pairs the causal mask keeps (2 D operations
+    each for QK^T and for PV), on the bf16 tensor cores."""
+    pairs = sum(min(lk, lk - lq + i + 1) for i in range(lq))
+    return bound(b * h * (2 * lq + 2 * lk) * d * itemsize,
+                 4 * d * pairs * b * h, BF16_OPS_PER_S)
+
+
+def ssd_bound_ms(b, l, h, p, n, itemsize, chunk=128) -> tuple[float, str]:
+    """x read and y written once, dt, B, C, a, d read once, against the
+    dual form's products at the reference's chunk (per chunk and head:
+    C B^T 2Q^2N, the masked-decay product 2Q^2P, C S^T and the state
+    update 2QPN each), on the bf16 tensor cores."""
+    nbytes = 2 * b * l * h * p * itemsize + b * l * h * 4 \
+        + 2 * b * l * n * itemsize + 2 * h * 4
+    nc = -(-l // chunk)
+    ops = b * h * nc * (2 * chunk * chunk * (n + p) + 4 * chunk * p * n)
+    return bound(nbytes, ops, BF16_OPS_PER_S)
+
+
+def flash_phase(b: int, l: int, seed: int, dev) -> dict:
+    """The flash kernel against its plain version at Zamba2's attention
+    shape (B, 32 heads, L, 80), causal, in float32 and bf16 (the path's
+    dtype); bf16 timed beside the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, 32, l, 80)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    out = {"shape": list(shape), "causal": True}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        got = ops.flash_attention(qd, kd, vd, causal=True)
+        want = ref.attention_ref(qd, kd, vd, causal=True)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(bool(torch.isfinite(got).all()), "flash output finite")
+        check(err <= FLASH_ATOL[name], f"flash kernel {name} within "
+              f"{FLASH_ATOL[name]} of its plain version: {err}")
+        out[f"max_abs_err_{name}"] = err
+    out["max_abs_err"] = out["max_abs_err_bfloat16"]
+    out["ms"] = cuda_ms(lambda: ops.flash_attention(qd, kd, vd))
+    out["plain_ms"] = cuda_ms(lambda: ref.attention_ref(qd, kd, vd))
+    # the library yardstick: Lq == Lk, so SDPA's top-left causal mask is
+    # the kernel's end-aligned one
+    out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, is_causal=True))
+    out["bound_ms"], out["bound_by"] = flash_bound_ms(b, 32, l, l, 80, 2)
+    out["bound_peaks"] = BF16_PEAKS
+    return out
+
+
+def ssd_inputs(b: int, l: int, seed: int, dev):
+    """Zamba2's SSD operands at (B, L): 80 heads of 64, state 64; dt the
+    softplus of a unit normal (dt_bias is 0 at init), a = -linspace(1,
+    16) as the model's a_log gives it, D = 1."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, p, n = 80, 64, 64
+    x = torch.randn((b, l, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, h), generator=gen, device=dev))
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    bm = torch.randn((b, l, n), generator=gen, device=dev)
+    cm = torch.randn((b, l, n), generator=gen, device=dev)
+    return x, dt, a, bm, cm, torch.ones(h, device=dev)
+
+
+def ssd_phase(b: int, l: int, seed: int, dev, exact: bool) -> dict:
+    """The SSD kernel against its plain version (the chunked dual form at
+    the wrapper's chunk) in float32 and bf16 (the path's dtype), and in
+    float32 against the exact recurrence when `exact`; bf16 timed."""
+    import torch
+    from repro_torch.kernels.ssd import ops, ref
+    x, dt, a, bm, cm, d = ssd_inputs(b, l, seed, dev)
+    ch = min(ops.CHUNK, max(l, 8))
+    out = {"shape": [b, l, 80, 64, 64]}
+    got = ops.ssd(x, dt, a, bm, cm, d)
+    want = ref.ssd_chunked(x, dt, a, bm, cm, d, chunk=ch)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()), "SSD output finite")
+    check(err <= SSD_ATOL, f"SSD kernel float32 within {SSD_ATOL} of its "
+          f"plain version: {err}")
+    out["max_abs_err_float32"] = err
+    if exact:
+        y, _ = ref.ssd_ref(x, dt, a, bm, cm, d)
+        err = (got - y).abs().max().item()
+        check(err <= SSD_ATOL, f"SSD kernel within {SSD_ATOL} of the "
+              f"recurrence: {err}")
+        out["max_abs_err_vs_recurrence"] = err
+    xb, bb, cb = x.bfloat16(), bm.bfloat16(), cm.bfloat16()
+    got = ops.ssd(xb, dt, a, bb, cb, d).float()
+    want = ref.ssd_chunked(xb, dt, a, bb, cb, d, chunk=ch).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    check(bool((err <= SSD_BF16_ATOL + SSD_BF16_RTOL * want.abs()).all()),
+          f"SSD kernel bf16 within {SSD_BF16_ATOL} + {SSD_BF16_RTOL} "
+          "relative of its plain version")
+    out["max_abs_err_bfloat16"] = out["max_abs_err"] = err.max().item()
+    out["ms"] = cuda_ms(lambda: ops.ssd(xb, dt, a, bb, cb, d))
+    out["plain_ms"] = cuda_ms(
+        lambda: ref.ssd_chunked(xb, dt, a, bb, cb, d, chunk=ch))
+    out["bound_ms"], out["bound_by"] = ssd_bound_ms(b, l, 80, 64, 64, 2)
+    out["bound_peaks"] = BF16_PEAKS
+    return out
+
+
+def lm_path(seed: int, dev) -> dict:
+    """LM serving of Zamba2-2.7B at full width: the batch prefill through
+    the kernels and `serve_batch` through the cache path, each with the
+    launch counts at 0 just before it and read just after; then the
+    checks and the profiles."""
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _tensors(params))
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    prefill = make_prefill_step(cfg, impl="cuda")
+    prefill(params, batch)                       # cuBLAS and allocator warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_launches = dict(KERNEL_LAUNCHES)
+    reset_launches()
+    trace = {}
+    tokens = serve_batch(cfg, params, prompts, LM_GEN, trace=trace)
+    serve_launches = dict(KERNEL_LAUNCHES)
+
+    groups = cfg.n_layers // cfg.attn_every
+    check(prefill_launches["flash_attention"] == groups,
+          f"flash launches {prefill_launches['flash_attention']} == "
+          f"{groups} per prefill")
+    check(prefill_launches["ssd"] == cfg.n_layers,
+          f"SSD launches {prefill_launches['ssd']} == {cfg.n_layers} per "
+          "prefill")
+    lf = logits.float()
+    pl = trace["prompt_logits"].float()
+    check(bool(torch.isfinite(lf).all() and torch.isfinite(pl).all()),
+          "prefill and cache-path logits finite")
+    check(tokens.shape == (LM_BATCH, LM_GEN), "serve_batch token shape")
+    gap = (lf - pl).abs()
+    check(bool((gap <= LM_ATOL + LM_RTOL * pl.abs()).all()),
+          f"prefill within atol {LM_ATOL} rtol {LM_RTOL} of the cache path "
+          f"after the last prompt token: max gap {gap.max().item()}")
+    # a row's argmax can only move if its top-2 margin is at most twice
+    # the largest change of one of its logits
+    top2 = lf.topk(2, -1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    row_gap = gap.amax(-1).cpu().numpy()
+    decided = margin > 2 * row_gap
+    first = tokens[:, 0]
+    agree = first == lf.argmax(-1).cpu().numpy()
+    check(decided.any(), "some row's margin exceeds twice its logit gap")
+    check(bool(agree[decided].all()), "the first generated token equals the "
+          "prefill argmax wherever the margin exceeds twice the gap")
+
+    # the whole forward through the kernels against the plain versions
+    h_cuda = T.forward(cfg, params, batch, impl="cuda").float()
+    h_plain = T.forward(cfg, params, batch, impl="chunked").float()
+    torch.cuda.synchronize()
+    fwd_gap = (h_cuda - h_plain).abs()
+    check(bool(torch.isfinite(h_cuda).all()), "kernel forward finite")
+    fwd_max = fwd_gap.max().item()
+    check(bool((fwd_gap <= LM_ATOL + LM_RTOL * h_plain.abs()).all()),
+          f"kernel forward within atol {LM_ATOL} rtol {LM_RTOL} of the "
+          f"plain forward: max {fwd_max}")
+    plain = make_prefill_step(cfg, impl="chunked")
+    del h_cuda, h_plain, fwd_gap
+
+    out = {"arch": cfg.name, "params": n_params, "init_s": init_s,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "prefill_launches": prefill_launches,
+           "serve_launches": serve_launches,
+           "prefill_ms": cuda_ms(lambda: prefill(params, batch), runs=5),
+           "plain_prefill_ms": cuda_ms(lambda: plain(params, batch), runs=5),
+           "prompt_decode_s": trace["prompt_s"], "gen_s": trace["gen_s"],
+           "decode_tokens_per_s": LM_BATCH * LM_GEN / trace["gen_s"],
+           "prefill_vs_cache_max_gap": gap.max().item(),
+           "rows_decided": int(decided.sum()),
+           "first_token_agrees": agree.tolist(),
+           "margins": margin.tolist(),
+           "forward_vs_plain_max_gap": fwd_max}
+    # one decode step at the end of the run's cache length, and one
+    # prefill, with their device busy time and top kernels
+    cache = T.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+    step = make_serve_step(cfg)
+    cur = {"tokens": torch.as_tensor(tokens[:, -1:], device=dev),
+           "cache_index": LM_PROMPT + LM_GEN - 1}
+    out["decode_step_profile"] = device_profile(
+        lambda: step(params, cache, cur))
+    out["prefill_profile"] = device_profile(lambda: prefill(params, batch))
+    return out
+
+
+def _tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        else:
+            yield v
 
 
 def main(argv=None) -> int:
@@ -411,6 +676,21 @@ def main(argv=None) -> int:
         pipe, arrival_batch(type(rest)(vms=nxt[:BATCH])),
         arrival_batch(type(rest)(vms=nxt[BATCH:]))))
 
+    # flash and SSD kernels against their plain versions: at the LM
+    # path's prefill shapes and at one long prompt
+    flash = {"prefill": flash_phase(LM_BATCH, LM_PROMPT, args.seed, dev),
+             "long": flash_phase(1, LONG_PROMPT, args.seed + 1, dev)}
+    ssd = {"prefill": ssd_phase(LM_BATCH, LM_PROMPT, args.seed, dev, True),
+           "long": ssd_phase(1, LONG_PROMPT, args.seed + 1, dev, False)}
+    for name in ("prefill", "long"):
+        emit(f"flash_attention_{name}", **flash[name])
+        emit(f"ssd_{name}", **ssd[name])
+
+    # the LM serving path: prefill through the kernels, serve_batch
+    # through the cache path, each read from counts at 0
+    lm = lm_path(args.seed, dev)
+    emit("lm_serve", **lm)
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "forest_sums", "route": "cuda",
@@ -432,6 +712,22 @@ def main(argv=None) -> int:
          "plain_ms": res_hist["plain_ms"], "bound_ms": res_hist["bound_ms"],
          "bound_by": res_hist["bound_by"], "library_ms": None,
          "shape": res_hist["shape"], "fleet": res_fleet},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:73",
+         "launches": lm["prefill_launches"]["flash_attention"],
+         **{k: flash["prefill"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "shape")},
+         "long": flash["long"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd.cu",
+         "replaces": "src/repro/kernels/ssd/ssd.py:77",
+         "launches": lm["prefill_launches"]["ssd"],
+         **{k: ssd["prefill"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "shape")},
+         "library_ms": None, "long": ssd["long"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

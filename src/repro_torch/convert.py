@@ -2,8 +2,9 @@
 
 The port never imports `repro`; a caller holding objects of the JAX
 package (a trained `PredictionService`, a `SubscriptionTable`, a
-`ClusterState`) hands their arrays over as dicts of numpy arrays, so
-both packages compute from the same forests and aggregates.
+`ClusterState`, LM parameters) hands their arrays over as dicts of numpy
+arrays, so both packages compute from the same forests, aggregates and
+weights.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from repro_torch.core.forest import ObliviousForest
 from repro_torch.core.placement import ClusterState
 from repro_torch.core.predictor import PredictionService, TwoStageP95Model
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import check_family
 from repro_torch.serve.featurizer import SubscriptionTable
 
 FORESTS = ("criticality", "stage1", "low", "high")
@@ -42,6 +44,32 @@ def table_from_numpy(d: dict, device=None) -> SubscriptionTable:
     return SubscriptionTable(*(
         torch.as_tensor(np.array(d[f], np.float32), device=dev)
         for f in SubscriptionTable._fields))
+
+
+#: Parameters the reference keeps in float32 whatever the model dtype.
+F32_LEAVES = ("a_log", "dt_bias", "d_skip")
+
+
+def lm_params_from_numpy(cfg, tree: dict, dtype=torch.bfloat16,
+                         device=None) -> dict:
+    """The JAX `repro.models.transformer.init_params` pytree, leaves as
+    numpy arrays, as the port's parameters for `cfg`: the same nested
+    dicts with stacked per-layer leaves. Leaves go through float32, which
+    holds a bf16 value exactly (`np.asarray` of a JAX bf16 array is an
+    `ml_dtypes.bfloat16` array, which `torch.from_numpy` rejects), then to
+    `dtype`, or to float32 for `F32_LEAVES`."""
+    check_family(cfg)
+    dev = resolve_device(device)
+
+    def leaf(name, a):
+        t = torch.from_numpy(np.asarray(a, np.float32).copy())
+        return t.to(device=dev,
+                    dtype=torch.float32 if name in F32_LEAVES else dtype)
+
+    def walk(d):
+        return {k: walk(v) if isinstance(v, dict) else leaf(k, v)
+                for k, v in d.items()}
+    return walk(tree)
 
 
 def cluster_state_from_numpy(d: dict) -> ClusterState:

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-KERNEL_LAUNCHES: dict[str, int] = {"forest": 0, "template": 0}
+KERNEL_LAUNCHES: dict[str, int] = {"forest": 0, "template": 0,
+                                   "flash_attention": 0, "ssd": 0}
 
 
 def reset_launches() -> None:

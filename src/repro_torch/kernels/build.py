@@ -22,16 +22,20 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("forest.cu", "template.cu")
+SOURCES = ("forest.cu", "template.cu", "flash_attention.cu", "ssd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C entry points: name -> argument types. Each returns cudaGetLastError().
 SIGNATURES = {
     "forest_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "criticality_scores": [_P, _P, _I, _I, _I, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _I, _P],
+    "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

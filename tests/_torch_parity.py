@@ -1,12 +1,26 @@
 """Shared helpers of the port's parity tests (`tests/test_torch_*.py`):
 hand the JAX package's objects to `repro_torch.convert` as numpy dicts,
-and import `repro.serve` past its collection-time DeprecationWarning."""
+import `repro.serve` past its collection-time DeprecationWarning, and the
+`cuda` fixture of the tests that need the card."""
 import importlib
 import warnings
 
 import numpy as np
+import pytest
+import torch
 
 from repro_torch.convert import FORESTS
+
+
+@pytest.fixture
+def cuda():
+    """The card, for tests marked `cuda`; they skip without one. The
+    kernels build and run only there, so the check is made per test, not
+    when a module is imported."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels build and run only "
+                    "on the card")
+    return torch.device("cuda")
 
 
 def reference_serve(submodule: str | None = None):

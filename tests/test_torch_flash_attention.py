@@ -1,0 +1,101 @@
+"""The port's flash-attention wrapper (plain version on the CPU) against
+the JAX package's `flash_attention` (the Pallas kernel in interpret mode)
+and `attention_ref`, on the same numpy inputs from a seed, at the cases
+and tolerances of tests/test_kernels.py (atol 2e-5 in float32, 2e-2 in
+bf16), plus Zamba2's head dim 80. The kernel itself is held against the
+same plain version on the card in tests/test_torch_kernels_card.py and
+chip_smoke.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.kernels.flash_attention.ops import \
+    flash_attention as j_flash  # noqa: E402
+from repro.kernels.flash_attention.ref import \
+    attention_ref as j_ref  # noqa: E402
+
+from repro_torch.device import KERNEL_LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+
+#: working dtype -> (JAX dtype, torch dtype, atol of tests/test_kernels.py)
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(seed, b, hq, hkv, lq, lk, d, dtype):
+    """The same values for both packages: numpy draws rounded once to
+    the working dtype through JAX, handed to torch through float32."""
+    rng = np.random.default_rng(seed)
+    jdt, tdt, _ = DTYPES[dtype]
+    arrs = [jnp.asarray(rng.normal(0, 1, s).astype(np.float32)).astype(jdt)
+            for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d))]
+    ts = [torch.from_numpy(np.array(a, np.float32)).to(tdt) for a in arrs]
+    return arrs, ts
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("lq,lk,window", [
+    (128, 128, None), (256, 256, 64), (64, 192, None), (100, 200, 50)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_matches_reference(lq, lk, window, dtype):
+    """GQA rep 2, windows 64 and 50, Lq < Lk, ragged 100/200."""
+    (q, k, v), (tq, tk, tv) = _inputs(0, 2, 4, 2, lq, lk, 32, dtype)
+    tol = DTYPES[dtype][2]
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = j_flash(q, k, v, causal=True, window=window, bq=64, bk=64)
+    oracle = j_ref(q.astype(jnp.float32), jnp.repeat(k, 2, 1).astype(
+        jnp.float32), jnp.repeat(v, 2, 1).astype(jnp.float32),
+        causal=True, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=tol)
+
+
+def test_flash_non_causal():
+    (q, k, v), (tq, tk, tv) = _inputs(1, 1, 2, 2, 64, 96, 16, "f32")
+    got = ops.flash_attention(tq, tk, tv, causal=False)
+    want = j_flash(q, k, v, causal=False, bq=32, bk=32)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+    np.testing.assert_allclose(_np(got), _np(j_ref(q, k, v, causal=False)),
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_head_dim_80(dtype):
+    """Zamba2's head dim, which the kernel takes unpadded."""
+    (q, k, v), (tq, tk, tv) = _inputs(2, 1, 4, 4, 96, 96, 80, dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    want = j_flash(q, k, v, causal=True, bq=32, bk=32)
+    np.testing.assert_allclose(_np(got), _np(want), atol=DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("window", [None, 7])
+def test_attention_ref_matches_reference(window):
+    (q, k, v), (tq, tk, tv) = _inputs(3, 2, 2, 2, 40, 72, 16, "f32")
+    np.testing.assert_allclose(
+        _np(ref.attention_ref(tq, tk, tv, causal=True, window=window)),
+        _np(j_ref(q, k, v, causal=True, window=window)), atol=1e-6)
+
+
+def test_plain_version_counts_no_launch():
+    _, (tq, tk, tv) = _inputs(4, 1, 2, 1, 8, 8, 16, "f32")
+    reset_launches()
+    ops.flash_attention(tq, tk, tv)
+    assert KERNEL_LAUNCHES["flash_attention"] == 0
+
+
+def test_bad_shapes_raise():
+    q = torch.zeros(1, 3, 8, 16)
+    kv = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        ops.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, window=0)
+

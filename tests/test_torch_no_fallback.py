@@ -11,7 +11,11 @@ import pytest
 import torch
 
 from repro_torch import device as D
+from repro_torch.configs import get_config
 from repro_torch.core import criticality
+from repro_torch.launch import serve as lm_serve
+from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models import transformer as T
 from repro_torch.serve import ServePipeline, resolve_kernel
 from repro_torch.serve.featurizer import empty_table
 from repro_torch.sim.telemetry import generate_population
@@ -51,16 +55,45 @@ def test_cuda_kernel_on_cpu_tensor_raises():
     assert resolve_kernel("auto", x) == "ref"
 
 
+def test_lm_entry_points_default_to_the_card(no_cuda):
+    cfg = get_config("zamba2-2.7b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_serve.main(["--arch", "zamba2-2.7b", "--reduced", "--gen", "1"])
+    params = T.init_params(cfg, 0, device="cpu")
+    assert params["embed"]["w"].device.type == "cpu"
+    assert T.init_cache(cfg, 1, 4, device="cpu")["ssm"]["ssm"].is_cpu
+
+
+def test_lm_cuda_impl_on_cpu_tensor_raises():
+    cfg = get_config("zamba2-2.7b").reduced()
+    params = T.init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    batch = {"tokens": torch.zeros(1, 8, dtype=torch.long)}
+    D.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        make_prefill_step(cfg, impl="cuda")(params, batch)
+    with pytest.raises(ValueError, match="impl"):
+        make_prefill_step(cfg, impl="pallas")(params, batch)
+    assert sum(D.KERNEL_LAUNCHES.values()) == 0
+
+
 def test_plain_versions_never_count_launches():
     D.reset_launches()
     criticality.classify(np.ones((2, 240), np.float32), device="cpu")
-    assert D.KERNEL_LAUNCHES == {"forest": 0, "template": 0}
+    assert D.KERNEL_LAUNCHES == {"forest": 0, "template": 0,
+                                 "flash_attention": 0, "ssd": 0}
 
 
 def test_import_without_jax():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.serve, repro_torch.core.criticality, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.configs, "
+            "repro_torch.models.transformer, repro_torch.launch.serve, "
+            "repro_torch.launch.steps, repro_torch.kernels.ssd.ops, "
+            "repro_torch.kernels.flash_attention.ops; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
