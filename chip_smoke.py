@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py [--seed N]
 
-It builds the port's four CUDA kernels from `src/repro_torch/csrc`, holds
-each kernel against its plain torch version on the card, and drives the
-port's two paths:
+It builds the port's four CUDA kernels from `src/repro_torch/csrc`
+(printing ptxas's registers and spills, and the tensor-core instructions
+in each kernel's SASS: every bf16 flash and SSD instantiation must have
+HMMA/HGMMA), holds each kernel against its plain torch version on the
+card, at the paths' shapes and at the bf16 kernels' edge shapes, and
+drives the port's two paths:
 
 - the placement path at the full width of one real cluster: label an
   8,000-VM history with the template kernel, train the four forests on
@@ -25,7 +28,8 @@ port's two paths:
 Each phase prints one JSON line. Then come the card's name and power
 limit as `nvidia-smi` prints them, a `{"kernels": [...]}` line with each
 kernel's launches on the main path, error against its plain version,
-times and bound, and last `{"ok": true, "device": {...}}`. It exits
+times and bound (and, for flash and SSD, device time per call, achieved
+TFLOP/s and the share bound_ms / ms), and last `{"ok": true, "device": {...}}`. It exits
 non-zero, with no result, when no CUDA device is present, and on any
 failed check. It imports neither JAX nor the JAX package.
 """
@@ -34,6 +38,8 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -101,6 +107,28 @@ def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 20, runs: int = 7) -> float:
+    """Median over `runs` of the milliseconds per call of `calls`
+    back-to-back calls between two CUDA events: the device time of a
+    kernel whose wrapper's host work per call is shorter than it (one
+    timed call, as `cuda_ms` takes, also holds that host work)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -258,10 +286,12 @@ def forest_phase(x, stacked, svc=None) -> dict:
             "leaf_indices_equal": True}
 
 
-def device_profile(fn, traced=None) -> dict:
+def device_profile(fn, traced=None, kernels=()) -> dict:
     """Host wall of one unprofiled call of `fn` against the device time
     the profiler traces in a call of `traced` (default `fn` again): the
-    busy and idle share, kernel launches and the top kernels."""
+    busy and idle share, kernel launches, the top kernels, and the
+    device ms and count of the kernels whose names hold a string of
+    `kernels`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -279,13 +309,17 @@ def device_profile(fn, traced=None) -> dict:
            and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    named = {k: [sum(e.self_device_time_total for e in dev if k in e.key)
+                 / 1e3, sum(e.count for e in dev if k in e.key)]
+             for k in kernels}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or "not measured",
             "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms
             else "not measured",
             "launches": sum(e.count for e in events
                             if e.key == "cudaLaunchKernel"),
             "top_device_ms": [[e.key[:48], e.self_device_time_total / 1e3,
-                               e.count] for e in top]}
+                               e.count] for e in top],
+            "kernel_device_ms": named}
 
 
 def serve_profile(pipe, batch_a, batch_b) -> dict:
@@ -298,25 +332,44 @@ def serve_profile(pipe, batch_a, batch_b) -> dict:
     return out
 
 
-def flash_bound_ms(b, h, lq, lk, d, itemsize) -> tuple[float, str]:
-    """q, k, v read once and o written once, against the QK and PV
-    products of the (q, k) pairs the causal mask keeps (2 D operations
-    each for QK^T and for PV), on the bf16 tensor cores."""
+def flash_ops(b, h, lq, lk, d) -> float:
+    """The QK and PV products of the (q, k) pairs the causal mask keeps
+    (2 D operations each for QK^T and for PV)."""
     pairs = sum(min(lk, lk - lq + i + 1) for i in range(lq))
+    return 4 * d * pairs * b * h
+
+
+def flash_bound_ms(b, h, lq, lk, d, itemsize) -> tuple[float, str]:
+    """q, k, v read once and o written once, against `flash_ops` on the
+    bf16 tensor cores."""
     return bound(b * h * (2 * lq + 2 * lk) * d * itemsize,
-                 4 * d * pairs * b * h, BF16_OPS_PER_S)
+                 flash_ops(b, h, lq, lk, d), BF16_OPS_PER_S)
 
 
-def ssd_bound_ms(b, l, h, p, n, itemsize, chunk=128) -> tuple[float, str]:
-    """x read and y written once, dt, B, C, a, d read once, against the
-    dual form's products at the reference's chunk (per chunk and head:
-    C B^T 2Q^2N, the masked-decay product 2Q^2P, C S^T and the state
-    update 2QPN each), on the bf16 tensor cores."""
+def ssd_ops(b, l, h, p, n, chunk=128) -> float:
+    """The dual form's products at the reference's chunk (per chunk and
+    head: C B^T 2Q^2N, the masked-decay product 2Q^2P, C S^T and the
+    state update 2QPN each)."""
+    nc = -(-l // chunk)
+    return b * h * nc * (2 * chunk * chunk * (n + p) + 4 * chunk * p * n)
+
+
+def ssd_bound_ms(b, l, h, p, n, itemsize) -> tuple[float, str]:
+    """x read and y written once, dt, B, C, a, d read once, against
+    `ssd_ops` on the bf16 tensor cores."""
     nbytes = 2 * b * l * h * p * itemsize + b * l * h * 4 \
         + 2 * b * l * n * itemsize + 2 * h * 4
-    nc = -(-l // chunk)
-    ops = b * h * nc * (2 * chunk * chunk * (n + p) + 4 * chunk * p * n)
-    return bound(nbytes, ops, BF16_OPS_PER_S)
+    return bound(nbytes, ssd_ops(b, l, h, p, n), BF16_OPS_PER_S)
+
+
+def rates(out: dict, ops: float) -> None:
+    """Achieved TFLOP/s of the function's operations and the roofline
+    share bound_ms / ms, from a phase's own time (one call, and device
+    time) and bound."""
+    out["tflops"] = ops / (out["ms"] * 1e-3) / 1e12
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["device_tflops"] = ops / (out["device_ms"] * 1e-3) / 1e12
+    out["device_bound_share"] = out["bound_ms"] / out["device_ms"]
 
 
 def flash_phase(b: int, l: int, seed: int, dev) -> dict:
@@ -349,8 +402,12 @@ def flash_phase(b: int, l: int, seed: int, dev) -> dict:
     # the kernel's end-aligned one
     out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, is_causal=True))
+    out["device_ms"] = device_ms(lambda: ops.flash_attention(qd, kd, vd))
+    out["library_device_ms"] = device_ms(
+        lambda: F.scaled_dot_product_attention(qd, kd, vd, is_causal=True))
     out["bound_ms"], out["bound_by"] = flash_bound_ms(b, 32, l, l, 80, 2)
     out["bound_peaks"] = BF16_PEAKS
+    rates(out, flash_ops(b, 32, l, l, 80))
     return out
 
 
@@ -403,11 +460,101 @@ def ssd_phase(b: int, l: int, seed: int, dev, exact: bool) -> dict:
           "relative of its plain version")
     out["max_abs_err_bfloat16"] = out["max_abs_err"] = err.max().item()
     out["ms"] = cuda_ms(lambda: ops.ssd(xb, dt, a, bb, cb, d))
+    out["device_ms"] = device_ms(lambda: ops.ssd(xb, dt, a, bb, cb, d))
     out["plain_ms"] = cuda_ms(
         lambda: ref.ssd_chunked(xb, dt, a, bb, cb, d, chunk=ch))
     out["bound_ms"], out["bound_by"] = ssd_bound_ms(b, l, 80, 64, 64, 2)
     out["bound_peaks"] = BF16_PEAKS
+    rates(out, ssd_ops(b, l, 80, 64, 64))
     return out
+
+
+#: Edge shapes of the bf16 tensor-core kernels that the prefill shape
+#: never reaches. Flash: (B, Hq, Hkv, Lq, Lk, D, causal, window) — ragged
+#: Lq, Lk > Lq, a window, GQA rep 2, D 16, 40 (not a multiple of 16) and
+#: 128, non-causal. SSD: (B, L, H, P, N) — ragged L, N 128, P 16, and P,
+#: N the wrapper pads to multiples of 8.
+FLASH_EDGES = [(2, 4, 2, 300, 300, 80, True, None),
+               (2, 4, 2, 300, 700, 80, True, None),
+               (2, 4, 2, 512, 512, 80, True, 128),
+               (2, 4, 2, 300, 300, 16, True, None),
+               (2, 4, 2, 300, 300, 40, True, None),
+               (2, 4, 2, 300, 700, 128, True, 200),
+               (2, 4, 2, 300, 700, 128, False, None)]
+SSD_EDGES = [(2, 200, 80, 64, 64), (2, 200, 4, 64, 128),
+             (2, 200, 4, 16, 64), (2, 300, 3, 40, 20)]
+
+
+def edge_sweep(seed: int, dev) -> dict:
+    """The bf16 flash and SSD kernels against their plain versions at
+    FLASH_EDGES and SSD_EDGES, at the phases' unchanged bars; SSD inputs
+    at Zamba2's strong decays (a = -linspace(1, 16), dt = softplus of a
+    unit normal)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd import ref as sref
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    flash = []
+    for b, hq, hkv, lq, lk, d, causal, window in FLASH_EDGES:
+        q = randn(b, hq, lq, d).bfloat16()
+        k, v = randn(b, hkv, lk, d).bfloat16(), randn(b, hkv, lk, d).bfloat16()
+        rep = hq // hkv
+        got = fops.flash_attention(q, k, v, causal=causal, window=window)
+        want = fref.attention_ref(q, k.repeat_interleave(rep, 1),
+                                  v.repeat_interleave(rep, 1),
+                                  causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        case = [b, hq, hkv, lq, lk, d, causal, window]
+        check(bool(torch.isfinite(got).all()), f"flash edge {case} finite")
+        check(err <= FLASH_ATOL["bfloat16"], f"flash edge {case} within "
+              f"{FLASH_ATOL['bfloat16']} of its plain version: {err}")
+        flash.append({"case": case, "max_abs_err": err})
+    ssd = []
+    for b, l, h, p, n in SSD_EDGES:
+        x = randn(b, l, h, p).bfloat16()
+        dt = torch.nn.functional.softplus(randn(b, l, h))
+        a = -torch.linspace(1.0, 16.0, h, device=dev)
+        bm, cm = randn(b, l, n).bfloat16(), randn(b, l, n).bfloat16()
+        d = torch.ones(h, device=dev)
+        got = sops.ssd(x, dt, a, bm, cm, d).float()
+        want = sref.ssd_chunked(x, dt, a, bm, cm, d,
+                                chunk=min(sops.CHUNK, max(l, 8))).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        case = [b, l, h, p, n]
+        check(bool(torch.isfinite(got).all()), f"SSD edge {case} finite")
+        check(bool((err <= SSD_BF16_ATOL + SSD_BF16_RTOL * want.abs()).all()),
+              f"SSD edge {case} within {SSD_BF16_ATOL} + {SSD_BF16_RTOL} "
+              "relative of its plain version")
+        ssd.append({"case": case, "max_abs_err": err.max().item(),
+                    "max_abs_y": want.abs().max().item()})
+    return {"flash": flash, "ssd": ssd}
+
+
+def sass_mma_counts(lib: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel of the built
+    library's SASS, by `cuobjdump --dump-sass`."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" \
+        / "cuobjdump"
+    sass = subprocess.run([str(tool), "--dump-sass", lib],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\bHG?MMA\b", ln):
+            counts[fn] += 1
+    return counts
 
 
 def lm_path(seed: int, dev) -> dict:
@@ -506,7 +653,10 @@ def lm_path(seed: int, dev) -> dict:
            "cache_index": LM_PROMPT + LM_GEN - 1}
     out["decode_step_profile"] = device_profile(
         lambda: step(params, cache, cur))
-    out["prefill_profile"] = device_profile(lambda: prefill(params, batch))
+    # the kernels' device time inside a prefill: [ms, launches] each
+    out["prefill_profile"] = device_profile(
+        lambda: prefill(params, batch),
+        kernels=("flash_kernel_bf16", "ssd_kernel_bf16"))
     return out
 
 
@@ -557,9 +707,16 @@ def main(argv=None) -> int:
     # 2. build
     info = build.build()
     ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "Compiling entry" in ln
+             or "spill" in ln]
+    mma = sass_mma_counts(info["path"])
+    for kern in ("flash_kernel_bf16", "ssd_kernel_bf16"):
+        got = {k: v for k, v in mma.items() if kern in k}
+        check(got and all(v > 0 for v in got.values()),
+              f"every {kern} instantiation has HMMA/HGMMA instructions: "
+              f"{got}")
     emit("build", seconds=info["seconds"], library=info["path"],
-         ptxas=ptxas)
+         ptxas=ptxas, sass_mma_counts=mma)
 
     # host data for every later phase
     t0 = time.perf_counter()
@@ -685,6 +842,7 @@ def main(argv=None) -> int:
     for name in ("prefill", "long"):
         emit(f"flash_attention_{name}", **flash[name])
         emit(f"ssd_{name}", **ssd[name])
+    emit("bf16_edge_sweep", **edge_sweep(args.seed, dev))
 
     # the LM serving path: prefill through the kernels, serve_batch
     # through the cache path, each read from counts at 0
@@ -718,7 +876,8 @@ def main(argv=None) -> int:
          "launches": lm["prefill_launches"]["flash_attention"],
          **{k: flash["prefill"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "shape")},
+             "library_ms", "shape", "tflops", "bound_share", "device_ms",
+             "library_device_ms")},
          "long": flash["long"]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd.cu",
@@ -726,7 +885,7 @@ def main(argv=None) -> int:
          "launches": lm["prefill_launches"]["ssd"],
          **{k: ssd["prefill"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "shape")},
+             "shape", "tflops", "bound_share", "device_ms")},
          "library_ms": None, "long": ssd["long"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

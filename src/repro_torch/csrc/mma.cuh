@@ -1,0 +1,98 @@
+// Tensor-core and async-copy building blocks shared by the bf16 kernels
+// (flash_attention.cu, ssd.cu): PTX for cp.async, ldmatrix and
+// mma.sync.m16n8k16 (bf16 in, float32 accumulate), sm_80 and later.
+//
+// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4), each
+// register holding two bf16 with the lower column index in its low half:
+//   A (16 x 16, row-major): a[0] (g, 2t..2t+1), a[1] (g + 8, 2t..),
+//                           a[2] (g, 2t + 8..), a[3] (g + 8, 2t + 8..);
+//   B (16 x 8, k x n):      b[0] (k 2t..2t+1, n g), b[1] (k 2t + 8.., n g);
+//   C (16 x 8, float32):    c[0..1] (g, 2t..2t+1), c[2..3] (g + 8, 2t..).
+// So the C fragments of two neighbouring n-blocks are, rounded to bf16,
+// the A fragment of the next product over those 16 columns.
+#pragma once
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
+// (and reads nothing), which is how ragged rows and columns are padded.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, which lands in r[i].
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// The same, each matrix transposed.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// c += a b on the tensor cores: a 16 x 16, b 16 x 8 bf16, c float32.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// v = hi + lo with hi = bf16(v) and lo = bf16(v - hi): a float32 operand
+// as two bf16 passes through the tensor cores, exact to ~2^-17 relative.
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
+}
+
+// Zero an array of C fragments.
+template <int N>
+__device__ __forceinline__ void zero_frags(float (&c)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.0f;
+}

@@ -23,6 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("forest.cu", "template.cu", "flash_attention.cu", "ssd.cu")
+#: Headers the sources include: part of the library's hash.
+HEADERS = ("mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,7 +54,7 @@ def nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
@@ -60,10 +62,13 @@ def library_path() -> Path:
 def build() -> dict:
     """Compile the sources (in parallel) and link the library unless it
     is already built. Returns ``{"path", "seconds", "log"}``; `log` holds
-    nvcc's output (`-Xptxas -v`: registers, shared memory, spills)."""
+    nvcc's output (`-Xptxas -v`: registers, shared memory, spills), kept
+    beside the library for later calls."""
     lib = library_path()
+    log_file = lib.with_suffix(".log")
     if lib.exists():
-        return {"path": str(lib), "seconds": 0.0, "log": ""}
+        log = log_file.read_text() if log_file.exists() else ""
+        return {"path": str(lib), "seconds": 0.0, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     cc = nvcc()
@@ -84,9 +89,11 @@ def build() -> dict:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        log = "".join(logs) + link.stdout
+        log_file.write_text(log)
         os.replace(part, lib)           # atomic: concurrent builds agree
     return {"path": str(lib), "seconds": time.perf_counter() - t0,
-            "log": "".join(logs) + link.stdout}
+            "log": log}
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,6 +105,13 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def aligned(t):
+    """`t` contiguous with its data at a 16-byte boundary, as the
+    kernels' 16-byte copies need (a copy only when it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(err: int, name: str) -> None:

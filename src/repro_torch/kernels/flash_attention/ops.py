@@ -61,7 +61,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lk < lq:
         raise ValueError(f"Lk {lk} < Lq {lq}: queries align to the end of "
                          "the keys")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

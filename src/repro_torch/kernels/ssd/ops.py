@@ -58,21 +58,26 @@ def ssd(x, dt, a, b, c, d=None, chunk: int = CHUNK):
         raise ValueError(f"head dim {p} and state {n}: the kernel takes "
                          f"up to {MAX_P} and {MAX_N}")
     pad = (-l) % ch
+    # the bf16 kernel copies rows of 8 values (16 bytes): P and N are
+    # padded to multiples of 8 with zeros, which is exact
+    bf16 = x.dtype == torch.bfloat16
+    pp, nn = (-(-p // 8) * 8, -(-n // 8) * 8) if bf16 else (p, n)
+    if pad or pp != p:
+        x = F.pad(x, (0, pp - p, 0, 0, 0, pad))
     if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-        b = F.pad(b, (0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, pad))
-    x, dt, a, b, c, d = (t.contiguous() for t in (x, dt, a, b, c, d))
+    if pad or nn != n:
+        b = F.pad(b, (0, nn - n, 0, pad))
+        c = F.pad(c, (0, nn - n, 0, pad))
+    x, dt, a, b, c, d = (build.aligned(t) for t in (x, dt, a, b, c, d))
     y = torch.empty_like(x)
     if y.numel() == 0:
-        return y[:, :l]
+        return y[:, :l, :, :p]
     with torch.cuda.device(x.device):
         err = build.load().ssd_scan(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), d.data_ptr(), y.data_ptr(), bsz, l + pad, h, p,
-            n, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            c.data_ptr(), d.data_ptr(), y.data_ptr(), bsz, l + pad, h, pp,
+            nn, int(bf16), torch.cuda.current_stream().cuda_stream)
     build.check(err, "ssd_scan")
     KERNEL_LAUNCHES["ssd"] += 1
-    return y[:, :l]
+    return y[:, :l, :, :p]

@@ -84,3 +84,60 @@ def ssd_ref(x, dt, a, b, c, d=None):
     if d is not None:
         y = y + d.float()[None, None, :, None] * x32
     return y.to(x.dtype), state
+
+
+def _split_bf16(v, split: bool = True):
+    """v as hi + lo, both rounded to bf16 (returned in float32): the
+    float32 operand of a tensor-core product taken in two passes; with
+    `split` False, v rounded once and a zero lo."""
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float() if split else torch.zeros_like(v)
+
+
+def ssd_bf16_emulated(x, dt, a, b, c, d, tile: int = 64,
+                      split: bool = True):
+    """The bf16 kernel's rounding points, in torch, for the CPU tests (the
+    port never calls it): x, B, C exact bf16; per tile of `tile` steps,
+    C B^T in float32; (C B^T o M o dt_j), the float32 state S and
+    (w o B), w = exp(total - cum) dt, each split into hi + lo bf16 before
+    its product (rounded once instead when `split` is False, the design
+    the kernel rejects); float32 sums; y rounded to bf16. Shapes as
+    `ssd_chunked`; x, b, c should already be bf16."""
+    bsz, l, h, p = x.shape
+    n = b.shape[-1]
+    pad = (-l) % tile
+    x32, dt32, b32, c32 = (F.pad(t.float(), (0, 0) * (t.ndim - 2)
+                                 + (0, pad)) for t in (x, dt, b, c))
+    nt = (l + pad) // tile
+    xc = x32.reshape(bsz, nt, tile, h, p).permute(1, 0, 3, 2, 4)
+    dtc = dt32.reshape(bsz, nt, tile, h).permute(1, 0, 3, 2)
+    bc = b32.reshape(bsz, nt, tile, n).transpose(0, 1)
+    cc = c32.reshape(bsz, nt, tile, n).transpose(0, 1)
+    idx = torch.arange(tile, device=x.device)
+    lower = idx[:, None] >= idx[None, :]
+    ninf = torch.full((), float("-inf"), device=x.device)
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for xq, dtq, bq, cq in zip(xc, dtc, bc, cc):
+        cum = torch.cumsum((a.float()[None, :, None] * dtq).double(), -1)
+        total = cum[..., -1:]
+        diff = cum[..., :, None] - cum[..., None, :]
+        m = torch.exp(torch.where(lower, diff, ninf).float())
+        g = torch.einsum("bqn,bkn->bqk", cq, bq)[:, None] * m \
+            * dtq[..., None, :]                          # (B, H, Q, Q)
+        g_hi, g_lo = _split_bf16(g, split)
+        s_hi, s_lo = _split_bf16(state, split)
+        y = torch.exp(cum.float())[..., None] * (
+            torch.einsum("bqn,bhpn->bhqp", cq, s_hi)
+            + torch.einsum("bqn,bhpn->bhqp", cq, s_lo)) \
+            + torch.einsum("bhqk,bhkp->bhqp", g_hi, xq) \
+            + torch.einsum("bhqk,bhkp->bhqp", g_lo, xq)
+        w = torch.exp((total - cum).float()) * dtq       # (B, H, Q)
+        wb_hi, wb_lo = _split_bf16(w[..., None] * bq[:, None], split)
+        state = torch.exp(total.float())[..., None] * state \
+            + torch.einsum("bhqp,bhqn->bhpn", xq, wb_hi) \
+            + torch.einsum("bhqp,bhqn->bhpn", xq, wb_lo)
+        ys.append(y)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(bsz, l + pad, h, p)
+    y = y[:, :l] + d.float()[None, None, :, None] * x.float()
+    return y.to(torch.bfloat16)

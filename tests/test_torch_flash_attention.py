@@ -99,3 +99,22 @@ def test_bad_shapes_raise():
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, q, q, window=0)
 
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
+                                           (False, None)])
+def test_flash_bf16_rounding_design(causal, window):
+    """The bf16 kernel's one added rounding (`ref.attention_p_bf16`: the
+    probabilities rounded to bf16 before P V) at Zamba2's head dim 80 and
+    L 512, GQA rep 2: within the bf16 bar 2e-2 of the float32 oracle, the
+    port's and the JAX package's, on the same bf16 inputs."""
+    (q, k, v), (tq, tk, tv) = _inputs(5, 1, 4, 2, 512, 512, 80, "bf16")
+    tk2, tv2 = tk.repeat_interleave(2, 1), tv.repeat_interleave(2, 1)
+    got = ref.attention_p_bf16(tq, tk2, tv2, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    want = ref.attention_ref(tq, tk2, tv2, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+    oracle = j_ref(q.astype(jnp.float32), jnp.repeat(k, 2, 1).astype(
+        jnp.float32), jnp.repeat(v, 2, 1).astype(jnp.float32),
+        causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=2e-2)

@@ -4,6 +4,11 @@ versions on the card. Every test here needs an NVIDIA card (marker
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_card.py
 
+The shapes include the edges of the bf16 tensor-core kernels: ragged
+lengths (300, 200), Lk > Lq, windows, GQA rep 2, head dims that are not
+a multiple of 16 (40) or are padded (16), P and N that the wrapper pads
+to multiples of 8 (P 40, N 24 and 4).
+
 Bars: flash atol 2e-5 in float32 and 2e-2 in bf16, SSD atol 2e-4 in
 float32 (tests/test_kernels.py). An SSD output in bf16 can round to the
 neighbouring bf16 value, so it gets the bf16 bar plus one bf16 ulp (at
@@ -32,7 +37,9 @@ def _normal(rng, *shape):
 @pytest.mark.parametrize("lq,lk,window,d,causal", [
     (100, 200, 50, 32, True), (512, 512, None, 80, True),
     (64, 192, None, 128, True), (64, 96, None, 16, False),
-    (256, 256, 64, 80, True)])
+    (256, 256, 64, 80, True), (300, 300, None, 40, True),
+    (300, 700, 128, 80, True), (300, 700, None, 128, False),
+    (300, 300, 100, 16, True)])
 def test_flash_kernel_matches_plain_version(cuda, dtype, lq, lk, window, d,
                                             causal):
     rng = np.random.default_rng(lq + lk + d)
@@ -54,7 +61,8 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, lq, lk, window, d,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l,h,p,n", [(100, 3, 16, 8), (512, 4, 64, 64),
-                                     (200, 2, 64, 128), (5, 2, 8, 4)])
+                                     (200, 2, 64, 128), (5, 2, 8, 4),
+                                     (200, 3, 16, 128), (300, 2, 40, 24)])
 def test_ssd_kernel_matches_plain_version(cuda, dtype, l, h, p, n):
     rng = np.random.default_rng(l + p + n)
     x = _normal(rng, 2, l, h, p).to(cuda, dtype)

@@ -129,3 +129,62 @@ def test_bad_shapes_raise():
     with pytest.raises(ValueError, match="not"):
         ops.ssd(x, dt[:, :, :1], a, bm, cm, d)
 
+
+
+def _strong_decay_inputs():
+    """The inputs of test_ssd_strong_decay_matches_float64_recurrence:
+    Zamba2's decays, head and state of 64, |y| in the hundreds."""
+    rng = np.random.default_rng(8)
+    b, l, h, p, n = 1, 256, 4, 64, 64
+    x = rng.normal(0, 1, (b, l, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(0, 1, (b, l, h)))).astype(np.float32)
+    a = -np.linspace(1.0, 16.0, h).astype(np.float32)
+    bm = rng.normal(0, 1, (b, l, n)).astype(np.float32)
+    cm = rng.normal(0, 1, (b, l, n)).astype(np.float32)
+    return x, dt, a, bm, cm, np.ones(h, np.float32)
+
+
+def test_ssd_bf16_rounding_design_holds_the_bf16_bar():
+    """The bf16 kernel's rounding points (`ref.ssd_bf16_emulated`: exact
+    bf16 x, B, C; hi + lo bf16 splits of (C B^T o M o dt), of w o B and of
+    the float32 state) at Zamba2's strong decays: within the bf16 bar
+    (2e-2 + 2^-7 relative, one bf16 ulp) of the plain chunked form on the
+    same bf16 inputs, and of the JAX package's chunked SSD."""
+    x, dt, a, bm, cm, d = _strong_decay_inputs()
+    tx, tdt, ta, tb, tc, td = _t((x, dt, a, bm, cm, d))
+    tx, tb, tc = tx.bfloat16(), tb.bfloat16(), tc.bfloat16()
+    got = ref.ssd_bf16_emulated(tx, tdt, ta, tb, tc, td).float()
+    want = ref.ssd_chunked(tx, tdt, ta, tb, tc, td).float()
+    assert got.shape == want.shape and want.abs().max() > 100
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2 ** -7)
+    jy = j_ssd(*_j((tx.float().numpy(), dt, a, tb.float().numpy(),
+                    tc.float().numpy(), d)))
+    torch.testing.assert_close(got, torch.from_numpy(np.array(jy)),
+                               atol=2e-2, rtol=2 ** -7)
+
+
+def test_ssd_bf16_single_rounding_breaks_the_bf16_bar():
+    """Why the kernel splits its float32 operands: rounded once to bf16
+    instead, on the same strong-decay inputs, they move some outputs past
+    the bf16 bar that the hi + lo design holds."""
+    tx, tdt, ta, tb, tc, td = _t(_strong_decay_inputs())
+    tx, tb, tc = tx.bfloat16(), tb.bfloat16(), tc.bfloat16()
+    want = ref.ssd_chunked(tx, tdt, ta, tb, tc, td).float()
+    bar = 2e-2 + 2 ** -7 * want.abs()
+    for split, fails in ((True, False), (False, True)):
+        got = ref.ssd_bf16_emulated(tx, tdt, ta, tb, tc, td,
+                                    split=split).float()
+        assert bool(((got - want).abs() > bar).any()) == fails
+
+
+@pytest.mark.parametrize("l,p,n", [(200, 16, 128), (100, 40, 24)])
+def test_ssd_bf16_emulation_ragged_and_padded(l, p, n):
+    """The same rounding design at a ragged length and at P and N that
+    the bf16 kernel pads (tiles of 64 against the reference's chunk)."""
+    arrs = _inputs(9, 2, l, 3, p, n)
+    tx, tdt, ta, tb, tc, td = _t(arrs)
+    tx, tb, tc = tx.bfloat16(), tb.bfloat16(), tc.bfloat16()
+    got = ref.ssd_bf16_emulated(tx, tdt, ta, tb, tc, td).float()
+    want = ref.ssd_chunked(tx, tdt, ta, tb, tc, td,
+                           chunk=min(128, max(l, 8))).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2 ** -7)
