@@ -7,8 +7,10 @@ It builds the port's four CUDA kernels from `src/repro_torch/csrc`
 (printing ptxas's registers and spills, and the tensor-core instructions
 in each kernel's SASS: every bf16 flash and SSD instantiation must have
 HMMA/HGMMA), holds each kernel against its plain torch version on the
-card, at the paths' shapes and at the bf16 kernels' edge shapes, and
-drives the port's two paths:
+card, at the paths' shapes and at each kernel's edge shapes (forest:
+one row, ragged batches, stacks over 48 KB of tables, depths 1, 8 and
+12, K 1, 4 and 10; template: T 48 to 1,008, constant, zero and tied
+rows; flash and SSD in bf16), and drives the port's two paths:
 
 - the placement path at the full width of one real cluster: label an
   8,000-VM history with the template kernel, train the four forests on
@@ -28,8 +30,10 @@ drives the port's two paths:
 Each phase prints one JSON line. Then come the card's name and power
 limit as `nvidia-smi` prints them, a `{"kernels": [...]}` line with each
 kernel's launches on the main path, error against its plain version,
-times and bound (and, for flash and SSD, device time per call, achieved
-TFLOP/s and the share bound_ms / ms), and last `{"ok": true, "device": {...}}`. It exits
+times and bound (one-call `ms`; `device_ms` from back-to-back calls; for
+forest and template also the profiler's `kernel_device_ms` and the
+wrapper's `host_us` per call; for flash and SSD achieved TFLOP/s; the
+bound shares), and last `{"ok": true, "device": {...}}`. It exits
 non-zero, with no result, when no CUDA device is present, and on any
 failed check. It imports neither JAX nor the JAX package.
 """
@@ -65,6 +69,9 @@ FLEET_ROWS = 65536
 TEMPLATE_RTOL, TEMPLATE_ATOL = 5e-3, 5e-4
 FOREST_ATOL = 1e-5
 TIMED_RUNS = 20
+#: Fields of a forest or template phase that its `kernels` entry carries.
+TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+         "kernel_device_ms", "host_us", "bound_share", "device_bound_share")
 
 #: LM path: Zamba2-2.7B, 8 prompts of 512 tokens, 32 generated; the long
 #: prompt of the kernel phases.
@@ -132,6 +139,41 @@ def device_ms(fn, calls: int = 20, runs: int = 7) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of `fn`: the host clock around `calls`
+    calls that only enqueue work (the wrapper's checks, allocation and
+    launch), with the device idle before and drained after."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def kernel_times(out: dict, fn, kernel: str, calls: int = 20) -> None:
+    """Fill `out` with the times of one kernel wrapper `fn` beside the
+    phase's `ms` and `bound_ms`: `device_ms` (back-to-back calls between
+    two events), `kernel_device_ms` (the device time of the kernels whose
+    names hold `kernel`, per call, from the profiler over `calls` calls),
+    `host_us` per call, and the bound shares of each."""
+    out["device_ms"] = device_ms(fn)
+    prof = device_profile(lambda: [fn() for _ in range(calls)],
+                          kernels=(kernel,))
+    ms, n = prof["kernel_device_ms"][kernel]
+    out["kernel_device_ms"] = ms / n if n else "not measured"
+    out["kernel_launches_traced"] = n
+    out["host_us"] = host_us(fn)
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["device_bound_share"] = out["bound_ms"] / out["device_ms"]
+    if n:
+        out["kernel_bound_share"] = out["bound_ms"] / out["kernel_device_ms"]
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
     """Least ms for `nbytes` moved once and `ops` at `ops_per_s`, and
     which of the two bounds it."""
@@ -192,6 +234,8 @@ def template_phase(series: np.ndarray, dev, timed: bool = True) -> dict:
         out["ms"] = cuda_ms(lambda: ops.criticality_scores(x))
         out["plain_ms"] = cuda_ms(lambda: ref.criticality_scores_ref(x))
         out["bound_ms"], out["bound_by"] = template_bound_ms(*series.shape)
+        kernel_times(out, lambda: ops.criticality_scores(x),
+                     "criticality_kernel")
     return out
 
 
@@ -255,20 +299,25 @@ def leaf_index_probe(x, stacked):
 def forest_phase(x, stacked, svc=None) -> dict:
     """The forest kernel against its plain version on one feature batch:
     leaf indices exact (and equal to `leaf_index_np` when `svc` is
-    given), and the sums over T trees within FOREST_ATOL once divided by
+    given), the sums over T trees within FOREST_ATOL once divided by
     T — the RF mean the gate reads, and the bar tests/test_kernels.py
-    holds the tiled Pallas kernel to. (The kernel adds the trees in
-    order, the plain version in the card's reduction order; sums near 48
-    differ by a few float32 ulps, ~4e-6 each.)"""
+    holds the tiled Pallas kernel to — and the sums bit-equal to
+    `ref.forest_sums_lanes`, the kernel's summation order emulated in
+    torch (the plain version adds in the card's reduction order; sums
+    near 48 differ by a few float32 ulps, ~4e-6 each)."""
     import torch
     from repro_torch.kernels.forest import ops, ref
     got = ops.forest_sums(x, *stacked)
     want = ref.forest_sums_ref(x, *stacked)
+    nf, t, d = stacked.feat_idx.shape
+    plan = ops.launch_plan(x.shape[0], x.shape[1], nf, t, d,
+                           stacked.leaf.shape[-1])
+    lanes = ref.forest_sums_lanes(x, *stacked, tile=plan["tile"],
+                                  lanes=plan["lanes"])
     idx = leaf_index_probe(x, stacked)
     idx_ref = ref.leaf_index_ref(x, stacked.feat_idx, stacked.thr)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    n_trees = stacked.feat_idx.shape[1]
     check(bool(torch.equal(idx, idx_ref)), "forest kernel leaf indices equal "
           "the plain version's")
     if svc is not None:
@@ -279,11 +328,15 @@ def forest_phase(x, stacked, svc=None) -> dict:
             check(np.array_equal(idx[:, j].cpu().numpy(),
                                  f.leaf_index_np(xn)),
                   "forest kernel leaf indices equal leaf_index_np")
-    check(err / n_trees <= FOREST_ATOL,
-          f"forest sums / T within {FOREST_ATOL}: {err / n_trees}")
+    check(err / t <= FOREST_ATOL,
+          f"forest sums / T within {FOREST_ATOL}: {err / t}")
+    check(bool(torch.equal(got, lanes)), "forest sums bit-equal to the "
+          "emulated summation order (ref.forest_sums_lanes)")
     return {"shape": [x.shape[0], *stacked.leaf.shape],
-            "max_abs_err": err, "max_abs_err_per_tree": err / n_trees,
-            "leaf_indices_equal": True}
+            "max_abs_err": err, "max_abs_err_per_tree": err / t,
+            "leaf_indices_equal": True, "equals_lane_emulation": True,
+            "plan": {k: v for k, v in plan.items() if k != "grid"},
+            "blocks": plan["grid"][0] * plan["grid"][1]}
 
 
 def device_profile(fn, traced=None, kernels=()) -> dict:
@@ -536,6 +589,68 @@ def edge_sweep(seed: int, dev) -> dict:
         ssd.append({"case": case, "max_abs_err": err.max().item(),
                     "max_abs_y": want.abs().max().item()})
     return {"flash": flash, "ssd": ssd}
+
+
+#: Edge shapes of the forest and template kernels. Forest: (B, NF, T, D,
+#: K) at F = 18 — one row, a ragged batch, stacks over the 48 KB of
+#: shared memory (T = 100 and 256 at D = 6), depths 1 and 8, K = 1, 4 and
+#: 10, and a stack of 400 trees at depth 12 that takes two tree tiles.
+#: Template: T = 48, 96, 480 and 1,008 slots.
+FOREST_EDGES = [(1, 4, 48, 6, 2), (300, 4, 48, 6, 2), (256, 4, 100, 6, 2),
+                (256, 4, 256, 6, 2), (256, 4, 48, 1, 2), (256, 4, 48, 8, 2),
+                (256, 4, 48, 6, 1), (256, 4, 48, 6, 4), (256, 4, 48, 6, 10),
+                (256, 1, 400, 12, 2)]
+TEMPLATE_EDGES = (48, 96, 480, 1008)
+
+
+def template_edge_rows(pop, t: int, rng) -> np.ndarray:
+    """(264, T) rows: 128 population series tiled to T slots with jitter,
+    128 uniform rows, and at the end a constant row (the std floor), an
+    all-zero row (the de-trend base floor), a row with one zero day, and
+    five rows of ties (values from {0, 50, 100}; a constant 25 with a
+    step)."""
+    base = np.tile(pop.series[rng.integers(0, len(pop.vms), 128)],
+                   (1, -(-t // pop.series.shape[1])))[:, :t]
+    tiled = np.clip(base + rng.normal(0, 1, base.shape), 0, 100)
+    uniform = rng.uniform(0, 100, (128, t))
+    zero_day = rng.uniform(0, 100, t)
+    zero_day[t // 2:t // 2 + 48] = 0.0
+    ties = rng.choice([0.0, 50.0, 100.0], (4, t))
+    step = np.full(t, 25.0)
+    step[t // 2:] = 50.0
+    return np.concatenate([tiled, uniform, np.full((1, t), 25.0),
+                           np.zeros((1, t)), zero_day[None], ties,
+                           step[None]]).astype(np.float32)
+
+
+def placement_edge_sweep(pop, seed: int, dev) -> dict:
+    """The forest and template kernels against their plain versions at
+    FOREST_EDGES and TEMPLATE_EDGES, at the main-path bars: leaf indices
+    exact, forest sums within FOREST_ATOL per tree and bit-equal to the
+    emulated summation order, template scores within TEMPLATE_RTOL /
+    TEMPLATE_ATOL (and the special rows at T = 240 too)."""
+    import torch
+    from repro_torch.serve.inference import PackedForest
+    rng = np.random.default_rng(seed)
+    forest = []
+    for b, nf, t, d, k in FOREST_EDGES:
+        x = torch.as_tensor(rng.normal(0, 1, (b, 18)), dtype=torch.float32,
+                            device=dev)
+        stack = PackedForest(
+            torch.as_tensor(rng.integers(0, 18, (nf, t, d)),
+                            dtype=torch.int32, device=dev),
+            torch.as_tensor(rng.normal(0, 1, (nf, t, d)),
+                            dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.normal(0, 1, (nf, t, 1 << d, k)),
+                            dtype=torch.float32, device=dev))
+        r = forest_phase(x, stack)
+        r["case"] = [b, nf, t, d, k]
+        forest.append(r)
+    template = []
+    for t in TEMPLATE_EDGES + (240,):
+        template.append(template_phase(template_edge_rows(pop, t, rng), dev,
+                                       timed=False))
+    return {"forest": forest, "template": template}
 
 
 def sass_mma_counts(lib: str) -> dict:
@@ -823,8 +938,16 @@ def main(argv=None) -> int:
             lambda: forest_ref.forest_sums_ref(x, *stacked))
         r["bound_ms"], r["bound_by"] = forest_bound_ms(
             x.shape[0], x.shape[1], nf, t, d, k)
+        kernel_times(r, lambda: forest_ops.forest_sums(x, *stacked),
+                     "forest_sums_kernel")
+        # the call `served_query` makes: the stack was checked when packed
+        r["host_us_served"] = host_us(
+            lambda: forest_ops.forest_sums(x, *stacked, checked=True))
         emit(f"forest_{name}", **r)
         forest[name] = r
+
+    edges = placement_edge_sweep(pop, args.seed, dev)
+    emit("placement_edge_sweep", **edges)
 
     # where a served micro-batch's time goes, on two batches after the
     # main path (their launches come after the counts were read)
@@ -855,21 +978,24 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/forest.cu",
          "replaces": "src/repro/kernels/forest/forest.py:95",
          "launches": launches["forest"],
-         "max_abs_err": forest["micro_batch"]["max_abs_err"],
-         "ms": forest["micro_batch"]["ms"],
-         "plain_ms": forest["micro_batch"]["plain_ms"],
-         "bound_ms": forest["micro_batch"]["bound_ms"],
-         "bound_by": forest["micro_batch"]["bound_by"],
+         **{k: forest["micro_batch"][k] for k in TIMES},
          "library_ms": None, "shape": forest["micro_batch"]["shape"],
+         "blocks": forest["micro_batch"]["blocks"],
+         "host_us_served": forest["micro_batch"]["host_us_served"],
+         "edge_cases": [r["case"] for r in edges["forest"]],
+         "edge_max_abs_err_per_tree": max(
+             r["max_abs_err_per_tree"] for r in edges["forest"]),
          "batch_scoring": forest["batch_scoring"]},
         {"name": "criticality_scores", "route": "cuda",
          "source": "src/repro_torch/csrc/template.cu",
          "replaces": "src/repro/kernels/template/template.py:118",
          "launches": launches["template"],
-         "max_abs_err": res_hist["max_abs_err"], "ms": res_hist["ms"],
-         "plain_ms": res_hist["plain_ms"], "bound_ms": res_hist["bound_ms"],
-         "bound_by": res_hist["bound_by"], "library_ms": None,
-         "shape": res_hist["shape"], "fleet": res_fleet},
+         **{k: res_hist[k] for k in TIMES},
+         "library_ms": None, "shape": res_hist["shape"],
+         "edge_shapes": [r["shape"] for r in edges["template"]],
+         "edge_max_rel_err": max(r["max_rel_err"]
+                                 for r in edges["template"]),
+         "fleet": res_fleet},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:73",

@@ -20,6 +20,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("forest.cu", "template.cu", "flash_attention.cu", "ssd.cu")
@@ -33,7 +35,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C entry points: name -> argument types. Each returns cudaGetLastError().
 SIGNATURES = {
-    "forest_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "forest_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _P],
     "criticality_scores": [_P, _P, _I, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _P],
@@ -112,6 +115,22 @@ def aligned(t):
     kernels' 16-byte copies need (a copy only when it is not)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch(name: str, t, *args) -> None:
+    """Call entry point `name` with `args` and the current stream of the
+    device `t` lies on, with that device current; raise on a launch
+    error. The raw stream handle is read as Triton's launcher reads it,
+    without building a `torch.cuda.Stream` object on every call."""
+    fn = getattr(load(), name)
+    dev = t.device.index
+    here = torch.cuda.current_device()
+    if dev is None or dev == here:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(here))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    check(err, name)
 
 
 def check(err: int, name: str) -> None:

@@ -65,12 +65,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        err = build.load().flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * hq, hq, rep, lq, lk, d, lk - lq, lk, int(causal),
-            window or 0, d ** -0.5, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "flash_attention")
+    build.launch("flash_attention", q, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), b * hq, hq, rep, lq, lk, d,
+                 lk - lq, lk, int(causal), window or 0, d ** -0.5,
+                 int(q.dtype == torch.bfloat16))
     KERNEL_LAUNCHES["flash_attention"] += 1
     return out

@@ -30,3 +30,40 @@ def forest_sums_ref(x: torch.Tensor, feat_idx: torch.Tensor,
     fi = torch.arange(nf, device=x.device)[None, :, None]
     ti = torch.arange(t, device=x.device)[None, None, :]
     return leaf[fi, ti, idx].sum(2)                            # (B, NF, K)
+
+
+def forest_sums_lanes(x: torch.Tensor, feat_idx: torch.Tensor,
+                      thr: torch.Tensor, leaf: torch.Tensor,
+                      tile: int | None = None,
+                      lanes: int = 32) -> torch.Tensor:
+    """`forest_sums_ref` in the CUDA kernel's summation order, float32
+    add for add (tests only): per tree tile of `tile` trees (a multiple
+    of 32; default one tile), lane j of a row's `lanes` sums its trees
+    j, j + lanes, ... in order from 0; an xor butterfly combines the lane
+    sums (lanes / 2 apart, then lanes / 4, ..., 1); tile sums add up in
+    tile order."""
+    b = x.shape[0]
+    nf, t, _ = feat_idx.shape
+    k = leaf.shape[3]
+    idx = leaf_index_ref(x, feat_idx, thr)                     # (B, NF, T)
+    fi = torch.arange(nf, device=x.device)[None, :, None]
+    ti = torch.arange(t, device=x.device)[None, None, :]
+    vals = leaf[fi, ti, idx]                                   # (B, NF, T, K)
+    tile = tile or -(-t // 32) * 32
+    out = None
+    for t0 in range(0, t, tile):
+        part = vals[:, :, t0:t0 + tile]
+        acc = torch.zeros((b, nf, lanes, k), dtype=torch.float32,
+                          device=x.device)
+        for j in range(0, part.shape[2], lanes):
+            chunk = part[:, :, j:j + lanes]
+            acc[:, :, :chunk.shape[2]] += chunk
+        half = lanes // 2
+        while half:
+            acc = acc[:, :, :half] + acc[:, :, half:2 * half]
+            half //= 2
+        s = acc[:, :, 0]
+        out = s if out is None else out + s
+    if out is None:
+        return torch.zeros((b, nf, k), dtype=torch.float32, device=x.device)
+    return out

@@ -73,11 +73,8 @@ def ssd(x, dt, a, b, c, d=None, chunk: int = CHUNK):
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y[:, :l, :, :p]
-    with torch.cuda.device(x.device):
-        err = build.load().ssd_scan(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), d.data_ptr(), y.data_ptr(), bsz, l + pad, h, pp,
-            nn, int(bf16), torch.cuda.current_stream().cuda_stream)
-    build.check(err, "ssd_scan")
+    build.launch("ssd_scan", x, x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                 b.data_ptr(), c.data_ptr(), d.data_ptr(), y.data_ptr(), bsz,
+                 l + pad, h, pp, nn, int(bf16))
     KERNEL_LAUNCHES["ssd"] += 1
     return y[:, :l, :, :p]

@@ -11,7 +11,7 @@ from repro_torch.device import KERNEL_LAUNCHES
 from repro_torch.kernels import build
 from repro_torch.kernels.template import ref
 
-#: Longest series the kernel keeps in shared memory (slots).
+#: Longest series the kernel takes (slots): 32 registers a lane.
 MAX_T = 1024
 #: Share of the smallest deviations the template score averages.
 KEEP_FRAC = 0.8
@@ -36,11 +36,9 @@ def criticality_scores(series: torch.Tensor) -> torch.Tensor:
     if b == 0:
         return out
     k = round(KEEP_FRAC * t)              # Python rounding, as the oracle
-    n_pow2 = 1 << (t - 1).bit_length()    # bitonic sort width
-    with torch.cuda.device(series.device):
-        err = build.load().criticality_scores(
-            series.data_ptr(), out.data_ptr(), b, t, n_pow2, k,
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "criticality_scores")
+    n_pow2 = 1 << (t - 1).bit_length()    # 32 lanes x PER registers
+    series = build.aligned(series)        # float4 row loads
+    build.launch("criticality_scores", series, series.data_ptr(),
+                 out.data_ptr(), b, t, n_pow2, k)
     KERNEL_LAUNCHES["template"] += 1
     return out

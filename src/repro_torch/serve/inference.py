@@ -57,7 +57,8 @@ class ServiceMeta:
 def pack_service(svc: PredictionService, device) \
         -> tuple[PackedService, ServiceMeta]:
     """Pack all four of a service's forests onto `device` — done once per
-    (re)trained model."""
+    (re)trained model — and check each, and their stack, as the kernel
+    takes them (`forest.ops.check_stack`)."""
     forests = (svc.criticality, svc.p95.stage1, svc.p95.low, svc.p95.high)
     packed, metas = [], []
     for f in forests:
@@ -67,6 +68,9 @@ def pack_service(svc: PredictionService, device) \
     stacked = None
     if len(set(metas)) == 1 and len({p.leaf.shape for p in packed}) == 1:
         stacked = PackedForest(*(torch.stack(a) for a in zip(*packed)))
+        ops.check_stack(*stacked)
+    for p in packed:
+        ops.check_stack(*(a[None] for a in p))
     return (PackedService(*packed, stacked),
             ServiceMeta(*metas, confidence_gate=svc.confidence_gate,
                         n_features=svc.criticality.n_features))
@@ -95,8 +99,11 @@ def served_query(packed: PackedService, meta: ServiceMeta, x: torch.Tensor,
         raise ValueError(f"features {tuple(x.shape)} do not match the "
                          f"model's width {meta.n_features}")
     x = x.float().contiguous()
-    sums = ops.forest_sums if resolve_kernel(kernel, x) == "cuda" \
-        else ref.forest_sums_ref
+    if resolve_kernel(kernel, x) == "cuda":
+        def sums(x, *stack):              # checked by pack_service
+            return ops.forest_sums(x, *stack, checked=True)
+    else:
+        sums = ref.forest_sums_ref
     metas = (meta.criticality, meta.stage1, meta.low, meta.high)
     if packed.stacked is not None:
         summed = sums(x, *packed.stacked)                     # (B, 4, K)

@@ -92,3 +92,98 @@ def test_wrapper_rejects_bad_shapes():
         ops.criticality_scores(torch.ones(3, 50))
     with pytest.raises(ValueError):
         ops.criticality_scores(torch.ones(240))
+
+
+def _selection_rows(case, rng):
+    """(rows, n_valid) of non-negative deviations padded with +inf to the
+    kernel's width, 256 (T = 240); the kernel's padding never counts."""
+    n, width = 240, 256
+    if case == "random":
+        d = rng.exponential(1.0, (64, n))
+    elif case == "ties":
+        d = rng.choice([0.0, 0.25, 0.5, 1.0], (64, n))
+    elif case == "constant":
+        d = np.full((4, n), 0.75)
+    elif case == "zeros":
+        d = np.zeros((4, n))
+    elif case == "with_inf":           # an infinite deviation in the row
+        d = rng.exponential(1.0, (16, n))
+        d[:, ::7] = np.inf
+    else:                              # denormals next to large values
+        d = rng.choice([0.0, 1e-40, 3e-39, 1e30, 2.0], (16, n))
+    pad = np.full((d.shape[0], width - n), np.inf)
+    return np.concatenate([d, pad], 1).astype(np.float32), n
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "constant", "zeros",
+                                  "with_inf", "extremes"])
+@pytest.mark.parametrize("k", [1, 2, 192, 239, 240])
+def test_radix_selection_picks_the_k_smallest(case, k):
+    """The template kernel's exact selection (`ref.smallest_k_radix`)
+    against a sort: the k-th smallest and the count under it are exact,
+    so sum(d < v_k) + (k - below) v_k takes the same k values as the
+    sort-based oracle, with ties, +inf padding and k at its edges
+    (k = round(0.8 T) = 192 at T = 240)."""
+    rows, n = _selection_rows(case, np.random.default_rng(k))
+    dev = torch.as_tensor(rows)
+    kth, below, passes, total = ref.smallest_k_radix(dev, k, n)
+    srt = torch.sort(dev, dim=1).values
+    assert torch.equal(kth, srt[:, k - 1])
+    assert torch.equal(below, (dev < kth[:, None]).sum(1))
+    assert bool((below < k).all())
+    assert bool((passes <= 31).all())
+    kept = torch.where(dev < kth[:, None], dev, torch.zeros_like(dev))
+    # the same multiset as the sort: the values under v_k, then v_k
+    for r in range(len(rows)):
+        pick = torch.cat([torch.sort(dev[r][dev[r] < kth[r]]).values,
+                          kth[r].repeat(int(k - below[r]))])
+        assert torch.equal(pick, srt[r, :k])
+    want = srt[:, :k].double().sum(1)
+    np.testing.assert_allclose(total.numpy(), want.numpy(), rtol=1e-5,
+                               atol=0)
+    assert torch.equal(kept.sum(1) + (k - below).float() * kth, total)
+
+
+def test_radix_selection_stops_early_on_distinct_values():
+    """With distinct deviations the walk stops once one pattern is left,
+    well before bit 0; all-tied rows walk all 31 bits."""
+    rng = np.random.default_rng(3)
+    dev = torch.as_tensor(rng.exponential(1.0, (64, 256)).astype(np.float32))
+    assert float(ref.smallest_k_radix(dev, 192)[2].float().mean()) < 20
+    assert bool((ref.smallest_k_radix(torch.zeros(2, 256), 192)[2]
+                 == 31).all())
+
+
+def _flat_row():
+    """A history row of `generate_population(16000, seed=0)` (VM 947): 239
+    slots at 100 and one at 99.66364."""
+    row = np.full(240, 100.0, np.float32)
+    row[68] = np.float32(99.66364)
+    return row
+
+
+def test_kernel_statistics_round_as_the_plain_version():
+    """The template kernel takes the cumsum and the std in float64 (lane
+    scans, then the exclusive shuffle scan and butterfly sums) and rounds
+    them to float32 once, which is what the plain version computes on the
+    CPU: bit-equal on random rows and on a near-flat one. The near-flat
+    row shows why it must: an ulp of the cumsum decides whether its
+    de-trended series is flat, and Compare8 goes from 1 to 0 when the
+    same function is taken in float64 throughout."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(np.concatenate(
+        [rng.uniform(0, 100, (63, 240)).astype(np.float32),
+         _flat_row()[None]]))
+    lanes = torch.nn.functional.pad(x.double(), (0, 16)).reshape(-1, 32, 8)
+    part = lanes.cumsum(2)
+    excl = torch.cat([torch.zeros_like(part[:, :1, -1]),
+                      part[:, :-1, -1].cumsum(1)], 1)
+    cs = (excl[:, :, None] + part).reshape(-1, 256)[:, :240].float()
+    assert torch.equal(cs, torch.cumsum(x, -1))
+    xd = PTS.detrend(x)
+    sd = (xd.double() - xd.double().mean(-1, keepdim=True)).pow(2) \
+        .mean(-1).sqrt().float()
+    assert torch.equal(sd, torch.std(xd, -1, correction=0))
+    flat = torch.as_tensor(_flat_row()[None])
+    assert float(ref.criticality_scores_ref(flat)[0, 0]) == 1.0
+    assert float(ref.criticality_scores_ref(flat.double())[0, 0]) == 0.0

@@ -123,3 +123,129 @@ def test_bucket_to_p95_matches_reference(rinf):
     np.testing.assert_array_equal(
         inference.bucket_to_p95_torch(torch.as_tensor(b)).numpy(),
         np.asarray(rinf.bucket_to_p95_jnp(jnp.asarray(b))))
+
+
+def _random_forest(rng, t, d, k, n_features=18, kind="rf"):
+    """A reference `ObliviousForest` with seeded random tables."""
+    from repro.core.forest import ObliviousForest
+    return ObliviousForest(
+        feat_idx=rng.integers(0, n_features, (t, d)).astype(np.int32),
+        thresholds=rng.normal(0, 1, (t, d)).astype(np.float32),
+        leaf_values=rng.uniform(0, 1, (t, 1 << d, k)).astype(np.float32),
+        kind=kind, n_features=n_features)
+
+
+@pytest.mark.parametrize("t", [1, 33, 48, 100, 256, 400, 1000, 5000])
+def test_launch_plan_takes_every_stack(t):
+    """The kernel's launch plan covers every (T, D, K) the Pallas
+    kernel takes (the first design refused T = 100 at D = 6 and K > 8):
+    trees tiled in multiples of 32 whose nodes fit the node tile, shared
+    memory within 48 KB, every output in a chunk."""
+    for d in (1, 6, 8, 12, 20, 31):
+        for k in (1, 2, 3, 10, 64):
+            for b, nf in [(1, 1), (256, 4), (65536, 4)]:
+                p = ops.launch_plan(b, 18, nf, t, d, k)
+                assert p["tile"] % 32 == 0 and p["tile"] >= 32
+                assert p["tile"] * d <= ops.NODE_WORDS
+                assert p["lanes"] in (8, 16, 32)
+                assert p["rows"] % (ops.WARPS * 32 // p["lanes"]) == 0
+                assert p["smem"] <= 48 * 1024
+                assert p["kc"] in (1, 2, 4, 8) and p["kc"] >= min(k, 8)
+                assert p["grid"] == (-(-b // p["rows"]), nf)
+
+
+def test_launch_plan_fills_the_card_and_refuses_only_past_depth_31():
+    serving = ops.launch_plan(256, 18, 4, 48, 6, 2)
+    assert serving["grid"][0] * serving["grid"][1] >= 132
+    assert serving["stage_x"] and serving["tile"] == 64
+    assert serving["lanes"] == 32           # 16 would leave SMs idle
+    scoring = ops.launch_plan(65536, 18, 4, 48, 6, 2)
+    assert scoring["grid"][0] * scoring["grid"][1] >= 2 * 132
+    assert scoring["lanes"] == 8            # 6 trees a lane, 4 rows a step
+    assert ops.launch_plan(600, 18, 4, 48, 6, 2)["lanes"] == 16
+    assert not ops.launch_plan(8, 5000, 1, 48, 6, 2)["stage_x"]
+    with pytest.raises(ValueError, match="depth"):
+        ops.launch_plan(256, 18, 4, 48, 32, 2)
+
+
+@pytest.mark.parametrize("t,d,k", [(100, 6, 2), (256, 6, 2), (48, 1, 2),
+                                   (48, 8, 2), (48, 6, 1), (48, 6, 4),
+                                   (48, 6, 10), (33, 3, 2), (400, 12, 2)])
+def test_lane_order_matches_reference(t, d, k):
+    """The kernel's summation orders (`ref.forest_sums_lanes` at the
+    launch plan's tree tile and 32, 16 or 8 lanes a row; T = 400 at
+    D = 12 takes two tiles) against
+    the JAX Pallas kernel in interpret mode (the numpy oracle for the
+    two-tile stack, whose one-hot scratch would not fit a CPU test)
+    within 1e-5 per tree, with leaf indices exact."""
+    rng = np.random.default_rng(t * 100 + d * 10 + k)
+    f = _random_forest(rng, t, d, k)
+    x = rng.normal(0, 1, (300, 18)).astype(np.float32)
+    fi, thr, leaf, *_ = ops.pack_forest(f, "cpu")
+    xt = torch.as_tensor(x)
+    np.testing.assert_array_equal(
+        ref.leaf_index_ref(xt, fi[None], thr[None])[:, 0].numpy(),
+        f.leaf_index_np(x))
+    tile = ops.launch_plan(300, 18, 1, t, d, k)["tile"]
+    assert (tile < t) == (t == 400)                 # two tree tiles
+    if t * (1 << d) <= 2 ** 14:
+        want = np.asarray(forest_predict(f, x))
+    else:
+        want = f.predict_proba_np(x)
+    for lanes in (32, 16, 8):
+        got = ref.forest_sums_lanes(xt, fi[None], thr[None], leaf[None],
+                                    tile=tile, lanes=lanes)[:, 0].numpy()
+        np.testing.assert_allclose(got / t, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("jax_kernel", ["ref", "pallas_interpret"])
+def test_served_query_in_lane_order_matches_reference(rinf, served,
+                                                      jax_kernel,
+                                                      monkeypatch):
+    """The seeded serve with the four forests summed in the kernel's
+    order: sums within 1e-5 per tree of the plain version, and every
+    gated key of `served_query` equal to the reference's."""
+    svc, x = served
+    packed, meta = inference.pack_service(
+        convert.service_from_numpy(service_dict(svc)), "cpu")
+    xt = torch.as_tensor(x)
+    nf, t, d = packed.stacked.feat_idx.shape
+    plan = ops.launch_plan(len(x), x.shape[1], nf, t, d,
+                           packed.stacked.leaf.shape[-1])
+    lanes = ref.forest_sums_lanes(xt, *packed.stacked, tile=plan["tile"],
+                                  lanes=plan["lanes"])
+    plain = ref.forest_sums_ref(xt, *packed.stacked)
+    assert float((lanes - plain).abs().max()) / t <= 1e-5
+    monkeypatch.setattr(
+        ref, "forest_sums_ref",
+        lambda *a: ref.forest_sums_lanes(*a, tile=plan["tile"],
+                                         lanes=plan["lanes"]))
+    got = inference.served_query(packed, meta, xt)
+    packed_j, meta_j = rinf.pack_service(svc)
+    want = rinf.served_query(packed_j, meta_j, jnp.asarray(x),
+                             kernel=jax_kernel)
+    for k in ("workload_type", "p95_bucket", "workload_type_used",
+              "p95_bucket_used", "conservative"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    for k in ("workload_conf", "p95_conf"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=1e-5, err_msg=k)
+
+
+def test_stack_checks_refuse_what_the_kernel_cannot_take():
+    """`check_stack` (run once per model by `pack_service`, and by
+    `forest_sums` unless the stack was checked) refuses a broken stack."""
+    fi = torch.zeros((2, 3, 4), dtype=torch.int32)
+    thr = torch.zeros((2, 3, 4))
+    leaf = torch.zeros((2, 3, 16, 2))
+    ops.check_stack(fi, thr, leaf)
+    for bad in [(fi, thr[:, :2], leaf), (fi, thr, leaf[:, :, :8]),
+                (fi.long(), thr, leaf), (fi, thr.double(), leaf),
+                (fi, thr, leaf.transpose(2, 3).contiguous().transpose(2, 3))]:
+        with pytest.raises(ValueError):
+            ops.check_stack(*bad)
+    with pytest.raises(ValueError):
+        ops.forest_sums(torch.zeros(5, 18), fi.long(), thr, leaf)
+    with pytest.raises(ValueError):
+        ops.forest_sums(torch.zeros(5), fi, thr, leaf)

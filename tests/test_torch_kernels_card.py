@@ -1,5 +1,5 @@
-"""The port's flash-attention and SSD kernels against their plain torch
-versions on the card. Every test here needs an NVIDIA card (marker
+"""The port's four kernels against their plain torch versions on the
+card. Every test here needs an NVIDIA card (marker
 `cuda`) and skips without one; on the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_card.py
@@ -9,8 +9,15 @@ lengths (300, 200), Lk > Lq, windows, GQA rep 2, head dims that are not
 a multiple of 16 (40) or are padded (16), P and N that the wrapper pads
 to multiples of 8 (P 40, N 24 and 4).
 
-Bars: flash atol 2e-5 in float32 and 2e-2 in bf16, SSD atol 2e-4 in
-float32 (tests/test_kernels.py). An SSD output in bf16 can round to the
+The forest kernel runs one row, ragged batches, stacks over 48 KB of
+tables (T 100 and 256 at D 6), depths 1, 8 and 12 (two tree tiles), K 1,
+4 and 10, and batches that take 16 and 8 lanes a row; the template kernel T 48 to 1,008 with constant, all-zero and
+tied rows.
+
+Bars: forest leaf indices exact, sums within 1e-5 per tree of the plain
+version and bit-equal to its emulated summation order; template scores
+within rtol 5e-3 / atol 5e-4; flash atol 2e-5 in float32 and 2e-2 in
+bf16, SSD atol 2e-4 in float32 (tests/test_kernels.py). An SSD output in bf16 can round to the
 neighbouring bf16 value, so it gets the bf16 bar plus one bf16 ulp (at
 most 2^-7 relative).
 """
@@ -22,8 +29,12 @@ from _torch_parity import cuda  # noqa: F401
 from repro_torch.device import KERNEL_LAUNCHES, reset_launches
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.forest import ops as forest_ops
+from repro_torch.kernels.forest import ref as forest_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
+from repro_torch.kernels.template import ops as template_ops
+from repro_torch.kernels.template import ref as template_ref
 
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -86,3 +97,59 @@ def test_ssd_kernel_matches_plain_version(cuda, dtype, l, h, p, n):
     else:
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nf,t,d,k", [
+    (1, 4, 48, 6, 2), (256, 4, 48, 6, 2), (300, 4, 48, 6, 2),
+    (256, 4, 100, 6, 2), (256, 4, 256, 6, 2), (256, 4, 48, 1, 2),
+    (256, 4, 48, 8, 2), (256, 4, 48, 6, 1), (256, 4, 48, 6, 4),
+    (256, 4, 48, 6, 10), (130, 1, 400, 12, 3), (65, 2, 33, 3, 2),
+    (600, 4, 48, 6, 2), (4096, 4, 48, 6, 2), (4096, 4, 100, 6, 2)])
+def test_forest_kernel_matches_plain_version(cuda, b, nf, t, d, k):
+    rng = np.random.default_rng(b + t + d + k)
+    x = _normal(rng, b, 18).to(cuda)
+    fi = torch.from_numpy(rng.integers(0, 18, (nf, t, d))
+                          .astype(np.int32)).to(cuda)
+    thr = _normal(rng, nf, t, d).to(cuda)
+    leaf = _normal(rng, nf, t, 1 << d, k).to(cuda)
+    reset_launches()
+    got = forest_ops.forest_sums(x, fi, thr, leaf)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["forest"] == 1
+    plan = forest_ops.launch_plan(b, 18, nf, t, d, k)
+    torch.testing.assert_close(
+        got, forest_ref.forest_sums_ref(x, fi, thr, leaf), atol=1e-5 * t,
+        rtol=0)
+    assert torch.equal(got, forest_ref.forest_sums_lanes(
+        x, fi, thr, leaf, tile=plan["tile"], lanes=plan["lanes"]))
+    # leaf indices: one-tree forests whose leaf l holds l
+    probe = torch.arange(1 << d, dtype=torch.float32, device=cuda) \
+        .expand(nf * t, 1, 1 << d)[..., None].contiguous()
+    idx = forest_ops.forest_sums(x, fi.reshape(nf * t, 1, d).contiguous(),
+                                 thr.reshape(nf * t, 1, d).contiguous(),
+                                 probe)[..., 0].round().long()
+    assert torch.equal(idx.reshape(b, nf, t),
+                       forest_ref.leaf_index_ref(x, fi, thr))
+
+
+def _template_rows(rng, t):
+    rows = rng.uniform(0, 100, (64, t))
+    tied = rng.choice([0.0, 50.0, 100.0], (4, t))
+    return np.concatenate([rows, tied, np.full((1, t), 25.0),
+                           np.zeros((1, t))]).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [48, 96, 144, 240, 480, 528, 1008])
+def test_template_kernel_matches_plain_version(cuda, t):
+    x = torch.from_numpy(_template_rows(np.random.default_rng(t), t)) \
+        .to(cuda)
+    reset_launches()
+    got = template_ops.criticality_scores(x)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["template"] == 1
+    want = template_ref.criticality_scores_ref(x)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-4)
+    assert float(got[-2:].abs().max()) == 0.0     # constant, zero rows
