@@ -25,7 +25,20 @@ rows; flash and SSD in bf16), and drives the port's two paths:
   and SSD kernels, then `serve_batch` on the same prompts with 32
   generated tokens through the cache path. It checks the launch counts
   (9 flash, 54 SSD per prefill), finite logits, prefill against the
-  cache path, and the kernel forward against the plain forward.
+  cache path, and the kernel forward against the plain forward;
+- the evaluation path, which runs no hand-written kernel: the fleet
+  engine on the Fig 4-5 server and the Fig 6 chassis against its numpy
+  oracle at the reference's bars (`fleet_parity`), at 1, 64 and 1,024
+  chassis with launches per step and the device's idle share
+  (`fleet_scale`), a Table IV sweep and its frontier (`table4_sweep`),
+  and the Fig 7 scheduler simulation over 4 days with its event backend
+  on the host and its serve backend on the card, which must place
+  alike, an admission-budget run and a power evaluation
+  (`scheduler_sim`).
+
+It also builds the serving cell's history table twice and serves the
+arrivals twice, and checks the tables bit-equal and the decisions equal
+(`featurizer_determinism`).
 
 Each phase prints one JSON line. Then come the card's name and power
 limit as `nvidia-smi` prints them, a `{"kernels": [...]}` line with each
@@ -87,6 +100,20 @@ SSD_ATOL, SSD_BF16_ATOL, SSD_BF16_RTOL = 2e-4, 2e-2, 2.0 ** -7
 #: plain forward, in bf16: the reference's prefill/decode bar
 #: (tests/test_models_smoke.py), held here at 54 layers.
 LM_ATOL, LM_RTOL = 0.15, 0.1
+#: Evaluation path: the fleet engine held to the reference's numpy-vs-jax
+#: bars (tests/test_fleet_engine.py) on the Fig 4-5 and Fig 6 setups, the
+#: scale runs of BENCH_fleet_engine.json (the balanced chassis, 150
+#: steps), a Table IV grid for the Fig 4-5 server, and the scheduler
+#: simulation over the reference test's 4 days.
+FLEET_BARS = {"power_w": 0.5, "min_nuf_freq": 1e-5, "rapl_frac": 0.01,
+              "uf_p95_rel": 1e-3, "nuf_slowdown_rel": 1e-3}
+FIG45 = [(230.0, "per_vm"), (230.0, "rapl"), (210.0, "per_vm")]
+FLEET_DUR_S = 60.0
+FLEET_SCALE, FLEET_STEPS = (1, 64, 1024), 150
+T4_BUDGETS = (290.0, 280.0, 270.0, 260.0, 250.0, 240.0, 230.0, 220.0, 210.0)
+T4_LOADS, T4_FLOORS = (1.0, 0.9, 0.8), (0.5, 0.6, 0.75)
+SIM_DAYS = 4.0
+TIGHT_BUDGET_W = 12 * 112.0 + 60.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -268,9 +295,7 @@ def main_path(pop, hist, arrivals, budget_w: float, dev):
     batch = arrival_batch(arrivals)
     parts, batch_ms = [], []
     t_serve = time.perf_counter()
-    for lo in range(0, len(batch), BATCH):
-        chunk = type(batch)(*(getattr(batch, f)[lo:lo + BATCH]
-                              for f in type(batch).__dataclass_fields__))
+    for chunk in micro_batches(batch):
         t0 = time.perf_counter()
         parts.append(pipe.serve(chunk))          # ends in a device fetch
         batch_ms.append((time.perf_counter() - t0) * 1e3)
@@ -783,6 +808,270 @@ def _tensors(tree):
             yield v
 
 
+def micro_batches(batch):
+    """The arrival batch in the main path's micro-batches of BATCH."""
+    for lo in range(0, len(batch), BATCH):
+        yield type(batch)(*(getattr(batch, f)[lo:lo + BATCH]
+                            for f in type(batch).__dataclass_fields__))
+
+
+def featurizer_determinism(run, hist, parts, dev) -> dict:
+    """The history table built twice on the card is bit-equal (to itself,
+    to the main path's, and to the CPU's), and a second pipeline serving
+    the same arrivals gives the same servers and conservative count."""
+    import torch
+    from repro_torch.serve import ServePipeline, table_from_history
+    pipe = run["pipe"]
+    cap = pipe.table.capacity
+    a = table_from_history(hist, run["labels"], cap, device=dev)
+    b = table_from_history(hist, run["labels"], cap, device=dev)
+    cpu = table_from_history(hist, run["labels"], cap, device="cpu")
+    for f, x, y, z, w in zip(a._fields, a, b, pipe.table, cpu):
+        check(torch.equal(x, y) and torch.equal(x, z),
+              f"history table column {f} bit-equal across card builds")
+        check(torch.equal(x.cpu(), w),
+              f"history table column {f} bit-equal to the CPU's")
+    pipe2 = ServePipeline.from_history(
+        run["svc"], hist, run["labels"], n_servers=N_SERVERS,
+        cores_per_server=CORES, blades_per_chassis=BLADES,
+        config=run["config"], device=dev)
+    parts2 = [pipe2.serve(chunk) for chunk in micro_batches(run["batch"])]
+    conservative = [int(sum(p.n_conservative for p in ps))
+                    for ps in (parts, parts2)]
+    check(conservative[0] == conservative[1],
+          f"two serves give one conservative count: {conservative}")
+    for f in ("server", "conservative", "p95_eff"):
+        check(np.array_equal(np.concatenate([getattr(p, f) for p in parts]),
+                             np.concatenate([getattr(p, f)
+                                             for p in parts2])),
+              f"two serves give identical {f}")
+    return {"table_rows": cap, "tables_bit_equal": True,
+            "cpu_table_bit_equal": True, "conservative": conservative,
+            "servers_equal": True}
+
+
+def fleet_gaps(ref, got) -> dict:
+    """The largest gaps of a fleet run against the numpy oracle's, in the
+    quantities the reference's numpy-vs-jax bars hold."""
+    return {
+        "power_w": float(np.abs(ref.power_w - got.power_w).max()),
+        "min_nuf_freq": float(np.abs(ref.min_nuf_freq
+                                     - got.min_nuf_freq).max()),
+        "rapl_frac": float(np.abs(ref.rapl_engaged_frac
+                                  - got.rapl_engaged_frac).max()),
+        "uf_p95_rel": float(np.abs(got.uf_p95_latency / ref.uf_p95_latency
+                                   - 1).max()),
+        "nuf_slowdown_rel": float(np.abs(got.nuf_slowdown / ref.nuf_slowdown
+                                         - 1).max())}
+
+
+def check_fleet_bars(gaps: dict, what: str) -> None:
+    for k, lim in FLEET_BARS.items():
+        check(gaps[k] <= lim, f"{what}: {k} gap {gaps[k]} within {lim}")
+
+
+def fleet_parity(dev) -> dict:
+    """Fig 4-5 (one server: 230 W per-VM, 230 W RAPL, 210 W per-VM) and
+    Fig 6 (the balanced and imbalanced chassis at 2,450 W) on the card
+    against the numpy oracle."""
+    from repro_torch.sim import chassis_sim, fleet
+    cases = [("fig45", [chassis_sim.paper_single_server_spec()], b, m, 3)
+             for b, m in FIG45] + [
+        (f"fig6_{name}", chassis_sim.paper_chassis_specs(bal), 2450.0,
+         "per_vm", 4) for name, bal in (("balanced", True),
+                                        ("imbalanced", False))]
+    out = []
+    for name, specs, budget, mode, seed in cases:
+        ref = fleet.run_fleet(specs, budget, mode, FLEET_DUR_S, seed,
+                              backend="numpy")
+        got = fleet.run_fleet(specs, budget, mode, FLEET_DUR_S, seed,
+                              device=dev)
+        gaps = fleet_gaps(ref, got)
+        check_fleet_bars(gaps, f"fleet_parity {name} {budget} W {mode}")
+        out.append({"case": name, "budget_w": budget, "mode": mode,
+                    "rapl_engaged_frac": float(got.rapl_engaged_frac[0]),
+                    "uf_p95_latency": float(got.uf_p95_latency[0]),
+                    "nuf_slowdown": float(got.nuf_slowdown[0]),
+                    "max_gaps": gaps})
+    return {"duration_s": FLEET_DUR_S, "cases": out}
+
+
+def fleet_scale(dev) -> dict:
+    """The balanced paper chassis at 2,450 W, per-chassis seeds, 150 steps,
+    at 1, 64 and 1,024 chassis: chassis-steps/s of `run_fleet` with the
+    traces given (layout upload, the step loop, the copy back and the
+    host aggregation), launches per step and device busy share from the
+    profiler, and 8 of the 1,024 chassis against the numpy oracle."""
+    import torch
+    from repro_torch.sim import chassis_sim, fleet
+    specs = chassis_sim.paper_chassis_specs(True)
+    layout = fleet.build_layout(specs)
+    fleet.run_fleet(specs, 2450.0, "per_vm", 2.0, 0, device=dev)  # warm-up
+    out = []
+    for n in FLEET_SCALE:
+        t0 = time.perf_counter()
+        traces = np.stack([fleet.build_uf_traces(layout, FLEET_STEPS, s)
+                           for s in range(n)])
+        trace_s = time.perf_counter() - t0
+
+        def run():
+            return fleet.run_fleet(specs, np.full(n, 2450.0), "per_vm",
+                                   FLEET_STEPS * 0.2, layout=layout,
+                                   traces=traces, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        run_s = time.perf_counter() - t0
+        prof = device_profile(run)
+        row = {"chassis": n, "steps": FLEET_STEPS, "trace_gen_s": trace_s,
+               "run_s": run_s,
+               "chassis_steps_per_s": n * FLEET_STEPS / run_s,
+               "launches_per_step": prof["launches"] / FLEET_STEPS,
+               "device_busy_ms": prof["device_busy_ms"],
+               "device_idle_share": prof["device_idle_share"],
+               "profiled_wall_ms": prof["wall_ms"],
+               "top_device_ms": prof["top_device_ms"],
+               "alert_frac_mean": float(res.alert_frac.mean()),
+               "rapl_engaged_frac_mean": float(res.rapl_engaged_frac.mean())}
+        if n >= 8:
+            idx = np.linspace(0, n - 1, 8).astype(np.int64)
+            ref = fleet.run_fleet(specs, np.full(8, 2450.0), "per_vm",
+                                  FLEET_STEPS * 0.2, layout=layout,
+                                  traces=traces[idx], backend="numpy")
+            sub = fleet.FleetResult(*(getattr(res, f)[idx] for f in (
+                "power_w", "min_nuf_freq", "uf_latency", "alert_frac",
+                "rapl_engaged_frac", "uf_p95_latency", "nuf_slowdown")))
+            gaps = fleet_gaps(ref, sub)
+            check_fleet_bars(gaps, f"fleet_scale {n} chassis, 8 checked")
+            row["parity_chassis"] = idx.tolist()
+            row["max_gaps"] = gaps
+        out.append(row)
+    return {"budget_w": 2450.0, "runs": out}
+
+
+def table4_sweep(dev) -> dict:
+    """`sweep_scenarios` + `frontier` over a (budget x load-scale x NUF
+    floor) grid for the Fig 4-5 server on the card, against the numpy
+    oracle's sweep: the same frontier, the metrics within the bars."""
+    from repro_torch.sim import chassis_sim, fleet
+    specs = [chassis_sim.paper_single_server_spec()]
+    kw = dict(load_scales=T4_LOADS, fmin_nuf=T4_FLOORS,
+              duration_s=FLEET_DUR_S, seed=3)
+    t0 = time.perf_counter()
+    got = fleet.sweep_scenarios(specs, T4_BUDGETS, device=dev, **kw)
+    sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = fleet.sweep_scenarios(specs, T4_BUDGETS, backend="numpy", **kw)
+    numpy_s = time.perf_counter() - t0
+    gaps = {"power_max_w": float(np.abs(got["power_max_w"]
+                                        - ref["power_max_w"]).max()),
+            "rapl_frac": float(np.abs(got["rapl_engaged_frac"]
+                                      - ref["rapl_engaged_frac"]).max())}
+    for name in ("uf_p95_latency", "nuf_slowdown", "uf_latency_ratio"):
+        gaps[name + "_rel"] = float(np.abs(got[name] / ref[name] - 1).max())
+    check(gaps["power_max_w"] <= FLEET_BARS["power_w"]
+          and gaps["rapl_frac"] <= FLEET_BARS["rapl_frac"]
+          and max(gaps[k] for k in gaps if k.endswith("_rel")) <= 1e-3,
+          f"table4 sweep within the bars of the numpy oracle: {gaps}")
+    fr_got = fleet.frontier(got, 310.0)
+    fr_ref = fleet.frontier(ref, 310.0)
+    for k in fr_ref:
+        check(np.array_equal(fr_got[k], fr_ref[k]),
+              f"table4 frontier {k} equals the numpy oracle's")
+    return {"grid": [len(T4_BUDGETS) + 1, len(T4_LOADS), len(T4_FLOORS)],
+            "steps": int(FLEET_DUR_S / 0.2), "sweep_s": sweep_s,
+            "numpy_s": numpy_s, "max_gaps": gaps,
+            "frontier_budget_w": fr_got["budget_w"].tolist(),
+            "frontier_oversubscription": fr_got["oversubscription"].tolist()}
+
+
+def scheduler_sim(dev) -> dict:
+    """`simulate` with alpha 0.8 and the `ml` channel over SIM_DAYS days:
+    the event backend on the host and the serve backend on the card give
+    one trace; the admission-budget run on the card equals the same run
+    on the CPU; the power evaluation on the card meets the bars against
+    the numpy oracle."""
+    import torch
+    from repro_torch.core.placement import SchedulerPolicy
+    from repro_torch.core.resources import ResourceVector
+    from repro_torch.sim import scheduler_sim as S
+    pol, ch = SchedulerPolicy(alpha=0.8), S.PredictionChannel("ml")
+    out = {"days": SIM_DAYS}
+    traces = {}
+    for name, backend in (("event", "event"), ("serve", "serve")):
+        tr = []
+        t0 = time.perf_counter()
+        m = S.simulate(pol, ch, S.SimSpec(days=SIM_DAYS, seed=0, serve=S.
+                                          ServeBackendSpec(backend=backend)),
+                       trace=tr, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        traces[name] = tr
+        out[name] = {"seconds": wall, "arrivals_per_s": m.placements / wall,
+                     "placements": m.placements, "failures": m.failures,
+                     "failure_rate": m.failure_rate,
+                     "chassis_score_std": m.chassis_score_std,
+                     "server_score_std": m.server_score_std,
+                     "empty_server_ratio": m.empty_server_ratio}
+    check(traces["serve"] == traces["event"],
+          "serve backend on the card places as the event backend")
+    out["traces_equal"] = True
+    short = S.SimSpec(days=0.25, seed=0,
+                      serve=S.ServeBackendSpec(backend="serve"))
+    runs = []
+    prof = device_profile(
+        lambda: runs.append(S.simulate(pol, ch, short, device=dev)))
+    n_short = runs[-1].placements
+    out["serve_profile"] = {
+        "days": 0.25, "placements": n_short,
+        "launches_per_arrival": prof["launches"] / n_short,
+        "device_busy_ms": prof["device_busy_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "wall_ms": prof["wall_ms"]}
+    budget = S.SimSpec(days=0.5, seed=0, serve=S.ServeBackendSpec(
+        backend="serve", admission_budget=ResourceVector(
+            watts=TIGHT_BUDGET_W)))
+    tr_card, tr_cpu = [], []
+    m = S.simulate(pol, ch, budget, trace=tr_card, device=dev)
+    S.simulate(pol, ch, budget, trace=tr_cpu, device="cpu")
+    check(tr_card == tr_cpu, "admission-budget run: card trace == CPU trace")
+    check(m.failure_rate > 0.2, f"the tight budget rejects: {m.failure_rate}")
+    out["admission_budget"] = {"watts": TIGHT_BUDGET_W,
+                               "placements": m.placements,
+                               "failure_rate": m.failure_rate,
+                               "power_rejects": tr_card.count(-2),
+                               "cpu_trace_equal": True}
+    power = {}
+    for backend in ("torch", "numpy"):
+        spec = S.SimSpec(days=SIM_DAYS, seed=0, prefill_core_ratio=0.5,
+                         power=S.PowerEvalSpec(budget_w=2000.0, chassis=8,
+                                               duration_s=60.0,
+                                               backend=backend))
+        power[backend] = S.simulate(pol, ch, spec, device=dev).power
+    pt, pn = power["torch"], power["numpy"]
+    check(np.array_equal(pt.chassis_ids, pn.chassis_ids),
+          "power evaluation picks the same chassis")
+    gaps = {"power_max_w": float(np.abs(pt.power_max_w
+                                        - pn.power_max_w).max()),
+            "rapl_frac": float(np.abs(pt.rapl_engaged_frac
+                                      - pn.rapl_engaged_frac).max()),
+            "alert_frac": float(np.abs(pt.alert_frac - pn.alert_frac).max()),
+            "uf_p95_rel": float(np.abs(pt.uf_p95_latency / pn.uf_p95_latency
+                                       - 1).max()),
+            "nuf_slowdown_rel": float(np.abs(pt.nuf_slowdown
+                                             / pn.nuf_slowdown - 1).max())}
+    check(gaps["power_max_w"] <= FLEET_BARS["power_w"]
+          and gaps["rapl_frac"] <= FLEET_BARS["rapl_frac"]
+          and gaps["alert_frac"] <= FLEET_BARS["rapl_frac"]
+          and gaps["uf_p95_rel"] <= 1e-3 and gaps["nuf_slowdown_rel"] <= 1e-3,
+          f"power evaluation on the card within the bars: {gaps}")
+    out["power_eval"] = {"budget_w": 2000.0, "chassis": pt.chassis_ids.tolist(),
+                         "alert_frac": pt.alert_frac.tolist(),
+                         "rapl_engaged_frac": pt.rapl_engaged_frac.tolist(),
+                         "max_gaps": gaps}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -917,6 +1206,8 @@ def main(argv=None) -> int:
          rho_within_cap=True, forest_launches_eq_batches=True,
          cpu_servers_identical=True, cpu_serve_s=cpu_s,
          history_labels_cpu_agreement=label_agree)
+    emit("featurizer_determinism",
+         **featurizer_determinism(run, hist, parts, dev))
 
     # 4. forest kernel against its plain version, on the four-forest stack
     #    the main path trained (so it runs after the main path)
@@ -971,6 +1262,16 @@ def main(argv=None) -> int:
     # through the cache path, each read from counts at 0
     lm = lm_path(args.seed, dev)
     emit("lm_serve", **lm)
+
+    # the evaluation path: the fleet engine (Figs 4-6, Table IV) and the
+    # Fig 7 scheduler simulation, read from counts at 0 (it runs no
+    # hand-written kernel: the fleet step and placement are torch ops)
+    reset_launches()
+    emit("fleet_parity", **fleet_parity(dev))
+    emit("fleet_scale", **fleet_scale(dev))
+    emit("table4_sweep", **table4_sweep(dev))
+    emit("scheduler_sim", **scheduler_sim(dev))
+    emit("eval_path", launches=dict(KERNEL_LAUNCHES))
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [

@@ -21,8 +21,9 @@ projection: a disabled axis carries +inf (ceilings/pools) or 0
 to the pre-vector code, which the equivalence tests assert.
 
 `ResourceVector` is the host-side budget/quantity triple (`None` =
-axis unbudgeted). Carried over from `repro.core.resources`; the demand
-and time-of-day helpers there belong to later parts of the port.
+axis unbudgeted). Carried over from `repro.core.resources` with its
+demand, time-of-day and lift helpers, as numpy (the reference's `xp`
+argument is gone: every caller in the port passes host arrays).
 """
 from __future__ import annotations
 
@@ -71,3 +72,58 @@ class ResourceVector:
         vals = [None if v is None else float(v) * float(r[i])
                 for i, v in enumerate(self.as_tuple())]
         return ResourceVector(*vals)
+
+
+def demand_vector(cores, p95_eff, mem_gb):
+    """(..., R) per-VM admission draw: ``(p95*cores, cores, gb)``.
+
+    This is the exact quantity `serve.placement.place_batch` adds to the
+    chassis ledger — the watts axis is rho units, so axis 0 of the
+    ledger IS the legacy ``rho_peak``.
+    """
+    cores = np.asarray(cores)
+    w = np.asarray(p95_eff) * cores
+    return np.stack([w, cores, np.asarray(mem_gb)], axis=-1)
+
+
+def trough_ratios(util, pivot_util: float = 0.55,
+                  cores_boost: float = 0.5, gb_boost: float = 0.5):
+    """(..., R) Coach-style diurnal conditioning multipliers.
+
+    `util` is the fleet utilization sample (`telemetry.diurnal_util`
+    at the current hour on the simulated trace; a measured fleet
+    average in production). Relief grows linearly as util falls below
+    `pivot_util` (branchless clip):
+
+        relief = clip((pivot - util) / pivot, 0, 1)
+        ratios = (1, 1 + cores_boost*relief, 1 + gb_boost*relief)
+
+    Watts never ratchet — a breaker budget is a physical limit; the
+    cores/GB axes are statistical commitments that the diurnal trough
+    makes temporarily safe to oversell."""
+    util = np.asarray(util)
+    relief = np.clip((pivot_util - util) / pivot_util, 0.0, 1.0)
+    one = np.ones_like(relief)
+    return np.stack([one, one + cores_boost * relief,
+                     one + gb_boost * relief], axis=-1)
+
+
+def lift_caps(cap, n_axes: int = N_RESOURCES):
+    """Lift a scalar-era (C,) watt-axis ceiling to an (C, R) resource
+    ceiling with +inf (vacuous) extra axes; (.., R) passes through, so
+    legacy callers keep their exact decisions."""
+    cap = np.asarray(cap)
+    if cap.ndim >= 2:
+        return cap
+    pad = np.full(cap.shape + (n_axes - 1,), np.inf, cap.dtype)
+    return np.concatenate([cap[..., None], pad], axis=-1)
+
+
+def lift_pool(pool, n_axes: int = N_RESOURCES):
+    """Lift a scalar token-pool balance to (R,) with +inf extra axes;
+    (R,) passes through (same compat rule as `lift_caps`)."""
+    pool = np.asarray(pool)
+    if pool.ndim >= 1:
+        return pool
+    pad = np.full((n_axes - 1,), np.inf, pool.dtype)
+    return np.concatenate([pool[None], pad], axis=-1)

@@ -3,8 +3,9 @@ the torch counterpart of `repro.serve.featurizer`.
 
 The aggregates live as tensors indexed by subscription id —
 `SubscriptionTable` holds running *sums* (not means), so ingesting newly
-labeled VMs is one `index_add` per column and featurizing an arrival
-micro-batch is one gather plus a few elementwise ops. Feature order
+labeled VMs is one order-fixed segment sum over the columns and
+featurizing an arrival micro-batch is one gather plus a few elementwise
+ops. Feature order
 matches `core.features.FEATURE_NAMES` exactly.
 """
 from __future__ import annotations
@@ -66,6 +67,32 @@ def p95_bucket_torch(p95_util: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.ceil(q) - 1, 0, F.N_UTIL_BUCKETS - 1).long()
 
 
+def _segment_sums(base: torch.Tensor, sub: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """`base` (N, K) plus the rows of `vals` (B, K) summed by row id `sub`
+    (B,), each row's values added one at a time in input order — the
+    order the CPU's `index_add` adds them in. A stable sort groups the
+    rows, each group fills one row of a zero-padded (groups, width, K)
+    block, and the block's columns are added in turn: every sum runs in
+    one fixed order, so the result repeats bit for bit from run to run,
+    on the card as on the CPU (the card's float `index_add` adds with
+    atomics, in whatever order they land)."""
+    if sub.numel() == 0:
+        return base
+    order = torch.sort(sub, stable=True).indices
+    s, v = sub[order], vals[order]
+    ids, seg, counts = torch.unique_consecutive(s, return_inverse=True,
+                                                return_counts=True)
+    pos = torch.arange(len(s), device=s.device) \
+        - (torch.cumsum(counts, 0) - counts)[seg]
+    block = v.new_zeros(len(ids), int(counts.max()), v.shape[1])
+    block[seg, pos] = v
+    acc = base[ids]
+    for j in range(block.shape[1]):
+        acc = acc + block[:, j]
+    return base.index_copy(0, ids, acc)
+
+
 def update_table(table: SubscriptionTable, subscription: torch.Tensor,
                  uf_label: torch.Tensor, lifetime_hours: torch.Tensor,
                  p95_util: torch.Tensor,
@@ -73,24 +100,31 @@ def update_table(table: SubscriptionTable, subscription: torch.Tensor,
     """Ingest a batch of labeled VMs (the label-bootstrap loop of paper
     §III-B, run incrementally). All args (B,), percent units. Ids outside
     [0, capacity) are dropped, as XLA drops out-of-range scatter rows:
-    `index_add` would raise on them, so they add a zero to row 0."""
+    they add a zero to row 0. The sums are order-fixed
+    (`_segment_sums`), so the same history gives the same table on every
+    run."""
     sub = subscription.long()
     keep = (sub >= 0) & (sub < table.capacity)
     sub = torch.where(keep, sub, 0)
     w = keep.float()
     bucket = torch.nn.functional.one_hot(
         p95_bucket_torch(p95_util), F.N_UTIL_BUCKETS).float()
-
-    def add(col, vals):
-        return col.index_add(0, sub, vals)
+    vals = torch.cat([torch.stack([
+        w, uf_label.float() * w, (lifetime_hours >= 168).float() * w], -1),
+        bucket * w[:, None],
+        torch.stack([avg_util.float() * w, p95_util.float() * w], -1)], -1)
+    base = torch.cat([torch.stack(
+        [table.count, table.uf_sum, table.lived7d_sum], -1),
+        table.bucket_sum, torch.stack(
+            [table.avg_util_sum, table.p95_util_sum], -1)], -1)
+    out = _segment_sums(base, sub, vals)
+    nb = F.N_UTIL_BUCKETS
     return SubscriptionTable(
-        count=add(table.count, w),
-        uf_sum=add(table.uf_sum, uf_label.float() * w),
-        lived7d_sum=add(table.lived7d_sum, (lifetime_hours >= 168).float()
-                        * w),
-        bucket_sum=add(table.bucket_sum, bucket * w[:, None]),
-        avg_util_sum=add(table.avg_util_sum, avg_util.float() * w),
-        p95_util_sum=add(table.p95_util_sum, p95_util.float() * w))
+        count=out[:, 0].contiguous(), uf_sum=out[:, 1].contiguous(),
+        lived7d_sum=out[:, 2].contiguous(),
+        bucket_sum=out[:, 3:3 + nb].contiguous(),
+        avg_util_sum=out[:, 3 + nb].contiguous(),
+        p95_util_sum=out[:, 4 + nb].contiguous())
 
 
 def ingest_population(table: SubscriptionTable, history: Population,

@@ -1,0 +1,596 @@
+"""Cluster VM-scheduler simulation (paper §IV-E, Fig. 7), the
+counterpart of `repro.sim.scheduler_sim`.
+
+Event-driven 30-day simulation of a 20-rack x 3-chassis x 12-blade
+cluster. Like Azure's simulator, it runs the *actual* placement code
+(`core.placement`) for every arrival; the only extension is the
+simulated prediction channel (the paper's only extension was simulating
+calls to the ML system).
+
+Reported metrics (paper's four):
+  * deployment failure rate,
+  * average empty-server ratio,
+  * std-dev across chassis of the chassis score 1 - rho_peak/rho_max,
+  * std-dev across servers of the server score .5(1+(gNUF-gUF)/N).
+
+The placements the scheduler produced can be fed to the fleet engine
+(`sim.fleet`) to measure the *capping dynamics* they induce —
+`evaluate_power_dynamics` runs the chassis simulator across the live
+chassis layouts in one batched run.
+
+`simulate` runs the `event` backend (the per-arrival numpy rule, the
+decision oracle) and the `serve` backend (each deployment group through
+`serve.placement.place_batch` on the card, in float64). The random
+stream is the reference's draw for draw, so the same seed gives the same
+arrivals, predictions and decisions. Not ported yet: the emergency,
+adaptive and ballooning planes (ROADMAP Queue 1 item 9), the
+`serve-sharded` backend (item 10), the observability hooks (item 11),
+and the deprecated flat-keyword adapter of the reference's `simulate`.
+"""
+from __future__ import annotations
+
+import heapq
+from collections import defaultdict
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core.placement import ClusterState, SchedulerPolicy
+from repro_torch.core.resources import (N_RESOURCES, ResourceVector,
+                                        trough_ratios)
+from repro_torch.device import resolve_device
+from repro_torch.sim import telemetry as tel
+from repro_torch.sim.fleet import (ServerSpec, VMSpec, build_layout,
+                                   build_uf_traces, run_fleet_layouts,
+                                   stack_layouts)
+
+CORES_PER_BLADE = 40            # Table I: 2 x 20 cores
+BLADES_PER_CHASSIS = 12
+CHASSIS_PER_RACK = 3
+RACKS = 20
+
+#: Deterministic GB-per-vcore of every simulated VM. Memory demand is
+#: a pure function of the core draw, so the GB ledger consumes NO extra
+#: randomness.
+GB_PER_CORE = 4.0
+
+
+@dataclass(frozen=True)
+class PredictionChannel:
+    """Simulated ML-system responses (Table III operating point).
+
+    mode:
+      'oracle'    — perfect workload type and P95 bucket;
+      'ml'        — criticality flipped w.p. its measured error, P95
+                    bucket resampled w.p. its measured error; low-
+                    confidence queries fall back to conservative values
+                    (UF, bucket 4), as the real scheduler does;
+      'crit_only' — criticality as 'ml', utilization assumed 100 %
+                    (Fig 7 orange bars);
+      'none'      — no predictions (NoRule baseline ignores them).
+    """
+    mode: str = "ml"
+    crit_recall_uf: float = 0.99     # P(pred UF | true UF)   — Table III
+    crit_recall_nuf: float = 0.69    # P(pred NUF | true NUF)
+    p95_accuracy: float = 0.84
+    p95_high_conf: float = 0.73
+
+    def predict(self, rng, true_uf: bool, true_p95: float):
+        if self.mode == "oracle":
+            return true_uf, true_p95
+        if true_uf:
+            uf = rng.random() < self.crit_recall_uf
+        else:
+            uf = not (rng.random() < self.crit_recall_nuf)
+        if self.mode == "crit_only":
+            return uf, 1.0
+        if rng.random() > self.p95_high_conf:
+            return uf, 1.0                       # low confidence -> 100 %
+        if rng.random() < self.p95_accuracy:
+            p95 = true_p95
+        else:
+            p95 = float(np.clip(true_p95 + rng.choice([-0.25, 0.25]),
+                                0.125, 0.875))
+        return uf, p95
+
+
+@dataclass(frozen=True)
+class PowerEvalSpec:
+    """Post-run capping-dynamics evaluation (`evaluate_power_dynamics`
+    over the placements the scheduler produced). ``budget_w`` is the
+    per-chassis watt budget the fleet engine enforces; ``backend``
+    'torch' runs the engine on `simulate`'s device, 'numpy' the
+    oracle."""
+    budget_w: float
+    chassis: int = 8
+    duration_s: float = 60.0
+    backend: str = "torch"
+
+    def __post_init__(self):
+        if not self.budget_w > 0:
+            raise ValueError(
+                f"PowerEvalSpec.budget_w must be > 0, got {self.budget_w}")
+
+
+@dataclass(frozen=True)
+class ServeBackendSpec:
+    """Which placement path runs, and the resource budgets it admits
+    against (DESIGN.md §16).
+
+    backend:          'event' | 'serve' | 'serve-sharded' (see
+                      `simulate`; 'serve-sharded' is not ported yet).
+    admission_budget: per-chassis `ResourceVector` ceiling for the
+                      serve path (None = unbounded).
+    cluster_budget:   global `ResourceVector` the sharded token pools
+                      enforce.
+    shards:           state partitions of the sharded protocol.
+    ingest_hosts:     per-host queues the arrival stream is dealt
+                      over (sharded backend only).
+    diurnal_ratchet:  condition the cores/GB admission ceilings (and
+                      sharded pool axes) on the diurnal trough via
+                      `core.resources.trough_ratios` — Coach-style
+                      time-of-day oversubscription; the watts axis is
+                      a breaker limit and never ratchets.
+    """
+    backend: str = "event"
+    admission_budget: ResourceVector | None = None
+    cluster_budget: ResourceVector | None = None
+    shards: int = 1
+    ingest_hosts: int = 1
+    diurnal_ratchet: bool = False
+
+    def __post_init__(self):
+        if self.backend not in ("event", "serve", "serve-sharded"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.shards < 1:
+            raise ValueError(f"shards must be >= 1, got {self.shards}")
+        if self.ingest_hosts < 1:
+            raise ValueError(f"ingest_hosts must be >= 1, "
+                             f"got {self.ingest_hosts}")
+
+
+@dataclass(frozen=True)
+class SimSpec:
+    """Everything `simulate` needs beyond the policy and the
+    prediction channel — the one front door (DESIGN.md §16). Plane
+    configs nest as typed sub-specs instead of a flat kwarg sprawl:
+    ``serve`` picks the placement path and budgets, ``power`` the
+    post-run capping evaluation, and ``emergency``/``adaptive``/
+    ``ballooning`` the online planes (untyped; those planes are not
+    ported yet, and `simulate` raises `NotImplementedError` when one is
+    set).
+    """
+    days: float = 30.0
+    seed: int = 0
+    deployments_per_hour: float = 8.0
+    target_uf_core_ratio: float = 0.40
+    sample_every_h: float = 2.0
+    prefill_core_ratio: float = 0.0
+    serve: ServeBackendSpec = field(default_factory=ServeBackendSpec)
+    power: PowerEvalSpec | None = None
+    emergency: object | None = None
+    adaptive: object | None = None
+    ballooning: object | None = None
+
+    def __post_init__(self):
+        if not self.days > 0:
+            raise ValueError(f"days must be > 0, got {self.days}")
+        if self.ballooning is not None and self.emergency is None:
+            raise ValueError(
+                "SimSpec.ballooning requires SimSpec.emergency — the "
+                "balloon rung fires on the emergency plane's alarms")
+
+
+@dataclass
+class PowerEval:
+    """Capping dynamics of scheduler-produced placements (fleet engine)."""
+    chassis_ids: np.ndarray             # (B,) evaluated chassis
+    uf_p95_latency: np.ndarray          # (B,)
+    nuf_slowdown: np.ndarray            # (B,)
+    rapl_engaged_frac: np.ndarray       # (B,)
+    alert_frac: np.ndarray              # (B,)
+    power_max_w: np.ndarray             # (B,)
+
+
+@dataclass
+class SimMetrics:
+    failure_rate: float
+    empty_server_ratio: float
+    chassis_score_std: float
+    server_score_std: float
+    placements: int
+    failures: int
+    power: PowerEval | None = None
+    #: power-emergency plane counters (`SimSpec.emergency` runs only;
+    #: that plane is not ported yet, so they stay 0 here):
+    #: per-criticality throttled-seconds — the paper's Table-4-style
+    #: impact axis (critical should stay near zero under
+    #: criticality-aware apportionment) — plus alarm and migration
+    #: counts. `throttled_s` is (L,) in the emergency plane's level
+    #: order (index `serve.emergency.CRIT_NUF` = 0, `CRIT_UF` = 1 —
+    #: the `obs.LEVEL_NAMES` order), matching `EmergencyState.
+    #: throttled_s` instead of the historical pair of drifting scalar
+    #: names; those survive as read-only properties.
+    throttled_s: np.ndarray = field(default_factory=lambda: np.zeros(2))
+    alarms: int = 0
+    migrations: int = 0
+    #: ballooning rung (`SimSpec.ballooning` runs only): inflation
+    #: events, total GB reclaimed across the run, and the GB still
+    #: ballooned out at the end — all 0 when the rung is off
+    balloon_events: int = 0
+    balloon_reclaimed_gb: float = 0.0
+    ballooned_gb: float = 0.0
+    #: adaptive-ratio controller (`SimSpec.adaptive` runs only): the final
+    #: oversubscription ratio and the up/down step counts — 1.0/0/0
+    #: when the controller is off
+    adaptive_ratio: float = 1.0
+    adaptive_ratchets: int = 0
+    adaptive_backoffs: int = 0
+    #: measured predicted-vs-realized labels (DESIGN.md §17): every
+    #: `PredictionChannel.predict` call is scored against the ground
+    #: truth it was sampled from — ``crit_confusion[true, pred]``
+    #: (2, 2) over criticality, ``p95_confusion[true, pred]`` (4, 4)
+    #: over P95 buckets. Accuracy is an *output* of the run, not the
+    #: channel's generative constant (`measured_p95_accuracy` vs the
+    #: assumed ``p95_accuracy`` knob).
+    crit_confusion: np.ndarray = field(
+        default_factory=lambda: np.zeros((2, 2), np.int64))
+    p95_confusion: np.ndarray = field(
+        default_factory=lambda: np.zeros((4, 4), np.int64))
+
+    @property
+    def measured_crit_accuracy(self) -> float:
+        """Realized criticality-prediction accuracy over the run
+        (NaN when nothing was scored)."""
+        n = self.crit_confusion.sum()
+        return float(np.trace(self.crit_confusion) / n) if n \
+            else float("nan")
+
+    @property
+    def measured_p95_accuracy(self) -> float:
+        """Realized P95-bucket-prediction accuracy over the run
+        (NaN when nothing was scored)."""
+        n = self.p95_confusion.sum()
+        return float(np.trace(self.p95_confusion) / n) if n \
+            else float("nan")
+
+    @property
+    def nuf_throttled_s(self) -> float:
+        """Non-critical throttled-seconds (``throttled_s[CRIT_NUF]``)."""
+        return float(self.throttled_s[0])
+
+    @property
+    def uf_throttled_s(self) -> float:
+        """Critical throttled-seconds (``throttled_s[CRIT_UF]``)."""
+        return float(self.throttled_s[1])
+
+
+def evaluate_power_dynamics(vm_live: dict, chassis_of: np.ndarray,
+                            n_chassis: int, budget_w: float,
+                            blades_per_chassis: int = BLADES_PER_CHASSIS,
+                            cores_per_blade: int = CORES_PER_BLADE,
+                            sample_chassis: int = 8,
+                            duration_s: float = 60.0, seed: int = 0,
+                            backend: str = "torch",
+                            device=None) -> PowerEval:
+    """Run the fleet engine on the placements the scheduler produced.
+
+    Picks the `sample_chassis` most-allocated chassis, packs each one's
+    live VMs into padded fleet layouts (UF VMs' offered load = their
+    effective P95), and simulates the per-VM capping stack on all of
+    them in one batched run. Different chassis have different VM
+    placements — the layout arrays are the batch axis. `backend`
+    'torch' runs on `device` (None: the card, raising without one);
+    'numpy' runs the oracle on the host.
+    """
+    per_server = defaultdict(list)
+    alloc = np.zeros(n_chassis)
+    for (srv, cores, p95e, ufp, *_mem) in vm_live.values():
+        per_server[srv].append(VMSpec(int(cores), bool(ufp),
+                                      load=float(p95e)))
+        alloc[chassis_of[srv]] += cores
+    picked = np.argsort(-alloc)[:sample_chassis]
+    picked = picked[alloc[picked] > 0]
+
+    def chassis_specs(c):
+        servers = np.nonzero(chassis_of == c)[0]
+        return [ServerSpec(vms=per_server.get(int(s), []),
+                           n_cores=cores_per_blade) for s in servers]
+
+    all_specs = [chassis_specs(c) for c in picked]
+    pad_uf = max(1, max(sum(v.is_uf for s in sp for v in s.vms)
+                        for sp in all_specs))
+    pad_nuf = max(1, max(sum(not v.is_uf for s in sp for v in s.vms)
+                         for sp in all_specs))
+    layouts = [build_layout(sp, pad_uf_to=pad_uf, pad_nuf_to=pad_nuf,
+                            pad_cores_to=cores_per_blade)
+               for sp in all_specs]
+    n_steps = int(duration_s / 0.2)
+    traces = np.stack([build_uf_traces(lo, n_steps, seed + i)
+                       for i, lo in enumerate(layouts)])
+    la = stack_layouts(layouts)
+    res = run_fleet_layouts(
+        la, np.stack([lo.uf_valid for lo in layouts]),
+        np.stack([lo.nuf_valid for lo in layouts]),
+        np.stack([lo.nuf_cores for lo in layouts]),
+        np.full(len(layouts), budget_w), "per_vm", traces,
+        backend=backend, device=device)
+    return PowerEval(chassis_ids=picked,
+                     uf_p95_latency=res.uf_p95_latency,
+                     nuf_slowdown=res.nuf_slowdown,
+                     rapl_engaged_frac=res.rapl_engaged_frac,
+                     alert_frac=res.alert_frac,
+                     power_max_w=res.power_w.max(-1))
+
+
+def _sample_vm(rng):
+    cores = int(rng.choice(tel.CORE_SIZES, p=tel.CORE_PROBS))
+    life_h = tel._sample_bucket(rng, tel.LIFETIME_BUCKETS,
+                                tel.LIFETIME_PROBS)
+    return cores, life_h
+
+
+def _sample_deployment_size(rng):
+    return int(tel._sample_bucket(rng, tel.DEPLOY_SIZE_BUCKETS,
+                                  tel.DEPLOY_SIZE_PROBS))
+
+
+#: Serve-backend micro-batch pad (max deployment size is 60 — Table I).
+SERVE_GROUP_PAD = 64
+
+
+def _sample_vm(rng):
+    cores = int(rng.choice(tel.CORE_SIZES, p=tel.CORE_PROBS))
+    life_h = tel._sample_bucket(rng, tel.LIFETIME_BUCKETS,
+                                tel.LIFETIME_PROBS)
+    return cores, life_h
+
+
+def _sample_deployment_size(rng):
+    return int(tel._sample_bucket(rng, tel.DEPLOY_SIZE_BUCKETS,
+                                  tel.DEPLOY_SIZE_PROBS))
+
+
+#: Serve-backend micro-batch pad (max deployment size is 60 — Table I).
+SERVE_GROUP_PAD = 64
+
+
+def _unported(spec: SimSpec, obs) -> None:
+    """Raise for the planes of later slices, naming their ROADMAP item."""
+    for name in ("emergency", "adaptive", "ballooning"):
+        if getattr(spec, name) is not None:
+            raise NotImplementedError(
+                f"SimSpec.{name} is not ported yet (ROADMAP Queue 1 item 9)")
+    if spec.serve.backend == "serve-sharded":
+        raise NotImplementedError(
+            "backend='serve-sharded' is not ported yet (ROADMAP Queue 1 "
+            "item 10)")
+    if obs is not None:
+        raise NotImplementedError(
+            "obs is not ported yet (ROADMAP Queue 1 item 11)")
+
+
+def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
+             spec: SimSpec | None = None, *, trace: list | None = None,
+             obs=None, device=None) -> SimMetrics:
+    """Run the 30-day simulation. Table I parameters throughout:
+    UF:NUF core ratio 4:6, UF P95 ~ 65 % (bucket 3), NUF ~ 44 %
+    (bucket 2).
+
+    ``spec``, a `SimSpec`, holds every run parameter. Every VM carries
+    ``GB_PER_CORE`` GB per vcore (deterministic, so the rng stream is
+    untouched); the committed GB ledger feeds the serve path's
+    per-resource admission.
+
+    serve.backend:
+      'event' — the per-arrival numpy path (`SchedulerPolicy.choose`),
+                the decision oracle; it needs no device;
+      'serve' — each deployment group is placed by one call to the
+                serving pipeline's batched scorer
+                (`serve.placement.place_batch`, padded to
+                SERVE_GROUP_PAD) on `device` in float64, which decides
+                as the event rule does, decision for decision.
+                `serve.admission_budget` adds per-chassis (watts, cores,
+                GB) admission ceilings (rejections count as failures);
+                `serve.diurnal_ratchet` scales their cores/GB axes by
+                `core.resources.trough_ratios` of the diurnal sample.
+
+    `device` is where the serve backend places and the power evaluation
+    (`spec.power` with its 'torch' backend) runs: None means the card,
+    and raises without one; pass ``device="cpu"`` to run there.
+
+    `prefill_core_ratio` warm-starts the cluster before the event loop:
+    VMs are sampled and placed by the event-path rule (identically for
+    every backend) until that fraction of the fleet's cores is
+    committed, with length-biased lifetimes feeding the departure heap.
+
+    `trace`, if given, collects the chosen server (or failure code)
+    per placement attempt — the decision-equivalence probe.
+
+    `spec.emergency`, `spec.adaptive`, `spec.ballooning`, the
+    'serve-sharded' backend and `obs` raise `NotImplementedError`: those
+    planes belong to later parts of the port."""
+    spec = spec if spec is not None else SimSpec()
+    _unported(spec, obs)
+    sv = spec.serve
+    backend_name = sv.backend
+    if sv.ingest_hosts != 1:
+        raise ValueError(
+            f"ingest_hosts={sv.ingest_hosts} requires "
+            f"backend='serve-sharded', got {backend_name!r}")
+    if sv.diurnal_ratchet and backend_name == "event":
+        raise ValueError(
+            "diurnal_ratchet conditions the serve admission ceilings; "
+            "it requires a serve backend")
+    serving = backend_name == "serve"
+    dev = resolve_device(device) if serving or (
+        spec.power is not None and spec.power.backend == "torch") else None
+    if serving:
+        from repro_torch.serve.admission import resource_caps_from_budget
+        from repro_torch.serve.placement import device_state, place_batch
+    from repro_torch.core.features import p95_bucket
+    rng = np.random.default_rng(spec.seed)
+    n_servers = RACKS * CHASSIS_PER_RACK * BLADES_PER_CHASSIS
+    chassis_of = np.arange(n_servers) // BLADES_PER_CHASSIS
+    state = ClusterState(
+        n_servers=n_servers, cores_per_server=CORES_PER_BLADE,
+        chassis_of_server=chassis_of,
+        n_chassis=n_servers // BLADES_PER_CHASSIS)
+    # committed-GB ledger per chassis: the joint admission's memory view
+    mem_chassis = np.zeros(state.n_chassis)
+    if serving:
+        serve_res_cap = resource_caps_from_budget(
+            sv.admission_budget or ResourceVector(),
+            BLADES_PER_CHASSIS, state.n_chassis)
+    departures: list = []        # heap of (time, vm_token)
+    # token -> (server, cores, p95eff, uf_pred, mem_gb)
+    vm_live: dict = {}
+    token = 0
+    placements = failures = 0
+    # measured predicted-vs-realized scoring: every channel.predict is
+    # scored against the ground truth it was sampled from — consumes no
+    # randomness and feeds nothing back into placement
+    crit_cm = np.zeros((2, 2), np.int64)
+    p95_cm = np.zeros((4, 4), np.int64)
+
+    def _score(true_uf, true_p95, uf_pred, p95_pred):
+        tb = int(p95_bucket(true_p95 * 100.0))
+        pb = int(p95_bucket(p95_pred * 100.0))
+        crit_cm[int(true_uf), int(uf_pred)] += 1
+        p95_cm[tb, pb] += 1
+
+    # warm start (identical for every backend: one rng prefix, the
+    # event-path placement rule). A snapshot of a running fleet is
+    # length-biased, so prefill lifetimes sample the duration-weighted
+    # buckets with a uniform residual.
+    target_cores = spec.prefill_core_ratio * n_servers * CORES_PER_BLADE
+    mids = np.array([(lo + hi) / 2 for lo, hi in tel.LIFETIME_BUCKETS])
+    standing_probs = tel.LIFETIME_PROBS * mids
+    standing_probs = standing_probs / standing_probs.sum()
+    filled = 0.0
+    while filled < target_cores:
+        cores = int(rng.choice(tel.CORE_SIZES, p=tel.CORE_PROBS))
+        life_h = rng.random() * tel._sample_bucket(
+            rng, tel.LIFETIME_BUCKETS, standing_probs)
+        true_uf = rng.random() < spec.target_uf_core_ratio
+        true_p95 = float(np.clip(
+            rng.normal(0.65 if true_uf else 0.44, 0.12), 0.05, 1.0))
+        uf_pred, p95_pred = channel.predict(rng, true_uf, true_p95)
+        _score(true_uf, true_p95, uf_pred, p95_pred)
+        p95_eff = policy.effective_p95(p95_pred)
+        srv = policy.choose(state, cores, uf_pred)
+        if srv is None:
+            break
+        mem = cores * GB_PER_CORE
+        state.place(srv, cores, p95_eff, uf_pred)
+        mem_chassis[chassis_of[srv]] += mem
+        vm_live[token] = (srv, cores, p95_eff, uf_pred, mem)
+        heapq.heappush(departures, (life_h, token))
+        token += 1
+        filled += cores
+    t = 0.0
+    next_sample = 0.0
+    empty_samples, chassis_stds, server_stds = [], [], []
+    horizon = spec.days * 24.0
+
+    while t < horizon:
+        t += rng.exponential(1.0 / spec.deployments_per_hour)
+        # departures first
+        while departures and departures[0][0] <= t:
+            _, tok = heapq.heappop(departures)
+            srv, cores, p95e, ufp, mem = vm_live.pop(tok)
+            state.remove(srv, cores, p95e, ufp)
+            mem_chassis[chassis_of[srv]] -= mem
+        while next_sample <= t and next_sample < horizon:
+            busy = state.free_cores < CORES_PER_BLADE
+            empty_samples.append(1.0 - busy.mean())
+            chassis_stds.append(float(np.std(state.score_chassis())))
+            server_stds.append(float(np.std(state.score_server(True))))
+            next_sample += spec.sample_every_h
+        if t >= horizon:
+            break
+        # sample the whole deployment group first (placement consumes
+        # no randomness, so both backends see the same stream), then
+        # place per-VM (event) or via one batched call (serve)
+        group = []
+        for _ in range(_sample_deployment_size(rng)):
+            cores, life_h = _sample_vm(rng)
+            true_uf = rng.random() < spec.target_uf_core_ratio
+            true_p95 = float(np.clip(
+                rng.normal(0.65 if true_uf else 0.44, 0.12), 0.05, 1.0))
+            uf_pred, p95_pred = channel.predict(rng, true_uf, true_p95)
+            _score(true_uf, true_p95, uf_pred, p95_pred)
+            group.append((cores, life_h, uf_pred,
+                          policy.effective_p95(p95_pred)))
+        chosen = None
+        if serving:
+            n = len(group)
+            assert n <= SERVE_GROUP_PAD, \
+                "deployment group exceeds SERVE_GROUP_PAD"
+            pad = np.zeros(SERVE_GROUP_PAD, np.float64)
+            cores_a, uf_a, p95_a = pad.copy(), pad.copy(), pad.copy()
+            for k, (cores, _, ufp, p95e) in enumerate(group):
+                cores_a[k], uf_a[k], p95_a[k] = cores, ufp, p95e
+            mem_a = cores_a * GB_PER_CORE
+            valid = np.arange(SERVE_GROUP_PAD) < n
+            # the diurnal ratchet widens the cores/GB ceilings in the
+            # trough (watts never ratchet — the breaker limit is
+            # physical); the multiply stays in float32 like the
+            # reference's, so a watt-only budget decides as it does
+            rrat = trough_ratios(float(tel.diurnal_util(t))) \
+                if sv.diurnal_ratchet else np.ones(N_RESOURCES)
+            cap_mult = np.asarray([1.0, rrat[1], rrat[2]], np.float32)
+            _, srvs = place_batch(
+                device_state(state, torch.float64, device=dev,
+                             mem_gb=mem_chassis), cores_a,
+                uf_a.astype(bool), p95_a, valid, serve_res_cap * cap_mult,
+                policy, state.cores_per_server, mem_gb=mem_a)
+            chosen = [int(s) for s in srvs.cpu().numpy()[:n]]
+        for i, (cores, life_h, uf_pred, p95_eff) in enumerate(group):
+            srv = chosen[i] if chosen is not None else \
+                policy.choose(state, cores, uf_pred)
+            placements += 1
+            if trace is not None:
+                trace.append(-1 if srv is None else int(srv))
+            if srv is None or srv < 0:
+                failures += 1
+                continue
+            mem = cores * GB_PER_CORE
+            state.place(srv, cores, p95_eff, uf_pred)
+            mem_chassis[chassis_of[srv]] += mem
+            vm_live[token] = (srv, cores, p95_eff, uf_pred, mem)
+            heapq.heappush(departures, (t + life_h, token))
+            token += 1
+
+    power = None
+    if spec.power is not None and vm_live:
+        power = evaluate_power_dynamics(
+            vm_live, chassis_of, state.n_chassis, spec.power.budget_w,
+            sample_chassis=spec.power.chassis,
+            duration_s=spec.power.duration_s, seed=spec.seed,
+            backend=spec.power.backend, device=dev)
+    return SimMetrics(
+        failure_rate=failures / max(placements, 1),
+        empty_server_ratio=float(np.mean(empty_samples)),
+        chassis_score_std=float(np.mean(chassis_stds)),
+        server_score_std=float(np.mean(server_stds)),
+        placements=placements, failures=failures, power=power,
+        crit_confusion=crit_cm, p95_confusion=p95_cm)
+
+
+def fig7_sweep(alphas=(0.0, 0.2, 0.4, 0.6, 0.8, 1.0), days: float = 30.0,
+               seed: int = 0, deployments_per_hour: float = 8.0) -> dict:
+    """Fig 7: NoRule baseline + {ml, oracle, crit_only} x alpha sweep."""
+    def run(pol, mode):
+        return simulate(pol, PredictionChannel(mode), SimSpec(
+            days=days, seed=seed,
+            deployments_per_hour=deployments_per_hour))
+    out = {"NoRule": run(SchedulerPolicy(use_power_rule=False), "none")}
+    for mode in ("ml", "oracle", "crit_only"):
+        for a in alphas:
+            pol = SchedulerPolicy(
+                alpha=a,
+                use_utilization_predictions=(mode != "crit_only"))
+            out[f"{mode}:alpha={a}"] = run(pol, mode)
+    return out

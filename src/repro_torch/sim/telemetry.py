@@ -16,9 +16,10 @@ It reproduces the *structure* the paper describes:
 
 Everything is numpy (host-side data plane), carried over unchanged from
 `repro.sim.telemetry` so that the same seed gives the same population; the
-algorithms that run on the card are torch. Only the population generator
-and the arrival wire format are carried; the stream and merge helpers
-belong to later parts of the port.
+algorithms that run on the card are torch. Carried so far: the population
+generator, the arrival wire format, the diurnal utilization sample and the
+chassis power history of Table IV; the stream and merge helpers belong to
+later parts of the port.
 """
 from __future__ import annotations
 
@@ -258,3 +259,66 @@ def arrival_batch(pop: Population, idx=None) -> ArrivalBatch:
         p95_util=np.array([v.p95_util for v in vms], np.float32),
         lifetime_hours=np.array([v.lifetime_hours for v in vms],
                                 np.float32))
+
+
+def diurnal_util(t_hours) -> np.ndarray:
+    """Deterministic fleet-utilization sample at simulation time
+    `t_hours` (hours; scalar or array) — the fraction of the committed
+    P95 the fleet is actually drawing: the emergency plane's power
+    samples and the serve backend's diurnal ratchet in the scheduler
+    simulation (`sim.scheduler_sim`).
+
+    A business-hours diurnal hump with a harmonic ripple, clipped to
+    [0.15, 0.95]: peaks push oversubscribed chassis past their alarm
+    threshold once per simulated day, troughs let caps lift — and
+    because it is a pure function of `t` (no rng), every backend and
+    ingest-host count sees the identical emergency trace."""
+    tod = (np.asarray(t_hours, np.float64) % 24.0) / 24.0
+    x = 0.55 + 0.32 * np.sin((tod - 0.25) * 2 * np.pi) \
+        + 0.08 * np.sin((tod - 0.10) * 4 * np.pi)
+    return np.clip(x, 0.15, 0.95)
+
+
+def generate_chassis_telemetry(n_chassis: int, n_days: int,
+                               provisioned_w: float, seed: int = 0,
+                               slots_per_day: int = 48) -> np.ndarray:
+    """Historical chassis power draws for the oversubscription strategy
+    (paper §IV-F used 1440 chassis over 3 months).
+
+    Returns (n_chassis, n_days * slots_per_day) watts. Draws combine a
+    diurnal fleet pattern, per-chassis offsets, noise, and rare correlated
+    regional peaks — calibrated so the maximum draw sits ~6-7 % below the
+    provisioned (nameplate) power, matching the headroom the paper's
+    state-of-the-art row recovers.
+
+    The tail is calibrated (see EXPERIMENTS.md §Table IV) to the shape the
+    paper's results imply: P99 ~ 0.80, P99.9 ~ 0.853 and max ~ 0.91 of
+    provisioned power — the quantiles at which the paper's scenario rows
+    (6.2 % / 11.0 % / 12.1 % / 8.4 %) become self-consistent under the
+    measured power/frequency curves.
+    """
+    rng = np.random.default_rng(seed)
+    t = n_days * slots_per_day
+    tod = (np.arange(t) % slots_per_day) / slots_per_day
+    diurnal = 0.5 + 0.5 * np.clip(np.sin((tod - 0.25) * 2 * np.pi), 0, None)
+    base = 0.56 + 0.155 * diurnal                               # of provisioned
+    chassis_offset = rng.normal(0, 0.025, (n_chassis, 1))
+    noise = rng.normal(0, 0.020, (n_chassis, t))
+    draw = base[None, :] + chassis_offset + noise
+    # per-chassis high-load episodes (~1.1 % of readings): tenant bursts
+    # pushing the chassis into the 78-85 % band
+    episode = rng.random((n_chassis, t)) < 0.0115
+    draw = np.where(episode,
+                    np.maximum(draw, rng.uniform(0.78, 0.853,
+                                                 (n_chassis, t))),
+                    draw)
+    # rare correlated fleet events (~0.1 % of readings): most chassis
+    # spike together into the 85-91 % band
+    n_events = max(1, int(0.00175 * t))
+    ev_slots = rng.choice(t, n_events, replace=False)
+    for s in ev_slots:
+        hit = rng.random(n_chassis) < 0.6
+        draw[hit, s] = np.maximum(
+            draw[hit, s], rng.uniform(0.848, 0.9105, int(hit.sum())))
+    draw = np.clip(draw, 0.25, 0.9105)   # breakers never trip historically
+    return (draw * provisioned_w).astype(np.float32)

@@ -1,7 +1,8 @@
 """Shared helpers of the port's parity tests (`tests/test_torch_*.py`):
 hand the JAX package's objects to `repro_torch.convert` as numpy dicts,
-import `repro.serve` past its collection-time DeprecationWarning, and the
-`cuda` fixture of the tests that need the card."""
+import `repro.serve` past its collection-time DeprecationWarning, let the
+reference's serve backend take its 64-bit context on the installed jax,
+and the `cuda` fixture of the tests that need the card."""
 import importlib
 import warnings
 
@@ -52,3 +53,14 @@ def service_dict(svc) -> dict:
 def table_dict(table) -> dict:
     """A `SubscriptionTable` as `convert.table_from_numpy` takes it."""
     return {f: np.asarray(a) for f, a in zip(table._fields, table)}
+
+
+def reference_enable_x64(monkeypatch) -> None:
+    """Let the reference's `simulate(backend="serve")` run on the installed
+    jax: it places inside `jax.experimental.enable_x64()`, which jax 0.9
+    removed in favour of `jax.enable_x64(True)`, the same 64-bit context.
+    Patched for the calling test only; nothing in `repro` changes."""
+    import jax
+    import jax.experimental
+    monkeypatch.setattr(jax.experimental, "enable_x64",
+                        lambda: jax.enable_x64(True), raising=False)

@@ -17,7 +17,10 @@ from repro_torch.launch import serve as lm_serve
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import transformer as T
 from repro_torch.serve import ServePipeline, resolve_kernel
+from repro_torch.core.placement import SchedulerPolicy
+from repro_torch.runtime.power_control import ChassisPowerSim
 from repro_torch.serve.featurizer import empty_table
+from repro_torch.sim import chassis_sim, fleet, scheduler_sim
 from repro_torch.sim.telemetry import generate_population
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -44,6 +47,36 @@ def test_entry_points_default_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         empty_table(4)
     assert D.resolve_device("cpu").type == "cpu"
+
+
+def test_evaluation_entry_points_default_to_the_card(no_cuda):
+    """The fleet engine, the chassis simulator, the framework power
+    control, the scheduler's serve backend and its power evaluation run
+    on the card unless asked for the CPU or the numpy oracle."""
+    specs = [chassis_sim.paper_single_server_spec()]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fleet.run_fleet(specs, 230.0, "per_vm", duration_s=1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chassis_sim.simulate_server(specs[0], 230.0, "per_vm", 1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ChassisPowerSim(budget_w=260.0)
+    spec = scheduler_sim.SimSpec(days=0.05, serve=scheduler_sim.
+                                 ServeBackendSpec(backend="serve"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scheduler_sim.simulate(SchedulerPolicy(),
+                               scheduler_sim.PredictionChannel(), spec)
+    power = scheduler_sim.SimSpec(
+        days=0.05, power=scheduler_sim.PowerEvalSpec(budget_w=2000.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scheduler_sim.simulate(SchedulerPolicy(),
+                               scheduler_sim.PredictionChannel(), power)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scheduler_sim.evaluate_power_dynamics(
+            {0: (0, 8, 0.5, True, 32.0)}, np.arange(24) // 12, 2, 2000.0,
+            sample_chassis=1, duration_s=1.0)
+    assert fleet.run_fleet(specs, 230.0, "per_vm", duration_s=1.0,
+                           backend="numpy").power_w.shape == (1, 5)
+    assert ChassisPowerSim(budget_w=260.0, backend="numpy").state is None
 
 
 def test_cuda_kernel_on_cpu_tensor_raises():
@@ -93,7 +126,10 @@ def test_import_without_jax():
             "repro_torch.kernels.build, repro_torch.configs, "
             "repro_torch.models.transformer, repro_torch.launch.serve, "
             "repro_torch.launch.steps, repro_torch.kernels.ssd.ops, "
-            "repro_torch.kernels.flash_attention.ops; "
+            "repro_torch.kernels.flash_attention.ops, repro_torch.sim, "
+            "repro_torch.sim.fleet, repro_torch.sim.chassis_sim, "
+            "repro_torch.core.capping, repro_torch.core.oversubscription, "
+            "repro_torch.runtime.power_control; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
