@@ -31,10 +31,30 @@ rows; flash and SSD in bf16), and drives the port's two paths:
   oracle at the reference's bars (`fleet_parity`), at 1, 64 and 1,024
   chassis with launches per step and the device's idle share
   (`fleet_scale`), a Table IV sweep and its frontier (`table4_sweep`),
-  and the Fig 7 scheduler simulation over 4 days with its event backend
-  on the host and its serve backend on the card, which must place
-  alike, an admission-budget run and a power evaluation
-  (`scheduler_sim`).
+  and the Fig 7 scheduler simulation over SIM_DAYS days with its event
+  backend on the host and its serve backend on the card, which must
+  place alike, an admission-budget run and a power evaluation
+  (`scheduler_sim`);
+- the streamed serving loop with the power-emergency plane
+  (`streamed_serve`): the history labeled again on the card, then the
+  serving cell's 4,096 arrivals pushed through `submit_to` over a warm
+  cluster at the paper's 2x chassis budget (1,860 W), with a departure
+  stream through `depart_to`, a cap sweep of all 60 chassis through
+  `cap_to` every 4 micro-batches (`sampled_power` at util 0.85 on the
+  live aggregates) and one migration cycle (due chassis ->
+  `plan_migrations` -> paired events -> `depart_to` -> `reset_dwell`).
+  It checks alarms, a forest launch per micro-batch, equal decisions,
+  alarms, throttled-seconds and final state at 1 and 4 ingest hosts,
+  the card's decisions against the same stream on the CPU, and a
+  repeated card run bit-equal to the first; it prints arrivals/s with
+  the plane off and on, launches per micro-batch and per cap window, and
+  the device idle share;
+- the emergency plane in the scheduler simulation (`sim_emergency`) at
+  the reference benchmark's 2x settings, aware and blind, on the event
+  backend on the host and (aware) on the serve backend on the card,
+  whose torch twin is held bit-equal to the numpy oracle on every scan:
+  equal traces and `SimMetrics`, aware critical throttled-seconds below
+  blind, beside the reference's record in BENCH_serve_emergency.json.
 
 It also builds the serving cell's history table twice and serves the
 arrivals twice, and checks the tables bit-equal and the decisions equal
@@ -104,7 +124,7 @@ LM_ATOL, LM_RTOL = 0.15, 0.1
 #: bars (tests/test_fleet_engine.py) on the Fig 4-5 and Fig 6 setups, the
 #: scale runs of BENCH_fleet_engine.json (the balanced chassis, 150
 #: steps), a Table IV grid for the Fig 4-5 server, and the scheduler
-#: simulation over the reference test's 4 days.
+#: simulation.
 FLEET_BARS = {"power_w": 0.5, "min_nuf_freq": 1e-5, "rapl_frac": 0.01,
               "uf_p95_rel": 1e-3, "nuf_slowdown_rel": 1e-3}
 FIG45 = [(230.0, "per_vm"), (230.0, "rapl"), (210.0, "per_vm")]
@@ -112,7 +132,9 @@ FLEET_DUR_S = 60.0
 FLEET_SCALE, FLEET_STEPS = (1, 64, 1024), 150
 T4_BUDGETS = (290.0, 280.0, 270.0, 260.0, 250.0, 240.0, 230.0, 220.0, 210.0)
 T4_LOADS, T4_FLOORS = (1.0, 0.9, 0.8), (0.5, 0.6, 0.75)
-SIM_DAYS = 4.0
+#: The Fig 7 run's length, cut from the reference test's 4 days to keep
+#: the whole script near 500 s.
+SIM_DAYS = 1.0
 TIGHT_BUDGET_W = 12 * 112.0 + 60.0
 
 
@@ -1072,6 +1094,363 @@ def scheduler_sim(dev) -> dict:
     return out
 
 
+#: Streamed serving cell: the serving cell's arrivals pushed through the
+#: per-host ingest with a departure stream (every DEPART_EVERY-th
+#: admitted VM of micro-batch k-2 leaves after micro-batch k), a cap
+#: sweep of every chassis after micro-batch 0 and each SWEEP_EVERY
+#: micro-batches on at the paper's 2x budget (12 x 310 W provisioned,
+#: budgeted at half), and one migration cycle after micro-batch
+#: MIGRATE_AFTER, the second sweep, while the empty chassis still have
+#: headroom for the moved VMs. The cluster starts
+#: warm: every WARM_EVERY-th chassis holds WARM_OCCUPANCY of its cores
+#: in mostly critical VMs (a hot chassis whose cut reaches the critical
+#: level, so the dwell trigger fires), the others start empty (the
+#: migration's destinations).
+STREAM_HOSTS = (1, 4)
+DEPART_EVERY, SWEEP_EVERY, SWEEP_UTIL = 4, 4, 0.85
+EMERGENCY_BUDGET_W = 12 * 310.0 / 2.0
+STREAM_DWELL_S, MIGRATE_AFTER = 600.0, 4
+WARM_EVERY, WARM_OCCUPANCY, WARM_UF = 3, 0.7, 0.7
+#: The reference benchmark's 2x emergency sim (benchmarks/serve_emergency.py)
+#: and its record (BENCH_serve_emergency.json, `throttled_2x`).
+EMERGENCY_SIM = dict(days=0.55, seed=0, deployments_per_hour=16.0,
+                     prefill_core_ratio=0.75)
+EMERGENCY_SIM_DWELL_S = 1800.0
+
+
+def _rows(batch, rows):
+    return type(batch)(*(getattr(batch, f)[rows]
+                         for f in type(batch).__dataclass_fields__))
+
+
+def warm_cluster(seed: int):
+    """The streamed cell's warm start: a host `ClusterState` and its VMs
+    as (server, cores, p95, is_uf) arrays, seeded."""
+    from repro_torch.core.placement import ClusterState
+    rng = np.random.default_rng(seed)
+    st = ClusterState(n_servers=N_SERVERS, cores_per_server=CORES,
+                      chassis_of_server=np.arange(N_SERVERS) // BLADES,
+                      n_chassis=N_SERVERS // BLADES)
+    vms = []
+    for c in range(0, N_SERVERS // BLADES, WARM_EVERY):
+        filled, i = 0.0, 0
+        while filled < WARM_OCCUPANCY * BLADES * CORES:
+            srv = c * BLADES + i % BLADES
+            cores = int(rng.choice([2, 4, 8]))
+            if st.free_cores[srv] >= cores:
+                p95 = float(rng.uniform(0.5, 0.9))
+                uf = bool(rng.random() < WARM_UF)
+                st.place(srv, cores, p95, uf)
+                vms.append((srv, cores, p95, uf))
+                filled += cores
+            i += 1
+    cols = list(zip(*vms))
+    return st, (np.array(cols[0], np.int64), np.array(cols[1], np.float64),
+                np.array(cols[2], np.float64), np.array(cols[3], bool))
+
+
+def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None):
+    """Push `batch` through `submit_to` in micro-batch chunks dealt row by
+    row over `hosts` (unit-clock stamps from `arrival_stamps`), with the
+    departure stream and, with `plane`, the cap sweeps (stamps between
+    arrival ticks) and one migration cycle (flush -> due chassis ->
+    `plan_migrations` over the live VMs, `warm` ones included -> paired
+    events through `depart_to` -> `reset_dwell`). Sweep powers are
+    `samples` when given, else `sampled_power` at SWEEP_UTIL on the
+    pipeline's live aggregates (recorded in the result). Returns the
+    decisions and what the checks read; the wall covers the whole
+    stream, which ends in host fetches."""
+    import dataclasses
+    import torch
+    from repro_torch.serve import emergency, mitigation
+    from repro_torch.sim.telemetry import arrival_stamps
+    n, nw = len(batch), len(warm[0])
+    stamps = arrival_stamps(n)
+    # the VM registry: warm VMs first, then the arrivals in stream order
+    server_of = np.concatenate([warm[0], np.full(n, -1, np.int64)])
+    cores_of = np.concatenate([warm[1], batch.cores.astype(np.float64)])
+    p95_of = np.concatenate([warm[2], np.zeros(n)])
+    uf_of = np.concatenate([warm[3], np.zeros(n, bool)])
+    departed = np.zeros(nw + n, bool)
+    served, swept, cycle = [], [], None
+    chassis = np.arange(pipe.n_chassis)
+
+    def take(out):
+        for r in ([] if out is None else [out] if hasattr(out, "server")
+                  else out):
+            for lo in range(0, len(r.server), BATCH):
+                part = type(r)(*(getattr(r, f.name)[lo:lo + BATCH]
+                                 for f in dataclasses.fields(r)))
+                rows = nw + len(served) * BATCH + np.arange(BATCH)
+                server_of[rows] = part.server
+                p95_of[rows] = part.p95_eff
+                uf_of[rows] = part.workload_type == 1
+                served.append(part)
+
+    t0 = time.perf_counter()
+    for k in range(n // BATCH):
+        idx = np.arange(k * BATCH, (k + 1) * BATCH)
+        for h in range(hosts):
+            rows = idx[idx % hosts == h]
+            take(pipe.submit_to(h, _rows(batch, rows), t=stamps[rows]))
+        t_end = stamps[idx[-1]]
+        if k >= 2:
+            rows = nw + (k - 2) * BATCH + np.flatnonzero(
+                served[k - 2].server >= 0)[::DEPART_EVERY]
+            departed[rows] = True
+            take(pipe.depart_to(
+                k % hosts, server_of[rows], cores_of[rows], p95_of[rows],
+                uf_of[rows], t=t_end + 0.25 + 1e-6 * np.arange(len(rows))))
+        if plane and k % SWEEP_EVERY == 0:
+            if samples is None:
+                st = pipe.state
+                rho = emergency.chassis_rho_levels(
+                    st.gamma_nuf, st.gamma_uf, st.chassis_servers)
+                power = emergency.sampled_power(
+                    pipe.emergency_cfg, rho, SWEEP_UTIL,
+                    torch.zeros(rho.shape, dtype=torch.int32,
+                                device=rho.device),
+                    torch.zeros(rho.shape[0], dtype=torch.bool,
+                                device=rho.device)).cpu().numpy()
+            else:
+                power = samples[len(swept)]
+            swept.append(power)
+            take(pipe.cap_to((k + 1) % hosts, chassis, power,
+                             t=t_end + 0.5 + (chassis + 1) * 1e-7))
+        if plane and k == MIGRATE_AFTER:
+            take(pipe.flush())
+            due = pipe.mitigation_due_chassis()
+            live = np.flatnonzero((server_of >= 0) & ~departed)
+            st = pipe.state
+            plan = mitigation.plan_migrations(
+                pipe.emergency_cfg, mitigation.LiveVMs(
+                    server_of[live].astype(np.int32), cores_of[live],
+                    p95_of[live], uf_of[live], token=live),
+                st.chassis_of.cpu().numpy(),
+                st.free_cores.double().cpu().numpy(),
+                emergency.chassis_rho_levels_np(
+                    st.gamma_nuf.double().cpu().numpy(),
+                    st.gamma_uf.double().cpu().numpy(),
+                    st.chassis_servers.cpu().numpy()),
+                SWEEP_UTIL, np.isin(chassis, due))
+            dep, arr = plan.as_events()
+            t_dep, t_arr = plan.paired_stamps(t_end + 0.75)
+            for i in range(len(plan)):
+                for ev, t in ((dep, t_dep), (arr, t_arr)):
+                    take(pipe.depart_to(
+                        i % hosts, ev.server[i:i + 1], ev.cores[i:i + 1],
+                        ev.p95_eff[i:i + 1], ev.is_uf[i:i + 1],
+                        t=t[i:i + 1]))
+            server_of[plan.token] = plan.dst_server
+            pipe.reset_dwell(due)
+            cycle = {"due_chassis": due.tolist(), "moves": len(plan),
+                     "src": plan.src_server.tolist(),
+                     "dst": plan.dst_server.tolist()}
+    take(pipe.flush())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"servers": np.concatenate([r.server for r in served]),
+            "conservative": np.concatenate([r.conservative
+                                            for r in served]),
+            "wall": wall, "arrivals_per_s": n / wall,
+            "micro_batches": len(served), "departures": int(departed.sum()),
+            "sweeps": len(swept), "samples": swept, "cycle": cycle,
+            "alarms": pipe.alarms if plane else 0,
+            "throttled_by_level": pipe.throttled_by_level()}
+
+
+def streamed_serve(run, hist, arrivals, budget_w: float, seed: int,
+                   dev) -> dict:
+    """The streamed serving loop with the power-emergency plane on the
+    card (see `streamed`), its launch counts read from 0 (history
+    labeling plus the 1-host run); then the same stream with the plane
+    off, at 4 hosts, on the CPU, and once more on the card, and the
+    launches and device idle share of its pieces."""
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.core import criticality
+    from repro_torch.serve import (EmergencyConfig, PlaneBundle,
+                                   ResourceVector, ServeConfig,
+                                   ServePipeline, device_state)
+    from repro_torch.sim.telemetry import arrival_batch
+    batch = arrival_batch(arrivals)
+    ecfg = EmergencyConfig.from_model(EMERGENCY_BUDGET_W,
+                                      dwell_s=STREAM_DWELL_S)
+    warm_state, warm = warm_cluster(seed)
+
+    def pipeline(hosts, plane, labels, device=dev):
+        pipe = ServePipeline.from_history(
+            run["svc"], hist, labels, n_servers=N_SERVERS,
+            cores_per_server=CORES, blades_per_chassis=BLADES,
+            device=device, config=ServeConfig(
+                batch_size=BATCH, n_ingest_hosts=hosts, planes=PlaneBundle(
+                    chassis_budget=ResourceVector(watts=budget_w),
+                    emergency=ecfg if plane else None)))
+        pipe.state = device_state(warm_state, device=device)
+        return pipe
+
+    reset_launches()
+    labels = criticality.classify(hist.series, device=dev).cpu().numpy()
+    on1 = streamed(pipeline(1, True, labels), batch, 1, True, warm)
+    launches = dict(KERNEL_LAUNCHES)
+    check(launches["forest"] == on1["micro_batches"] == len(batch) // BATCH,
+          f"streamed path: a forest launch per micro-batch: {launches}")
+    check(launches["template"] >= 1, "streamed path labels on the card")
+    check(on1["alarms"] > 0, "the cap sweeps raise alarms (else the "
+          "measurement is dead)")
+    check(on1["cycle"] is not None and on1["cycle"]["due_chassis"]
+          and on1["cycle"]["moves"] > 0,
+          f"the migration cycle finds due chassis and moves VMs: "
+          f"{on1['cycle']}")
+    runs = {"on_1": on1, "off_1": streamed(pipeline(1, False, labels),
+                                           batch, 1, False, warm)}
+    pipes = {}
+    for hosts in STREAM_HOSTS[1:]:
+        pipes[hosts] = pipeline(hosts, True, labels)
+        runs[f"on_{hosts}"] = streamed(pipes[hosts], batch, hosts, True,
+                                       warm, on1["samples"])
+        runs[f"off_{hosts}"] = streamed(pipeline(hosts, False, labels),
+                                        batch, hosts, False, warm)
+    pipes[1] = pipeline(1, True, labels)
+    again = streamed(pipes[1], batch, 1, True, warm)
+    cpu_pipe = pipeline(1, True, labels, device="cpu")
+    cpu = streamed(cpu_pipe, batch, 1, True, warm, on1["samples"])
+
+    def same(a, b, what):
+        for f in ("servers", "conservative", "throttled_by_level"):
+            check(np.array_equal(a[f], b[f]), f"{what}: equal {f}")
+        check(a["alarms"] == b["alarms"] and a["cycle"] == b["cycle"],
+              f"{what}: equal alarms and migration cycle")
+    for hosts in STREAM_HOSTS[1:]:
+        same(runs[f"on_{hosts}"], on1, f"{hosts} hosts against 1")
+        for f in ("free_cores", "gamma_uf", "gamma_nuf", "res_peak"):
+            check(torch.equal(getattr(pipes[hosts].state, f),
+                              getattr(pipes[1].state, f)),
+                  f"{hosts} hosts: final {f} bit-equal to 1 host's")
+        for f, a, b in zip(pipes[1].emergency._fields, pipes[1].emergency,
+                           pipes[hosts].emergency):
+            check(torch.equal(a, b), f"{hosts} hosts: emergency {f} equal")
+    same(again, on1, "the card's run repeated")
+    check(all(np.array_equal(a, b) for a, b in zip(again["samples"],
+                                                   on1["samples"])),
+          "the repeated run samples the same live aggregates, bit for bit")
+    same(cpu, on1, "the CPU against the card")
+    state_gap = {f: float((getattr(pipes[1].state, f).cpu()
+                           - getattr(cpu_pipe.state, f)).abs().max())
+                 for f in ("free_cores", "gamma_uf", "gamma_nuf",
+                           "res_peak")}
+    for f, v in state_gap.items():
+        check(v <= 1e-6 * max(1.0, float(getattr(cpu_pipe.state, f).abs()
+                                         .max())),
+              f"CPU final {f} within float32 rounding of the card's: {v}")
+
+    # the launches of one micro-batch, of one fused with a cap window, of
+    # one standalone cap window; the device idle share of a short stream
+    pipe = pipeline(1, True, labels)
+    chunks = [_rows(batch, np.arange(i * BATCH, (i + 1) * BATCH))
+              for i in range(3)]
+    power = on1["samples"][-1]
+    chassis = np.arange(pipe.n_chassis)
+
+    def launches_of(fn):
+        return device_profile(lambda: None, fn)["launches"]
+    stamps = np.arange(1.0, 3 * BATCH + 1.0).reshape(3, BATCH)
+    per_batch = launches_of(lambda: pipe.submit_to(0, chunks[0],
+                                                   t=stamps[0]))
+    per_fused = launches_of(lambda: (
+        pipe.cap_to(0, chassis, power, t=stamps[0, -1] + 0.5
+                    + (chassis + 1) * 1e-7),
+        pipe.submit_to(0, chunks[1], t=stamps[1])))
+    per_window = launches_of(lambda: (
+        pipe.cap_to(0, chassis, power, t=stamps[1, -1] + 0.5
+                    + (chassis + 1) * 1e-7), pipe.alarms))
+    seg = [_rows(batch, np.arange(i * 4 * BATCH, (i + 1) * 4 * BATCH))
+           for i in range(2)]
+    prof = device_profile(
+        lambda: streamed(pipeline(1, True, labels), seg[0], 1, True, warm),
+        lambda: streamed(pipeline(1, True, labels), seg[1], 1, True, warm))
+    rate = {k: v["arrivals_per_s"] for k, v in runs.items()}
+    rate["on_1_again"] = again["arrivals_per_s"]
+    return {
+        "arrivals": len(batch), "micro_batches": on1["micro_batches"],
+        "warm_vms": len(warm[0]), "warm_chassis": len(range(
+            0, N_SERVERS // BLADES, WARM_EVERY)),
+        "budget_w": EMERGENCY_BUDGET_W, "dwell_s": STREAM_DWELL_S,
+        "departures": on1["departures"], "sweeps": on1["sweeps"],
+        "alarms": on1["alarms"],
+        "throttled_by_level": on1["throttled_by_level"].tolist(),
+        "admitted": int((on1["servers"] >= 0).sum()),
+        "power_rejected": int((on1["servers"] == -2).sum()),
+        "migration_cycle": on1["cycle"], "launches": launches,
+        "arrivals_per_s": rate,
+        "plane_overhead_share": {
+            h: 1.0 - rate[f"on_{h}"] / rate[f"off_{h}"]
+            for h in STREAM_HOSTS},
+        "hosts_equal": True, "cpu_equal": True, "repeat_bit_equal": True,
+        "cpu_state_max_gap": state_gap,
+        "launches_per_micro_batch": per_batch,
+        "launches_per_fused_micro_batch": per_fused,
+        "launches_per_cap_window": per_window,
+        "launches_per_cap_window_fused": per_fused - per_batch,
+        "profile_1024_arrivals": {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share", "launches")}}
+
+
+def sim_emergency(dev) -> dict:
+    """`simulate` with the emergency plane at the reference benchmark's
+    2x settings, aware and blind, on the event backend on the host, and
+    the aware run again on the serve backend on the card (its torch twin
+    held bit-equal to the numpy oracle on every scan): the serve trace
+    and every `SimMetrics` field equal the event backend's, aware gives
+    fewer critical throttled-seconds than blind, and the numbers stand
+    beside the reference's record."""
+    import dataclasses
+    from repro_torch.core.placement import SchedulerPolicy
+    from repro_torch.serve import EmergencyConfig
+    from repro_torch.sim import scheduler_sim as S
+    pol, ch = SchedulerPolicy(alpha=0.8), S.PredictionChannel("ml")
+    metrics, traces, secs = {}, {}, {}
+    for name, backend, blind in (("aware", "event", False),
+                                 ("blind", "event", True),
+                                 ("aware_serve", "serve", False)):
+        tr = []
+        t0 = time.perf_counter()
+        metrics[name] = S.simulate(pol, ch, S.SimSpec(
+            emergency=EmergencyConfig.from_model(
+                EMERGENCY_BUDGET_W, dwell_s=EMERGENCY_SIM_DWELL_S,
+                criticality_blind=blind),
+            serve=S.ServeBackendSpec(backend=backend), **EMERGENCY_SIM),
+            trace=tr, device=dev)
+        secs[name] = time.perf_counter() - t0
+        traces[name] = tr
+    check(traces["aware_serve"] == traces["aware"],
+          "emergency sim: serve trace on the card == event trace")
+    a, s = metrics["aware"], metrics["aware_serve"]
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(s, f.name)
+        check(np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y,
+              f"emergency sim: serve SimMetrics.{f.name} == event's")
+    check(metrics["aware"].alarms > 0, "emergency sim raises alarms")
+    check(metrics["aware"].uf_throttled_s < metrics["blind"].uf_throttled_s,
+          "criticality-aware apportionment throttles critical VMs less "
+          "than blind")
+    bench = Path(__file__).resolve().parent / "BENCH_serve_emergency.json"
+    record = json.loads(bench.read_text())["throttled_2x"]
+    out = {**EMERGENCY_SIM, "budget_w": EMERGENCY_BUDGET_W,
+           "dwell_s": EMERGENCY_SIM_DWELL_S, "seconds": secs,
+           "placements": a.placements, "traces_equal": True,
+           "metrics_equal": True,
+           "serve_arrivals_per_s": a.placements / secs["aware_serve"]}
+    for name in ("aware", "blind"):
+        m = metrics[name]
+        mine = {"uf_throttled_s": m.uf_throttled_s,
+                "nuf_throttled_s": m.nuf_throttled_s, "alarms": m.alarms,
+                "migrations": m.migrations}
+        out[name] = {"port": mine, "reference_record": record[name],
+                     "equal_to_record": mine == record[name]}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1273,12 +1652,22 @@ def main(argv=None) -> int:
     emit("scheduler_sim", **scheduler_sim(dev))
     emit("eval_path", launches=dict(KERNEL_LAUNCHES))
 
+    # the streamed serving loop with the power-emergency plane (its counts
+    # read from 0 inside: labeling plus the first streamed run), then the
+    # emergency plane in the scheduler simulation, read from counts at 0
+    stream = streamed_serve(run, hist, arrivals, budget_w, args.seed, dev)
+    emit("streamed_serve", **stream)
+    reset_launches()
+    emit("sim_emergency", **sim_emergency(dev),
+         launches=dict(KERNEL_LAUNCHES))
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "forest_sums", "route": "cuda",
          "source": "src/repro_torch/csrc/forest.cu",
          "replaces": "src/repro/kernels/forest/forest.py:95",
          "launches": launches["forest"],
+         "launches_streamed": stream["launches"]["forest"],
          **{k: forest["micro_batch"][k] for k in TIMES},
          "library_ms": None, "shape": forest["micro_batch"]["shape"],
          "blocks": forest["micro_batch"]["blocks"],
@@ -1291,6 +1680,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/template.cu",
          "replaces": "src/repro/kernels/template/template.py:118",
          "launches": launches["template"],
+         "launches_streamed": stream["launches"]["template"],
          **{k: res_hist[k] for k in TIMES},
          "library_ms": None, "shape": res_hist["shape"],
          "edge_shapes": [r["shape"] for r in edges["template"]],

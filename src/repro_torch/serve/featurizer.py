@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import features as F
 from repro_torch.device import resolve_device
+from repro_torch.serve._segments import segment_sums
 from repro_torch.sim.telemetry import (
     VM_TYPES, ArrivalBatch, Population, arrival_batch)
 
@@ -67,32 +68,6 @@ def p95_bucket_torch(p95_util: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.ceil(q) - 1, 0, F.N_UTIL_BUCKETS - 1).long()
 
 
-def _segment_sums(base: torch.Tensor, sub: torch.Tensor,
-                  vals: torch.Tensor) -> torch.Tensor:
-    """`base` (N, K) plus the rows of `vals` (B, K) summed by row id `sub`
-    (B,), each row's values added one at a time in input order — the
-    order the CPU's `index_add` adds them in. A stable sort groups the
-    rows, each group fills one row of a zero-padded (groups, width, K)
-    block, and the block's columns are added in turn: every sum runs in
-    one fixed order, so the result repeats bit for bit from run to run,
-    on the card as on the CPU (the card's float `index_add` adds with
-    atomics, in whatever order they land)."""
-    if sub.numel() == 0:
-        return base
-    order = torch.sort(sub, stable=True).indices
-    s, v = sub[order], vals[order]
-    ids, seg, counts = torch.unique_consecutive(s, return_inverse=True,
-                                                return_counts=True)
-    pos = torch.arange(len(s), device=s.device) \
-        - (torch.cumsum(counts, 0) - counts)[seg]
-    block = v.new_zeros(len(ids), int(counts.max()), v.shape[1])
-    block[seg, pos] = v
-    acc = base[ids]
-    for j in range(block.shape[1]):
-        acc = acc + block[:, j]
-    return base.index_copy(0, ids, acc)
-
-
 def update_table(table: SubscriptionTable, subscription: torch.Tensor,
                  uf_label: torch.Tensor, lifetime_hours: torch.Tensor,
                  p95_util: torch.Tensor,
@@ -101,8 +76,8 @@ def update_table(table: SubscriptionTable, subscription: torch.Tensor,
     §III-B, run incrementally). All args (B,), percent units. Ids outside
     [0, capacity) are dropped, as XLA drops out-of-range scatter rows:
     they add a zero to row 0. The sums are order-fixed
-    (`_segment_sums`), so the same history gives the same table on every
-    run."""
+    (`serve._segments.segment_sums`), so the same history gives the same
+    table on every run."""
     sub = subscription.long()
     keep = (sub >= 0) & (sub < table.capacity)
     sub = torch.where(keep, sub, 0)
@@ -117,7 +92,7 @@ def update_table(table: SubscriptionTable, subscription: torch.Tensor,
         [table.count, table.uf_sum, table.lived7d_sum], -1),
         table.bucket_sum, torch.stack(
             [table.avg_util_sum, table.p95_util_sum], -1)], -1)
-    out = _segment_sums(base, sub, vals)
+    out = segment_sums(base, sub, vals)
     nb = F.N_UTIL_BUCKETS
     return SubscriptionTable(
         count=out[:, 0].contiguous(), uf_sum=out[:, 1].contiguous(),

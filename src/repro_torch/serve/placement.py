@@ -19,11 +19,18 @@ against the CPU.
 
 A placement that would push its chassis over any axis of its (C, R)
 admission ceiling is rejected with FAIL_POWER before it mutates the
-state (`serve/admission.py`).
+state (`serve/admission.py`). `place_batch_caps` steps the power-
+emergency state through the cap windows queued since the last batch,
+then places it.
+
+Departures (`remove_batch`) credit the aggregates with order-fixed
+segment sums (`serve._segments`): a batch names one server or chassis
+many times, and the card's float `index_add` adds such repeats in the
+order its atomics land, which can move the last bits between runs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +38,8 @@ import torch
 from repro_torch.core.placement import ClusterState, SchedulerPolicy
 from repro_torch.core.resources import N_RESOURCES
 from repro_torch.device import resolve_device
+from repro_torch.serve import emergency
+from repro_torch.serve._segments import segment_sums
 
 #: `place_batch` outcome codes (in the returned server array).
 FAIL_CAPACITY = -1      # no feasible server (deployment failure)
@@ -48,6 +57,7 @@ class DeviceClusterState(NamedTuple):
     res_peak: torch.Tensor       # (C, R) committed (rho, cores, GB)
     rho_max: torch.Tensor        # (C,)
     chassis_of: torch.Tensor     # (S,) int64
+    chassis_servers: torch.Tensor  # (C, S // C) int64 — servers per chassis
 
     @property
     def rho_peak(self) -> torch.Tensor:
@@ -57,6 +67,18 @@ class DeviceClusterState(NamedTuple):
     @property
     def n_servers(self) -> int:
         return self.free_cores.shape[0]
+
+
+def _chassis_servers(chassis_of: np.ndarray) -> np.ndarray:
+    """(C, K) server-index table of equal-sized chassis, each row in
+    server order."""
+    chassis_of = np.asarray(chassis_of)
+    n_chassis = int(chassis_of.max()) + 1
+    sizes = np.bincount(chassis_of, minlength=n_chassis)
+    if not (sizes == len(chassis_of) // n_chassis).all():
+        raise ValueError("chassis must be equal-sized")
+    order = np.argsort(chassis_of, kind="stable")
+    return order.reshape(n_chassis, -1).astype(np.int64)
 
 
 def device_state(state: ClusterState, dtype=torch.float32, device=None,
@@ -78,9 +100,10 @@ def device_state(state: ClusterState, dtype=torch.float32, device=None,
 
     def t(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
-    return DeviceClusterState(t(state.free_cores), t(state.gamma_uf),
-                              t(state.gamma_nuf), t(res_peak),
-                              t(state.rho_max), t(chassis_of, torch.int64))
+    return DeviceClusterState(
+        t(state.free_cores), t(state.gamma_uf), t(state.gamma_nuf),
+        t(res_peak), t(state.rho_max), t(chassis_of, torch.int64),
+        t(_chassis_servers(chassis_of), torch.int64))
 
 
 def fresh_state(n_servers: int, cores_per_server: int, chassis_of,
@@ -207,12 +230,72 @@ def place_batch(state: DeviceClusterState, cores, is_uf, p95_eff, valid,
                           res_peak=res), servers
 
 
+class SweepCounters(NamedTuple):
+    """Observables of one fused emergency sweep (`_apply_cap_windows`),
+    summed over its windows. Scalars except `cut_by_level_w` (L,), the
+    watts removed per criticality level (non-critical first)."""
+    samples: Any        # int — chassis power samples applied
+    alarms: Any         # int — protective-capping alarms raised
+    cut_w: Any          # required reduction past the target (W)
+    leftover_w: Any     # cut no floor absorbed (RAPL trigger, W)
+    cut_by_level_w: Any  # (L,) realized watts cut per criticality level
+
+
+def _zero_sweep(dtype, device) -> SweepCounters:
+    """All-zero `SweepCounters` on `device`."""
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+    return SweepCounters(z(dt=torch.int64), z(dt=torch.int64), z(), z(),
+                         z(emergency.N_LEVELS))
+
+
+def _apply_cap_windows(ecfg, state: DeviceClusterState, emer, pw, mask,
+                       ts):
+    """Step the emergency state through W queued sample windows against
+    the current cluster aggregates. pw/mask/ts: (W, C) dense
+    `emergency.masked_step` operands in merged order. The windows were
+    all merged before the arrival batch they ride with, and a cap touches
+    only the emergency state, so stepping them back to back ahead of the
+    placement is the same as applying each at its merged position.
+    Returns ``(emergency_state, SweepCounters)``."""
+    rho_lv = emergency.chassis_rho_levels(
+        state.gamma_nuf, state.gamma_uf, state.chassis_servers)
+    acc = _zero_sweep(state.free_cores.dtype, state.free_cores.device)
+    for p, m, t in zip(pw, mask, ts):
+        emer, out = emergency.masked_step(ecfg, emer, rho_lv, p, m, t)
+        acc = SweepCounters(
+            acc.samples + m.sum(), acc.alarms + out.alarm.sum(),
+            acc.cut_w + out.cut_w.sum(),
+            acc.leftover_w + out.leftover_w.sum(),
+            acc.cut_by_level_w + out.cut_by_level_w.sum(0))
+    return emer, acc
+
+
+def place_batch_caps(state: DeviceClusterState, emer, pw, mask, ts,
+                     cores, is_uf, p95_eff, valid, rho_cap,
+                     policy: SchedulerPolicy, cores_per_server: int,
+                     ecfg, mem_gb=None):
+    """`place_batch` with the pending power-emergency windows applied
+    first (`_apply_cap_windows`); `ecfg` is the
+    `emergency.EmergencyConfig`. Returns ``(new_state, servers,
+    emergency_state, SweepCounters)``."""
+    emer, sweep = _apply_cap_windows(ecfg, state, emer, pw, mask, ts)
+    state, servers = place_batch(state, cores, is_uf, p95_eff, valid,
+                                 rho_cap, policy, cores_per_server,
+                                 mem_gb=mem_gb)
+    return state, servers, emer, sweep
+
+
 def remove_batch(state: DeviceClusterState, servers, cores, p95_eff, is_uf,
                  mem_gb=None) -> DeviceClusterState:
     """Batch departure (twin of `ClusterState.remove`), crediting the (R,)
-    demand back to the ledger. `servers < 0` rows are ignored. Follows
-    the state dtype like `place_batch`, so a float64 place/remove
-    roundtrip is exact."""
+    demand back to the ledger. `servers < 0` rows are ignored;
+    negated-cores rows are the pinned-placement encoding
+    (`serve.mitigation`) and debit instead. The credits are summed per
+    server and per chassis in one fixed order, the CPU `index_add`'s
+    (`segment_sums`), so the result repeats bit for bit on the card.
+    Follows the state dtype like `place_batch`, so a float64
+    place/remove roundtrip is exact."""
     dtype, dev = state.free_cores.dtype, state.free_cores.device
     servers = _as(servers, torch.int64, dev)
     live = servers >= 0
@@ -224,11 +307,14 @@ def remove_batch(state: DeviceClusterState, servers, cores, p95_eff, is_uf,
     w = _as(p95_eff, dtype, dev) * cores
     uf_f = _as(is_uf, torch.bool, dev).to(dtype)
     d = torch.stack([w, cores, mem], -1)                    # (B, R)
+    per_server = segment_sums(
+        torch.stack([state.free_cores, state.gamma_uf, state.gamma_nuf], -1),
+        srv, torch.stack([cores, -w * uf_f, -w * (1.0 - uf_f)], -1))
     return state._replace(
-        free_cores=state.free_cores.index_add(0, srv, cores),
-        gamma_uf=state.gamma_uf.index_add(0, srv, -w * uf_f),
-        gamma_nuf=state.gamma_nuf.index_add(0, srv, -w * (1.0 - uf_f)),
-        res_peak=state.res_peak.index_add(0, state.chassis_of[srv], -d))
+        free_cores=per_server[:, 0].contiguous(),
+        gamma_uf=per_server[:, 1].contiguous(),
+        gamma_nuf=per_server[:, 2].contiguous(),
+        res_peak=segment_sums(state.res_peak, state.chassis_of[srv], -d))
 
 
 def outcome_counters(servers, valid, cores, p95_eff, mem_gb=None) -> dict:

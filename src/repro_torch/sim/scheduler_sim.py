@@ -22,16 +22,19 @@ chassis layouts in one batched run.
 decision oracle) and the `serve` backend (each deployment group through
 `serve.placement.place_batch` on the card, in float64). The random
 stream is the reference's draw for draw, so the same seed gives the same
-arrivals, predictions and decisions. Not ported yet: the emergency,
-adaptive and ballooning planes (ROADMAP Queue 1 item 9), the
-`serve-sharded` backend (item 10), the observability hooks (item 11),
-and the deprecated flat-keyword adapter of the reference's `simulate`.
+arrivals, predictions and decisions. `SimSpec.emergency` drives the
+power-emergency plane (`_EmergencySim`) at every deployment event. Not
+ported yet: the adaptive and ballooning planes (ROADMAP Queue 1 item 9),
+the `serve-sharded` backend (item 10), the observability hooks (item
+11), and the deprecated flat-keyword adapter of the reference's
+`simulate`.
 """
 from __future__ import annotations
 
 import heapq
 from collections import defaultdict
 from dataclasses import dataclass, field
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -44,6 +47,9 @@ from repro_torch.sim import telemetry as tel
 from repro_torch.sim.fleet import (ServerSpec, VMSpec, build_layout,
                                    build_uf_traces, run_fleet_layouts,
                                    stack_layouts)
+
+if TYPE_CHECKING:
+    from repro_torch.serve.emergency import EmergencyConfig
 
 CORES_PER_BLADE = 40            # Table I: 2 x 20 cores
 BLADES_PER_CHASSIS = 12
@@ -169,7 +175,7 @@ class SimSpec:
     prefill_core_ratio: float = 0.0
     serve: ServeBackendSpec = field(default_factory=ServeBackendSpec)
     power: PowerEvalSpec | None = None
-    emergency: object | None = None
+    emergency: EmergencyConfig | None = None
     adaptive: object | None = None
     ballooning: object | None = None
 
@@ -202,8 +208,7 @@ class SimMetrics:
     placements: int
     failures: int
     power: PowerEval | None = None
-    #: power-emergency plane counters (`SimSpec.emergency` runs only;
-    #: that plane is not ported yet, so they stay 0 here):
+    #: power-emergency plane counters (`SimSpec.emergency` runs only):
     #: per-criticality throttled-seconds — the paper's Table-4-style
     #: impact axis (critical should stay near zero under
     #: criticality-aware apportionment) — plus alarm and migration
@@ -340,25 +345,128 @@ def _sample_deployment_size(rng):
 SERVE_GROUP_PAD = 64
 
 
-def _sample_vm(rng):
-    cores = int(rng.choice(tel.CORE_SIZES, p=tel.CORE_PROBS))
-    life_h = tel._sample_bucket(rng, tel.LIFETIME_BUCKETS,
-                                tel.LIFETIME_PROBS)
-    return cores, life_h
+class _EmergencySim:
+    """The power-emergency plane driven inside `simulate`.
 
+    Holds one fleet-wide float64 `serve.emergency.EmergencyState` and
+    steps it at every deployment event: the committed per-criticality
+    aggregates, scaled by the deterministic diurnal utilization sample
+    (`sim.telemetry.diurnal_util`), give each chassis' power sample; the
+    alarm and apportionment step consumes them; chassis whose critical
+    level dwells capped past the threshold get a migration plan
+    (`serve.mitigation`) applied to the cluster state as paired moves.
 
-def _sample_deployment_size(rng):
-    return int(tel._sample_bucket(rng, tel.DEPLOY_SIZE_BUCKETS,
-                                  tel.DEPLOY_SIZE_PROBS))
+    The numpy oracle decides. With a `device` (the serve backend) every
+    scan also steps the torch twin there in float64 and raises unless it
+    is bit-equal to the oracle: the acceptance invariant, checked on
+    every scan. The samples are a pure function of simulation time, so
+    the emergency trace is the same for every backend."""
 
+    def __init__(self, cfg: EmergencyConfig, n_chassis: int,
+                 chassis_of: np.ndarray, device=None):
+        # `repro_torch.serve` imports this package's telemetry, so the
+        # plane's modules are imported when a plane is built
+        from repro_torch.serve import emergency, mitigation
+        self.emg, self.mit = emergency, mitigation
+        self.cfg = cfg
+        self.n_chassis = n_chassis
+        self.chassis_of = chassis_of
+        self.device = device
+        self.st = emergency.init_emergency_np(n_chassis, dtype=np.float64)
+        self.alarms = 0
+        self.migrations = 0
 
-#: Serve-backend micro-batch pad (max deployment size is 60 — Table I).
-SERVE_GROUP_PAD = 64
+    def _rho_lv(self, state) -> np.ndarray:
+        c = self.n_chassis
+        return np.stack(
+            [np.bincount(self.chassis_of, weights=state.gamma_nuf,
+                         minlength=c),
+             np.bincount(self.chassis_of, weights=state.gamma_uf,
+                         minlength=c)], axis=-1)
+
+    def scan(self, t_h: float, state, vm_live: dict,
+             mem_chassis: np.ndarray = None,
+             gb_cap: np.ndarray = None) -> None:
+        """One emergency scan at simulation time `t_h` (hours).
+        `mem_chassis`: (C,) committed GB, the migration planner's GB-fit
+        ledger; `gb_cap`: (C,) chassis GB capacity (None disables the
+        destination GB-fit check)."""
+        emg = self.emg
+        u = float(tel.diurnal_util(t_h))
+        rho_lv = self._rho_lv(state)
+        idx = np.arange(self.n_chassis)
+        stamps = t_h * 3600.0 + (idx + 1) * 1e-7
+        power = np.asarray(emg.sampled_power_np(
+            self.cfg, rho_lv, u, np.zeros((self.n_chassis, 2), np.int32),
+            np.zeros(self.n_chassis, bool)))
+        pw, mask, ts = emg.scatter_samples_np(self.n_chassis, idx, power,
+                                              stamps, np.float64)
+        st2, out = emg.masked_step_np(self.cfg, self.st, rho_lv, pw, mask,
+                                      ts)
+        if self.device is not None:
+            def dev(a):
+                return torch.as_tensor(a, device=self.device)
+            twin, _ = emg.masked_step(
+                self.cfg, emg.state_to_torch(self.st, self.device),
+                dev(rho_lv), dev(pw), dev(mask), dev(ts))
+            for name, a, b in zip(st2._fields, st2, twin):
+                if not np.array_equal(a, b.cpu().numpy()):
+                    raise RuntimeError(
+                        f"emergency twin diverged from the numpy oracle "
+                        f"in {name}")
+        self.st = st2
+        self.alarms += int(out.alarm.sum())
+        # no chassis past the alarm window may exceed its budget when the
+        # cut was achievable within the floors (the RAPL-leftover rows
+        # are pinned at the all-core frequency floor)
+        achievable = out.alarm & (out.leftover_w <= 1e-6)
+        if not (out.power_after_w[achievable]
+                <= self.cfg.chassis_budget_w + 1e-6).all():
+            raise RuntimeError(
+                "chassis exceeded its budget past the alarm window")
+        self._mitigate(u, state, vm_live, mem_chassis, gb_cap)
+
+    def _mitigate(self, u: float, state, vm_live: dict,
+                  mem_chassis: np.ndarray = None,
+                  gb_cap: np.ndarray = None) -> None:
+        emg, mit = self.emg, self.mit
+        due = np.asarray(emg.mitigation_due_np(self.cfg, self.st))
+        if not due.any() or not vm_live:
+            return
+        tokens = np.fromiter(vm_live.keys(), np.int64, len(vm_live))
+        tokens.sort()                       # deterministic registry order
+        rows = [vm_live[int(k)] for k in tokens]
+        live = mit.LiveVMs(
+            server=np.array([r[0] for r in rows], np.int32),
+            cores=np.array([r[1] for r in rows], np.float64),
+            p95_eff=np.array([r[2] for r in rows], np.float64),
+            is_uf=np.array([r[3] for r in rows], bool),
+            token=tokens,
+            mem_gb=np.array([r[4] for r in rows], np.float64))
+        plan = mit.plan_migrations(
+            self.cfg, live, self.chassis_of, state.free_cores,
+            self._rho_lv(state), u, due,
+            mem_chassis=mem_chassis, gb_cap=gb_cap)
+        # paired depart/arrive moves; pairs touch disjoint VMs, so plan
+        # order is any merged event order
+        for m in range(len(plan)):
+            cores = float(plan.cores[m])
+            p95, uf = float(plan.p95_eff[m]), bool(plan.is_uf[m])
+            mem = float(plan.mem_gb[m])
+            src, dst = int(plan.src_server[m]), int(plan.dst_server[m])
+            state.remove(src, cores, p95, uf)
+            state.place(dst, cores, p95, uf)
+            if mem_chassis is not None:
+                mem_chassis[self.chassis_of[src]] -= mem
+                mem_chassis[self.chassis_of[dst]] += mem
+            vm_live[int(plan.token[m])] = (dst, cores, p95, uf, mem)
+        self.migrations += len(plan)
+        self.st = emg.reset_dwell_np(self.st, due)
 
 
 def _unported(spec: SimSpec, obs) -> None:
     """Raise for the planes of later slices, naming their ROADMAP item."""
-    for name in ("emergency", "adaptive", "ballooning"):
+    for name in ("adaptive", "ballooning"):
         if getattr(spec, name) is not None:
             raise NotImplementedError(
                 f"SimSpec.{name} is not ported yet (ROADMAP Queue 1 item 9)")
@@ -408,9 +516,14 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
     `trace`, if given, collects the chosen server (or failure code)
     per placement attempt — the decision-equivalence probe.
 
-    `spec.emergency`, `spec.adaptive`, `spec.ballooning`, the
-    'serve-sharded' backend and `obs` raise `NotImplementedError`: those
-    planes belong to later parts of the port."""
+    `spec.emergency` steps the power-emergency plane before each
+    deployment group (`_EmergencySim`; on the serve backend its torch
+    twin also runs on `device`, held bit-equal to the numpy oracle) and
+    fills `SimMetrics.throttled_s`, `alarms` and `migrations`.
+
+    `spec.adaptive`, `spec.ballooning`, the 'serve-sharded' backend and
+    `obs` raise `NotImplementedError`: those planes belong to later
+    parts of the port."""
     spec = spec if spec is not None else SimSpec()
     _unported(spec, obs)
     sv = spec.serve
@@ -439,10 +552,17 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         n_chassis=n_servers // BLADES_PER_CHASSIS)
     # committed-GB ledger per chassis: the joint admission's memory view
     mem_chassis = np.zeros(state.n_chassis)
+    gb_cap = None
     if serving:
         serve_res_cap = resource_caps_from_budget(
             sv.admission_budget or ResourceVector(),
             BLADES_PER_CHASSIS, state.n_chassis)
+        gb_cap_col = serve_res_cap[:, 2].astype(np.float64)
+        gb_cap = gb_cap_col if np.isfinite(gb_cap_col).any() else None
+    emer = None
+    if spec.emergency is not None:
+        emer = _EmergencySim(spec.emergency, state.n_chassis, chassis_of,
+                             device=dev if serving else None)
     departures: list = []        # heap of (time, vm_token)
     # token -> (server, cores, p95eff, uf_pred, mem_gb)
     vm_live: dict = {}
@@ -510,6 +630,9 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
             next_sample += spec.sample_every_h
         if t >= horizon:
             break
+        if emer is not None:
+            emer.scan(t, state, vm_live, mem_chassis=mem_chassis,
+                      gb_cap=gb_cap)
         # sample the whole deployment group first (placement consumes
         # no randomness, so both backends see the same stream), then
         # place per-VM (event) or via one batched call (serve)
@@ -576,6 +699,10 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         chassis_score_std=float(np.mean(chassis_stds)),
         server_score_std=float(np.mean(server_stds)),
         placements=placements, failures=failures, power=power,
+        throttled_s=np.zeros(2) if emer is None
+        else np.asarray(emer.emg.throttled_by_level(emer.st), np.float64),
+        alarms=0 if emer is None else emer.alarms,
+        migrations=0 if emer is None else emer.migrations,
         crit_confusion=crit_cm, p95_confusion=p95_cm)
 
 

@@ -16,10 +16,9 @@ It reproduces the *structure* the paper describes:
 
 Everything is numpy (host-side data plane), carried over unchanged from
 `repro.sim.telemetry` so that the same seed gives the same population; the
-algorithms that run on the card are torch. Carried so far: the population
-generator, the arrival wire format, the diurnal utilization sample and the
-chassis power history of Table IV; the stream and merge helpers belong to
-later parts of the port.
+algorithms that run on the card are torch. Carried: the population
+generator, the arrival wire format with its stream and merge helpers, the
+diurnal utilization sample and the chassis power history of Table IV.
 """
 from __future__ import annotations
 
@@ -259,6 +258,96 @@ def arrival_batch(pop: Population, idx=None) -> ArrivalBatch:
         p95_util=np.array([v.p95_util for v in vms], np.float32),
         lifetime_hours=np.array([v.lifetime_hours for v in vms],
                                 np.float32))
+
+
+def stream_arrivals(pop: Population, batch_size: int,
+                    arrival_rate_per_s: float | None = None,
+                    seed: int = 0):
+    """Yield `(t_arrive_s, ArrivalBatch)` micro-batches in VM order —
+    the arrival stream the serve pipeline ingests. When
+    `arrival_rate_per_s` is set, batch timestamps follow a Poisson
+    process (the last arrival's time stamps the batch); otherwise
+    timestamps advance by one per batch."""
+    rng = np.random.default_rng(seed)
+    t = 0.0
+    for start in range(0, len(pop.vms), batch_size):
+        idx = np.arange(start, min(start + batch_size, len(pop.vms)))
+        if arrival_rate_per_s is not None:
+            t += float(rng.exponential(1.0 / arrival_rate_per_s,
+                                       len(idx)).sum())
+        else:
+            t += 1.0
+        yield t, arrival_batch(pop, idx)
+
+
+def arrival_stamps(n: int, arrival_rate_per_s: float | None = None,
+                   seed: int = 0) -> np.ndarray:
+    """(n,) strictly increasing per-arrival timestamps: a Poisson
+    process at `arrival_rate_per_s`, or the unit clock (1, 2, ...)
+    when None. Strict monotonicity (required by the per-host ingest
+    queues, `repro_torch.serve.ingest`) is enforced even if float cumsum
+    ties a pair of Poisson gaps."""
+    if n == 0:
+        return np.empty(0, np.float64)
+    if arrival_rate_per_s is None:
+        return np.arange(1, n + 1, dtype=np.float64)
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / arrival_rate_per_s, n)
+    return np.cumsum(np.maximum(gaps, 1e-9))
+
+
+def split_streams(pop: Population, n_hosts: int, batch_size: int,
+                  arrival_rate_per_s: float | None = None,
+                  seed: int = 0) -> list:
+    """Deal a population into per-host stamped arrival streams — the
+    trace format the cross-host ingest consumes (`repro_torch.serve.
+    ingest`).
+
+    One shared strictly-increasing clock stamps VM *i* with
+    `arrival_stamps(...)[i]`; VM *i* lands on host ``i % n_hosts``;
+    each host's stream is chunked into `batch_size` micro-batches.
+    Returns a list over hosts of ``[(stamps, ArrivalBatch), ...]``
+    chunk lists. Because the stamps are globally unique, the merged
+    order is invariant to which host a VM was dealt to."""
+    stamps = arrival_stamps(len(pop.vms), arrival_rate_per_s, seed)
+    streams = []
+    for h in range(n_hosts):
+        rows = np.arange(h, len(pop.vms), n_hosts)
+        chunks = []
+        for lo in range(0, len(rows), batch_size):
+            idx = rows[lo:lo + batch_size]
+            chunks.append((stamps[idx], arrival_batch(pop, idx)))
+        streams.append(chunks)
+    return streams
+
+
+def merge_streams(streams: list) -> tuple:
+    """Reference merge oracle for per-host stamped streams (the
+    `split_streams` format): returns ``(stamps, host_of, batch)`` in
+    global ``(t, host, seq)`` order. Implemented as one lexsort of the
+    concatenated keys — the streaming k-way merge of the serve ingest
+    (`repro_torch.serve.ingest.kway_merge`) must agree with it exactly,
+    while never materializing this global sort."""
+    ts, hosts, seqs, parts = [], [], [], []
+    for h, chunks in enumerate(streams):
+        seq = 0
+        for stamps, batch in chunks:
+            ts.append(np.asarray(stamps, np.float64))
+            hosts.append(np.full(len(batch), h, np.int32))
+            seqs.append(seq + np.arange(len(batch)))
+            parts.append(batch)
+            seq += len(batch)
+    if not ts:
+        return (np.empty(0, np.float64), np.empty(0, np.int32),
+                arrival_batch(Population()))
+    t = np.concatenate(ts)
+    host = np.concatenate(hosts)
+    seq = np.concatenate(seqs)
+    order = np.lexsort((seq, host, t))
+    merged = ArrivalBatch(
+        *(np.concatenate([getattr(p, f) for p in parts])[order]
+          for f in ArrivalBatch.__dataclass_fields__))
+    return t[order], host[order], merged
 
 
 def diurnal_util(t_hours) -> np.ndarray:

@@ -14,6 +14,12 @@ tables (T 100 and 256 at D 6), depths 1, 8 and 12 (two tree tiles), K 1,
 4 and 10, and batches that take 16 and 8 lanes a row; the template kernel T 48 to 1,008 with constant, all-zero and
 tied rows.
 
+The streamed serving loop (`submit_to`, `depart_to`, `cap_to`, `flush`
+with the power-emergency plane) runs on the card at a small width: its
+decisions, alarms and throttled-seconds must equal the same stream on the
+CPU, the forest kernel must carry every micro-batch, and a second run must
+be bit-equal to the first (departures sum in a fixed order).
+
 Bars: forest leaf indices exact, sums within 1e-5 per tree of the plain
 version and bit-equal to its emulated summation order; template scores
 within rtol 5e-3 / atol 5e-4; flash atol 2e-5 in float32 and 2e-2 in
@@ -153,3 +159,88 @@ def test_template_kernel_matches_plain_version(cuda, t):
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-4)
     assert float(got[-2:].abs().max()) == 0.0     # constant, zero rows
+
+
+def _stream_world():
+    from repro_torch.core import criticality
+    from repro_torch.core import features as F
+    from repro_torch.core.predictor import train_service
+    from repro_torch.sim.telemetry import generate_population
+    pop = generate_population(500, seed=0)
+    hist, arrivals = F.split_history_arrivals(pop)
+    labels = criticality.classify(hist.series, device="cpu").numpy()
+    aggs = F.subscription_aggregates(hist, labels)
+    svc = train_service(F.build_features(hist, aggs),
+                        labels.astype(np.int64),
+                        F.p95_bucket([v.p95_util for v in hist.vms]),
+                        n_trees=12)
+    return svc, hist, labels, arrivals
+
+
+def _streamed_run(world, device, hosts):
+    """Arrival chunks dealt over `hosts`, departures of the admitted rows
+    two chunks back, and a cap sweep of every chassis (one sampled twice)
+    every other chunk, stamped between arrival ticks."""
+    from repro_torch.serve import (EmergencyConfig, PlaneBundle,
+                                   ServeConfig, ServePipeline)
+    from repro_torch.sim.telemetry import arrival_batch, arrival_stamps
+    svc, hist, labels, arrivals = world
+    pipe = ServePipeline.from_history(
+        svc, hist, labels, n_servers=48, cores_per_server=40,
+        blades_per_chassis=12, device=device, config=ServeConfig(
+            batch_size=32, n_ingest_hosts=hosts, planes=PlaneBundle(
+                emergency=EmergencyConfig.from_model(1560.0))))
+    n = 32 * (len(arrivals.vms) // 32)
+    stamps = arrival_stamps(n)
+    cores = np.array([v.cores for v in arrivals.vms], np.float32)
+    power = np.random.default_rng(3).uniform(1450.0, 1750.0,
+                                             (n // 32, 5))
+    res = []
+    for k in range(n // 32):
+        idx = np.arange(32 * k, 32 * (k + 1))
+        for h in range(hosts):
+            rows = idx[idx % hosts == h]
+            res += pipe.submit_to(h, arrival_batch(arrivals, rows),
+                                  t=stamps[rows])
+        t_end = stamps[idx[-1]]
+        if k >= 2:
+            r = res[k - 2]
+            rows = np.flatnonzero(r.server >= 0)[::2]
+            res += pipe.depart_to(
+                k % hosts, r.server[rows], cores[32 * (k - 2) + rows],
+                r.p95_eff[rows], r.workload_type[rows] == 1,
+                t=t_end + 0.25 + 1e-6 * np.arange(len(rows)))
+        if k % 2:
+            res += pipe.cap_to((k + 1) % hosts, [0, 1, 2, 3, 1], power[k],
+                               t=t_end + 0.5 + np.arange(1, 6) * 1e-7)
+    tail = pipe.flush()
+    res += [] if tail is None else [tail]
+    return pipe, res
+
+
+@pytest.mark.cuda
+def test_streamed_serve_with_emergencies_matches_cpu(cuda):
+    world = _stream_world()
+    reset_launches()
+    card, res = _streamed_run(world, cuda, hosts=1)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["forest"] == len(res)
+    cpu, res_cpu = _streamed_run(world, "cpu", hosts=1)
+    card4, res4 = _streamed_run(world, cuda, hosts=4)
+    again, res_again = _streamed_run(world, cuda, hosts=1)
+    assert card.alarms > 0
+    for other, other_res in ((cpu, res_cpu), (card4, res4),
+                             (again, res_again)):
+        assert other.alarms == card.alarms
+        np.testing.assert_array_equal(other.throttled_by_level(),
+                                      card.throttled_by_level())
+        for a, b in zip(res, other_res, strict=True):
+            np.testing.assert_array_equal(a.server, b.server)
+            np.testing.assert_array_equal(a.conservative, b.conservative)
+    for f in ("free_cores", "gamma_uf", "gamma_nuf", "res_peak"):
+        for other in (again, card4):
+            assert torch.equal(getattr(card.state, f),
+                               getattr(other.state, f)), f
+        torch.testing.assert_close(getattr(card.state, f).cpu(),
+                                   getattr(cpu.state, f), rtol=1e-6,
+                                   atol=0)

@@ -79,6 +79,30 @@ def test_evaluation_entry_points_default_to_the_card(no_cuda):
     assert ChassisPowerSim(budget_w=260.0, backend="numpy").state is None
 
 
+def test_streamed_and_emergency_entry_points_default_to_the_card(no_cuda):
+    """The emergency plane's tensors and the serve backend with the plane
+    on live on the card unless asked for the CPU; the event backend and
+    the numpy oracle need no device."""
+    from repro_torch.serve import emergency
+    with pytest.raises(RuntimeError, match="CUDA"):
+        emergency.init_emergency(3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        emergency.scatter_samples(3, [0], [1500.0], [1.0])
+    cfg = emergency.EmergencyConfig.from_model(1480.0)
+    spec = scheduler_sim.SimSpec(
+        days=0.05, emergency=cfg,
+        serve=scheduler_sim.ServeBackendSpec(backend="serve"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scheduler_sim.simulate(SchedulerPolicy(),
+                               scheduler_sim.PredictionChannel(), spec)
+    assert emergency.init_emergency(3, device="cpu").rapl.is_cpu
+    assert emergency.init_emergency_np(3).rapl.shape == (3,)
+    event = scheduler_sim.simulate(
+        SchedulerPolicy(), scheduler_sim.PredictionChannel(),
+        scheduler_sim.SimSpec(days=0.05, emergency=cfg))
+    assert event.placements > 0
+
+
 def test_cuda_kernel_on_cpu_tensor_raises():
     x = torch.zeros(4, 18)
     with pytest.raises(ValueError, match="CUDA"):
@@ -129,7 +153,9 @@ def test_import_without_jax():
             "repro_torch.kernels.flash_attention.ops, repro_torch.sim, "
             "repro_torch.sim.fleet, repro_torch.sim.chassis_sim, "
             "repro_torch.core.capping, repro_torch.core.oversubscription, "
-            "repro_torch.runtime.power_control; "
+            "repro_torch.runtime.power_control, repro_torch.serve.ingest, "
+            "repro_torch.serve.emergency, repro_torch.serve.mitigation, "
+            "repro_torch.serve.pipeline, repro_torch.sim.scheduler_sim; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

@@ -231,3 +231,122 @@ def test_float32_servers_equal_jax_under_power_budget(rserve, seed, joint):
     np.testing.assert_array_equal(
         admission.headroom_w(p_state, budget_w, per),
         rserve.headroom_w(j_state, budget_w, per))
+
+
+def _loaded(cls, seed, n=36, per=12, cps=40, vms=160):
+    rng = np.random.default_rng(seed)
+    st = cls(n_servers=n, cores_per_server=cps,
+             chassis_of_server=np.arange(n) // per, n_chassis=n // per)
+    for _ in range(vms):
+        s, c = int(rng.integers(0, n)), int(rng.integers(1, 8))
+        if st.free_cores[s] >= c:
+            st.place(s, c, float(rng.uniform(0.05, 1)),
+                     bool(rng.random() < 0.5))
+    return st
+
+
+def _assert_device_states_equal(got, want, what):
+    for f in ("free_cores", "gamma_uf", "gamma_nuf", "res_peak"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f"{what}: {f}")
+
+
+def test_remove_batch_repeats_sum_in_batch_order(rserve):
+    """Departures that name one server and one chassis many times, with
+    pinned-arrival rows (negated cores) and ignored rows (server -1), in
+    float32: the credits land in batch order, the CPU `index_add`'s,
+    so the result equals the reference's; a permuted batch lands in its
+    own order (each sum equals the rows added one by one in that order),
+    and two runs are bit-equal."""
+    import jax.numpy as jnp
+    from repro.core.placement import ClusterState as RCluster
+    rng = np.random.default_rng(3)
+    st = _loaded(ClusterState, 3)
+    dst = P.device_state(st, torch.float32, "cpu")
+    rdst = rserve.device_state(_loaded(RCluster, 3), jnp.float32)
+    np.testing.assert_array_equal(dst.chassis_servers.numpy(),
+                                  np.asarray(rdst.chassis_servers))
+    b = 48
+    servers = rng.choice([3, 3, 3, 5, 14, 14, 27, -1], b).astype(np.int32)
+    cores = rng.choice([1.0, 2.0, 4.0], b).astype(np.float32)
+    cores[rng.random(b) < 0.3] *= -1                     # pinned arrivals
+    p95 = rng.uniform(0.05, 1.0, b).astype(np.float32)
+    is_uf = rng.random(b) < 0.5
+    mem = (np.abs(cores) * 4).astype(np.float32) * np.sign(cores)
+    args = (servers, cores, p95, is_uf)
+    got = P.remove_batch(dst, *args, mem_gb=mem)
+    want = rserve.remove_batch(rdst, *map(jnp.asarray, args),
+                               mem_gb=jnp.asarray(mem))
+    _assert_device_states_equal(got, want, "against the reference")
+    _assert_device_states_equal(P.remove_batch(dst, *args, mem_gb=mem), got,
+                                "second run")
+
+    perm = rng.permutation(b)
+    pgot = P.remove_batch(dst, *(a[perm] for a in args), mem_gb=mem[perm])
+    free, g_uf, res = (dst.free_cores.clone(), dst.gamma_uf.clone(),
+                       dst.res_peak.clone())
+    chassis_of = dst.chassis_of.numpy()
+    for i in perm:                                   # one row at a time
+        if servers[i] < 0:
+            continue
+        c, w = torch.tensor(cores[i]), torch.tensor(p95[i]) * cores[i]
+        free[servers[i]] += c
+        g_uf[servers[i]] += -w * float(is_uf[i])
+        res[chassis_of[servers[i]]] += -torch.stack(
+            [w, c, torch.tensor(mem[i])])
+    np.testing.assert_array_equal(pgot.free_cores.numpy(), free.numpy())
+    np.testing.assert_array_equal(pgot.gamma_uf.numpy(), g_uf.numpy())
+    np.testing.assert_array_equal(pgot.res_peak.numpy(), res.numpy())
+
+
+def test_place_batch_caps_matches_reference(rserve):
+    """Three queued cap windows (one chassis sampled twice, so two
+    windows carry it) stepped ahead of a placement, in float32: the
+    servers, the emergency state and the alarm count equal the
+    reference's `place_batch_caps`; the watt sums within float32
+    rounding of the cut they are taken from (the leftover is the cut less
+    the levels' takes, so its rounding scales with the cut)."""
+    import jax.numpy as jnp
+    from repro.core.placement import ClusterState as RCluster
+    from repro.core.placement import SchedulerPolicy as RPolicy
+    from _torch_parity import reference_serve
+    from repro_torch.serve import emergency as E
+    remg = reference_serve("emergency")
+    dst = P.device_state(_loaded(ClusterState, 4), torch.float32, "cpu")
+    rdst = rserve.device_state(_loaded(RCluster, 4), jnp.float32)
+    cfg = E.EmergencyConfig.from_model(1480.0)
+    rcfg = remg.EmergencyConfig.from_model(1480.0)
+    rng = np.random.default_rng(4)
+    windows = [([0, 1, 2], [1500.0, 1400.0, 1700.0], [1.0, 1.1, 1.2]),
+               ([1], [1600.0], [20.0]), ([0, 2], [1300.0, 1650.0],
+                                         [50.0, 50.5])]
+    rows = [E.scatter_samples_np(3, *w, np.float64) for w in windows]
+    pw, mask, ts = (np.stack([r[k] for r in rows]) for k in range(3))
+    b = 24
+    cores = rng.choice([1.0, 2.0, 4.0, 8.0], b).astype(np.float32)
+    is_uf = rng.random(b) < 0.5
+    p95 = rng.uniform(0.1, 1.0, b).astype(np.float32)
+    valid = np.arange(b) < 20
+    cap = np.full(3, 200.0, np.float32)
+    st, srv, em, sweep = P.place_batch_caps(
+        dst, E.init_emergency(3, device="cpu"), torch.as_tensor(pw).float(),
+        torch.as_tensor(mask), torch.as_tensor(ts).float(), cores, is_uf,
+        p95, valid, cap, SchedulerPolicy(alpha=0.8), 40, cfg)
+    rst, rsrv, rem, rsweep = rserve.place_batch_caps(
+        rdst, remg.init_emergency(3, xp=jnp, dtype=jnp.float32),
+        jnp.asarray(pw, jnp.float32), jnp.asarray(mask),
+        jnp.asarray(ts, jnp.float32), jnp.asarray(cores), jnp.asarray(is_uf),
+        jnp.asarray(p95), jnp.asarray(valid), jnp.asarray(cap),
+        RPolicy(alpha=0.8), 40, rcfg)
+    np.testing.assert_array_equal(srv.numpy(), np.asarray(rsrv))
+    _assert_device_states_equal(st, rst, "placed state")
+    for f, a, w in zip(em._fields, em, rem):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(w), err_msg=f)
+    assert int(sweep.samples) == int(rsweep.samples) == 6
+    assert int(sweep.alarms) == int(rsweep.alarms) > 0
+    scale = float(rsweep.cut_w)
+    for f in ("cut_w", "leftover_w", "cut_by_level_w"):
+        np.testing.assert_allclose(getattr(sweep, f).numpy(),
+                                   np.asarray(getattr(rsweep, f)),
+                                   rtol=1e-6, atol=1e-6 * scale, err_msg=f)

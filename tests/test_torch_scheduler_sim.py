@@ -22,6 +22,11 @@ from repro_torch.core.resources import ResourceVector
 from repro_torch.sim import scheduler_sim as S
 
 TIGHT_W = 12 * 112.0 + 60.0     # ~60 W of dynamic headroom per chassis
+#: Emergency budget of the reference's short emergency sims: barely above
+#: the static floor, so alarms trip at any occupancy.
+BUDGET_TIGHT = 1480.0
+EMERGENCY_KW = dict(days=0.1, seed=0, deployments_per_hour=16.0,
+                    prefill_core_ratio=0.6)
 
 
 @pytest.fixture
@@ -155,7 +160,7 @@ def test_power_evaluation_matches_reference():
     assert np.abs(got.alert_frac - want.alert_frac).max() <= 0.01
 
 
-@pytest.mark.parametrize("plane", ["emergency", "adaptive", "ballooning",
+@pytest.mark.parametrize("plane", ["adaptive", "ballooning",
                                    "serve-sharded", "obs"])
 def test_unported_planes_raise(plane):
     """The planes of later slices raise, naming their ROADMAP item."""
@@ -179,3 +184,43 @@ def test_unported_planes_raise(plane):
     with pytest.raises(ValueError, match="diurnal_ratchet"):
         S.simulate(SchedulerPolicy(), S.PredictionChannel(), S.SimSpec(
             days=0.1, serve=S.ServeBackendSpec(diurnal_ratchet=True)))
+
+
+@pytest.mark.parametrize("blind", [False, True])
+def test_emergency_plane_matches_reference(ref_serve, blind):
+    """`SimSpec.emergency` at the tight budget: the event backend and the
+    serve backend on the CPU (whose torch twin is held bit-equal to the
+    oracle on every scan) give the reference's trace and every
+    `SimMetrics` field, throttled-seconds, alarms and migrations
+    included."""
+    from repro.serve.emergency import EmergencyConfig as RConfig
+    from repro_torch.serve.emergency import EmergencyConfig
+    kw = dict(dwell_s=3600.0, criticality_blind=blind)
+    got, want = {}, {}
+    for backend in ("event", "serve"):
+        tr_p, tr_r = [], []
+        got[backend] = _run(
+            S, dict(alpha=0.8), "ml", tr_p, device="cpu",
+            emergency=EmergencyConfig.from_model(BUDGET_TIGHT, **kw),
+            serve=S.ServeBackendSpec(backend=backend), **EMERGENCY_KW)
+        want[backend] = _run(
+            RS, dict(alpha=0.8), "ml", tr_r,
+            emergency=RConfig.from_model(BUDGET_TIGHT, **kw),
+            serve=RS.ServeBackendSpec(backend=backend), **EMERGENCY_KW)
+        assert tr_p == tr_r, backend
+        _assert_metrics_equal(got[backend], want[backend])
+    _assert_metrics_equal(got["serve"], got["event"])
+    m = got["event"]
+    assert m.alarms > 0 and m.nuf_throttled_s > 0
+
+
+def test_aware_beats_blind_at_the_tight_budget():
+    """Over one trace, criticality-aware apportionment gives strictly
+    fewer critical throttled-seconds than the blind baseline."""
+    from repro_torch.serve.emergency import EmergencyConfig
+    m = {blind: _run(S, dict(alpha=0.8), "ml", emergency=EmergencyConfig.
+                     from_model(BUDGET_TIGHT, dwell_s=3600.0,
+                                criticality_blind=blind), **EMERGENCY_KW)
+         for blind in (False, True)}
+    assert m[False].alarms == m[True].alarms > 0
+    assert m[False].uf_throttled_s < m[True].uf_throttled_s
