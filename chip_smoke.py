@@ -54,13 +54,31 @@ rows; flash and SSD in bf16), and drives the port's two paths:
   backend on the host and (aware) on the serve backend on the card,
   whose torch twin is held bit-equal to the numpy oracle on every scan:
   equal traces and `SimMetrics`, aware critical throttled-seconds below
-  blind, beside the reference's record in BENCH_serve_emergency.json.
+  blind, beside the reference's record in BENCH_serve_emergency.json;
+- the two example twins on the card (`examples`): the quickstart through
+  the template and forest kernels, the datacenter scenario through the
+  template kernel and the torch fleet engine, their numbers printed;
+- the streamed cell with the ballooning rung and the adaptive controller
+  (`streamed_planes`): the rung alone at the streamed cell's own sweeps
+  beside that cell, then both planes with a sweep after every micro-batch at a
+  utilization that rises, runs hot and calms, at 1 and 4 hosts, on the
+  CPU with the card's sweep powers and once more on the card; decisions,
+  alarms, throttled-seconds and the planes' states must agree, the rung
+  must fire and the controller ratchet and back off; launches per cap
+  window with each rung;
+- the mitigation ladder and the adaptive arm of the reference benchmarks
+  in the scheduler simulation on the serve backend (`sim_ladder`,
+  `sim_adaptive`), the ballooning and adaptive twins stepped and checked
+  on the card at every scan, every field against its target (the
+  recorded BENCH_serve_resources.json arm; the reference's own output
+  for the adaptive arm cut to SIM_ADAPTIVE's 0.5 days).
 
 It also builds the serving cell's history table twice and serves the
 arrivals twice, and checks the tables bit-equal and the decisions equal
 (`featurizer_determinism`).
 
-Each phase prints one JSON line. Then come the card's name and power
+Each phase prints one JSON line, with the seconds since the script
+started (`t_s`). Then come the card's name and power
 limit as `nvidia-smi` prints them, a `{"kernels": [...]}` line with each
 kernel's launches on the main path, error against its plain version,
 times and bound (one-call `ms`; `device_ms` from back-to-back calls; for
@@ -135,11 +153,19 @@ T4_LOADS, T4_FLOORS = (1.0, 0.9, 0.8), (0.5, 0.6, 0.75)
 #: The Fig 7 run's length, cut from the reference test's 4 days to keep
 #: the whole script near 500 s.
 SIM_DAYS = 1.0
+#: The profiled serve-backend run of the Fig 7 phase, at PR 16's length:
+#: its launches per arrival move with the run's length, so a shorter run
+#: would not compare with earlier readings.
+SIM_PROFILE_DAYS = 0.25
 TIGHT_BUDGET_W = 12 * 112.0 + 60.0
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - _T0,
+                      **kw}), flush=True)
 
 
 def check(cond, what: str) -> None:
@@ -1038,14 +1064,17 @@ def scheduler_sim(dev) -> dict:
     check(traces["serve"] == traces["event"],
           "serve backend on the card places as the event backend")
     out["traces_equal"] = True
-    short = S.SimSpec(days=0.25, seed=0,
+    secs = {}
+    t0 = time.perf_counter()
+    short = S.SimSpec(days=SIM_PROFILE_DAYS, seed=0,
                       serve=S.ServeBackendSpec(backend="serve"))
     runs = []
     prof = device_profile(
         lambda: runs.append(S.simulate(pol, ch, short, device=dev)))
     n_short = runs[-1].placements
+    secs["serve_profile"] = time.perf_counter() - t0
     out["serve_profile"] = {
-        "days": 0.25, "placements": n_short,
+        "days": SIM_PROFILE_DAYS, "placements": n_short,
         "launches_per_arrival": prof["launches"] / n_short,
         "device_busy_ms": prof["device_busy_ms"],
         "device_idle_share": prof["device_idle_share"],
@@ -1054,8 +1083,10 @@ def scheduler_sim(dev) -> dict:
         backend="serve", admission_budget=ResourceVector(
             watts=TIGHT_BUDGET_W)))
     tr_card, tr_cpu = [], []
+    t0 = time.perf_counter()
     m = S.simulate(pol, ch, budget, trace=tr_card, device=dev)
     S.simulate(pol, ch, budget, trace=tr_cpu, device="cpu")
+    secs["admission_budget_card_and_cpu"] = time.perf_counter() - t0
     check(tr_card == tr_cpu, "admission-budget run: card trace == CPU trace")
     check(m.failure_rate > 0.2, f"the tight budget rejects: {m.failure_rate}")
     out["admission_budget"] = {"watts": TIGHT_BUDGET_W,
@@ -1065,11 +1096,13 @@ def scheduler_sim(dev) -> dict:
                                "cpu_trace_equal": True}
     power = {}
     for backend in ("torch", "numpy"):
+        t0 = time.perf_counter()
         spec = S.SimSpec(days=SIM_DAYS, seed=0, prefill_core_ratio=0.5,
                          power=S.PowerEvalSpec(budget_w=2000.0, chassis=8,
                                                duration_s=60.0,
                                                backend=backend))
         power[backend] = S.simulate(pol, ch, spec, device=dev).power
+        secs[f"power_eval_{backend}"] = time.perf_counter() - t0
     pt, pn = power["torch"], power["numpy"]
     check(np.array_equal(pt.chassis_ids, pn.chassis_ids),
           "power evaluation picks the same chassis")
@@ -1091,6 +1124,7 @@ def scheduler_sim(dev) -> dict:
                          "alert_frac": pt.alert_frac.tolist(),
                          "rapl_engaged_frac": pt.rapl_engaged_frac.tolist(),
                          "max_gaps": gaps}
+    out["seconds"] = secs
     return out
 
 
@@ -1125,8 +1159,11 @@ def _rows(batch, rows):
 
 def warm_cluster(seed: int):
     """The streamed cell's warm start: a host `ClusterState` and its VMs
-    as (server, cores, p95, is_uf) arrays, seeded."""
+    as (server, cores, p95, is_uf, GB) arrays, seeded; every VM holds
+    GB_PER_CORE GB a core, so the NUF ones give the ballooning rung its
+    headroom."""
     from repro_torch.core.placement import ClusterState
+    from repro_torch.sim import GB_PER_CORE
     rng = np.random.default_rng(seed)
     st = ClusterState(n_servers=N_SERVERS, cores_per_server=CORES,
                       chassis_of_server=np.arange(N_SERVERS) // BLADES,
@@ -1145,24 +1182,56 @@ def warm_cluster(seed: int):
                 filled += cores
             i += 1
     cols = list(zip(*vms))
-    return st, (np.array(cols[0], np.int64), np.array(cols[1], np.float64),
-                np.array(cols[2], np.float64), np.array(cols[3], bool))
+    cores = np.array(cols[1], np.float64)
+    return st, (np.array(cols[0], np.int64), cores,
+                np.array(cols[2], np.float64), np.array(cols[3], bool),
+                cores * GB_PER_CORE)
 
 
-def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None):
+def _stream_pipeline(run, hist, labels, budget_w, warm_state, warm, hosts,
+                     device, **planes):
+    """A streamed-cell pipeline on `device` over the warm cluster, its GB
+    ledger (total and NUF slice) seeded from the warm VMs, with the
+    `PlaneBundle` fields given in `planes`."""
+    from repro_torch.serve import (PlaneBundle, ResourceVector, ServeConfig,
+                                   ServePipeline, device_state)
+    pipe = ServePipeline.from_history(
+        run["svc"], hist, labels, n_servers=N_SERVERS,
+        cores_per_server=CORES, blades_per_chassis=BLADES, device=device,
+        config=ServeConfig(batch_size=BATCH, n_ingest_hosts=hosts,
+                           planes=PlaneBundle(
+                               chassis_budget=ResourceVector(watts=budget_w),
+                               **planes)))
+    chassis = warm[0] // BLADES
+    n_chassis = N_SERVERS // BLADES
+    pipe.state = device_state(
+        warm_state, device=device,
+        mem_gb=np.bincount(chassis, weights=warm[4], minlength=n_chassis),
+        mem_nuf=np.bincount(chassis, weights=warm[4] * ~warm[3],
+                            minlength=n_chassis))
+    return pipe
+
+
+def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None,
+             utils=None, sweep_every: int = SWEEP_EVERY):
     """Push `batch` through `submit_to` in micro-batch chunks dealt row by
     row over `hosts` (unit-clock stamps from `arrival_stamps`), with the
-    departure stream and, with `plane`, the cap sweeps (stamps between
+    departure stream (each VM's GB with it) and, with `plane`, a cap
+    sweep after every `sweep_every`-th micro-batch (stamps between
     arrival ticks) and one migration cycle (flush -> due chassis ->
     `plan_migrations` over the live VMs, `warm` ones included -> paired
     events through `depart_to` -> `reset_dwell`). Sweep powers are
-    `samples` when given, else `sampled_power` at SWEEP_UTIL on the
-    pipeline's live aggregates (recorded in the result). Returns the
-    decisions and what the checks read; the wall covers the whole
-    stream, which ends in host fetches."""
+    `samples` when given, else `sampled_power` at SWEEP_UTIL (or the next
+    value of `utils`) on the pipeline's live aggregates (recorded in the
+    result). With the ballooning rung, each sweep's inflations (chassis
+    whose balloon grew) are counted, read right after the sweep, which
+    with one host is when it applies. Returns the decisions and what the
+    checks read; the wall covers the whole stream, which ends in host
+    fetches."""
     import dataclasses
     import torch
     from repro_torch.serve import emergency, mitigation
+    from repro_torch.serve.ballooning import TOL_W
     from repro_torch.sim.telemetry import arrival_stamps
     n, nw = len(batch), len(warm[0])
     stamps = arrival_stamps(n)
@@ -1171,8 +1240,11 @@ def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None):
     cores_of = np.concatenate([warm[1], batch.cores.astype(np.float64)])
     p95_of = np.concatenate([warm[2], np.zeros(n)])
     uf_of = np.concatenate([warm[3], np.zeros(n, bool)])
+    mem_of = np.concatenate([warm[4], batch.memory_gb.astype(np.float64)])
     departed = np.zeros(nw + n, bool)
-    served, swept, cycle = [], [], None
+    served, swept, cycle, ratios = [], [], None, []
+    balloon_events, balloon_peak_gb, need = 0, 0.0, []
+    rung = pipe.config.planes.ballooning is not None
     chassis = np.arange(pipe.n_chassis)
 
     def take(out):
@@ -1200,14 +1272,16 @@ def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None):
             departed[rows] = True
             take(pipe.depart_to(
                 k % hosts, server_of[rows], cores_of[rows], p95_of[rows],
-                uf_of[rows], t=t_end + 0.25 + 1e-6 * np.arange(len(rows))))
-        if plane and k % SWEEP_EVERY == 0:
+                uf_of[rows], mem_gb=mem_of[rows],
+                t=t_end + 0.25 + 1e-6 * np.arange(len(rows))))
+        if plane and k % sweep_every == 0:
             if samples is None:
                 st = pipe.state
                 rho = emergency.chassis_rho_levels(
                     st.gamma_nuf, st.gamma_uf, st.chassis_servers)
                 power = emergency.sampled_power(
-                    pipe.emergency_cfg, rho, SWEEP_UTIL,
+                    pipe.emergency_cfg, rho,
+                    SWEEP_UTIL if utils is None else utils[len(swept)],
                     torch.zeros(rho.shape, dtype=torch.int32,
                                 device=rho.device),
                     torch.zeros(rho.shape[0], dtype=torch.bool,
@@ -1215,8 +1289,17 @@ def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None):
             else:
                 power = samples[len(swept)]
             swept.append(power)
+            before = pipe.balloon_state.ballooned_gb.clone() if rung \
+                else None
+            if rung:
+                need.append(_balloon_need(pipe, power))
             take(pipe.cap_to((k + 1) % hosts, chassis, power,
                              t=t_end + 0.5 + (chassis + 1) * 1e-7))
+            if rung:
+                after = pipe.balloon_state.ballooned_gb
+                balloon_events += int(((after - before) > TOL_W).sum())
+                balloon_peak_gb = max(balloon_peak_gb, pipe.ballooned_gb())
+            ratios.append(pipe.adaptive_ratio)
         if plane and k == MIGRATE_AFTER:
             take(pipe.flush())
             due = pipe.mitigation_due_chassis()
@@ -1225,7 +1308,8 @@ def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None):
             plan = mitigation.plan_migrations(
                 pipe.emergency_cfg, mitigation.LiveVMs(
                     server_of[live].astype(np.int32), cores_of[live],
-                    p95_of[live], uf_of[live], token=live),
+                    p95_of[live], uf_of[live], token=live,
+                    mem_gb=mem_of[live]),
                 st.chassis_of.cpu().numpy(),
                 st.free_cores.double().cpu().numpy(),
                 emergency.chassis_rho_levels_np(
@@ -1240,7 +1324,7 @@ def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None):
                     take(pipe.depart_to(
                         i % hosts, ev.server[i:i + 1], ev.cores[i:i + 1],
                         ev.p95_eff[i:i + 1], ev.is_uf[i:i + 1],
-                        t=t[i:i + 1]))
+                        mem_gb=ev.mem_gb[i:i + 1], t=t[i:i + 1]))
             server_of[plan.token] = plan.dst_server
             pipe.reset_dwell(due)
             cycle = {"due_chassis": due.tolist(), "moves": len(plan),
@@ -1256,7 +1340,33 @@ def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None):
             "micro_batches": len(served), "departures": int(departed.sum()),
             "sweeps": len(swept), "samples": swept, "cycle": cycle,
             "alarms": pipe.alarms if plane else 0,
-            "throttled_by_level": pipe.throttled_by_level()}
+            "throttled_by_level": pipe.throttled_by_level(),
+            "ratios": ratios, "balloon_events": balloon_events,
+            "ballooned_peak_gb": balloon_peak_gb,
+            "ballooned_gb": pipe.ballooned_gb(), "balloon_need": need}
+
+
+def _balloon_need(pipe, power) -> dict:
+    """What the ballooning rung is asked for at a sweep, read on the host
+    before the sweep applies: the largest per-chassis demand (the DRAM
+    watts that keep the cut inside the NUF floor, from the numpy oracle
+    on the credited sample), the watts the chassis' NUF headroom could
+    absorb there, and how many chassis ask for more than their
+    headroom."""
+    from repro_torch.serve import ballooning, emergency
+    st, bcfg = pipe.state, pipe.config.planes.ballooning
+    ballooned = pipe.balloon_state.ballooned_gb.double().cpu().numpy()
+    rho = emergency.chassis_rho_levels_np(
+        st.gamma_nuf.double().cpu().numpy(),
+        st.gamma_uf.double().cpu().numpy(), st.chassis_servers.cpu().numpy())
+    _, demand = ballooning.balloon_demand_w_np(
+        pipe.emergency_cfg, rho, power - bcfg.w_per_gb * ballooned)
+    headroom_w = bcfg.w_per_gb * np.maximum(
+        bcfg.reclaim_frac * st.mem_nuf.double().cpu().numpy() - ballooned, 0)
+    i = int(np.argmax(demand))
+    return {"demand_w_max": float(demand[i]),
+            "headroom_w_there": float(headroom_w[i]),
+            "chassis_short": int((demand > headroom_w).sum())}
 
 
 def streamed_serve(run, hist, arrivals, budget_w: float, seed: int,
@@ -1269,9 +1379,7 @@ def streamed_serve(run, hist, arrivals, budget_w: float, seed: int,
     import torch
     from repro_torch import KERNEL_LAUNCHES, reset_launches
     from repro_torch.core import criticality
-    from repro_torch.serve import (EmergencyConfig, PlaneBundle,
-                                   ResourceVector, ServeConfig,
-                                   ServePipeline, device_state)
+    from repro_torch.serve import EmergencyConfig
     from repro_torch.sim.telemetry import arrival_batch
     batch = arrival_batch(arrivals)
     ecfg = EmergencyConfig.from_model(EMERGENCY_BUDGET_W,
@@ -1279,15 +1387,9 @@ def streamed_serve(run, hist, arrivals, budget_w: float, seed: int,
     warm_state, warm = warm_cluster(seed)
 
     def pipeline(hosts, plane, labels, device=dev):
-        pipe = ServePipeline.from_history(
-            run["svc"], hist, labels, n_servers=N_SERVERS,
-            cores_per_server=CORES, blades_per_chassis=BLADES,
-            device=device, config=ServeConfig(
-                batch_size=BATCH, n_ingest_hosts=hosts, planes=PlaneBundle(
-                    chassis_budget=ResourceVector(watts=budget_w),
-                    emergency=ecfg if plane else None)))
-        pipe.state = device_state(warm_state, device=device)
-        return pipe
+        return _stream_pipeline(run, hist, labels, budget_w, warm_state,
+                                warm, hosts, device,
+                                emergency=ecfg if plane else None)
 
     reset_launches()
     labels = criticality.classify(hist.series, device=dev).cpu().numpy()
@@ -1372,6 +1474,7 @@ def streamed_serve(run, hist, arrivals, budget_w: float, seed: int,
     rate = {k: v["arrivals_per_s"] for k, v in runs.items()}
     rate["on_1_again"] = again["arrivals_per_s"]
     return {
+        "labels": labels,
         "arrivals": len(batch), "micro_batches": on1["micro_batches"],
         "warm_vms": len(warm[0]), "warm_chassis": len(range(
             0, N_SERVERS // BLADES, WARM_EVERY)),
@@ -1448,6 +1551,316 @@ def sim_emergency(dev) -> dict:
                 "migrations": m.migrations}
         out[name] = {"port": mine, "reference_record": record[name],
                      "equal_to_record": mine == record[name]}
+    return out
+
+
+#: The streamed cell with the ballooning rung and the adaptive controller:
+#: a sweep after every micro-batch at the next PLANES_UTILS value (calm and
+#: rising, so the controller ratchets; hot, so it backs off and the hot
+#: chassis' cuts pass the NUF floor and the rung fires; calm again), with
+#: the controller of the reference's adaptive benchmark
+#: (`benchmarks/serve_adaptive.py`, `_sweep_adaptive_cfg`). At the cell's
+#: fixed SWEEP_UTIL every window would run hot and pin the ratio at 1.0.
+PLANES_UTILS = (0.40, 0.41, 0.42, 0.43, 0.44, 0.45, 0.85, 0.85) + (0.40,) * 8
+PLANES_ADAPTIVE = dict(window=8, min_history=3, hot_util=0.63, step_up=0.15,
+                       step_down=0.5, ratio_max=3.0)
+#: The mitigation ladder's arm of `benchmarks/serve_resources.py`
+#: (`ladder`, cap -> balloon -> migrate): 2x emergency budget, admission
+#: at LADDER_ADMIT_SPAN times its dynamic span. Its target is the
+#: recorded arm in BENCH_serve_resources.json.
+SIM_LADDER = dict(days=0.5, seed=0, deployments_per_hour=32.0,
+                  prefill_core_ratio=0.5)
+LADDER_ADMIT_SPAN = 1.3
+#: The adaptive arm of `benchmarks/serve_adaptive.py` (`_sweep_arm` with
+#: `_sweep_adaptive_cfg`, admission at the 2x budget), cut from its 1.25
+#: days to 0.5: at 1.25 days it took 123.9 s of a 897 s script on the
+#: H100's host. Its target is the reference's own output at 0.5 days,
+#: from the JAX package on the CPU: `benchmarks/serve_adaptive.py` with
+#: `SWEEP_DAYS = 0.5`, `_sweep_arm(_fixed_budget_w(1.0),
+#: _sweep_adaptive_cfg(), False)`, run with `PYTHONPATH=src:.` and the
+#: reference's `jax.experimental.enable_x64` (removed in jax 0.9) set to
+#: `lambda: jax.enable_x64(True)`.
+#: The ladder's target is the recorded arm (`ladder/cap-balloon-migrate`).
+SIM_ADAPTIVE = dict(days=0.5, seed=0, deployments_per_hour=32.0,
+                    prefill_core_ratio=0.4)
+SIM_ADAPTIVE_TARGET = {"admitted": 1485, "failures": 1673,
+                       "uf_throttled_s": 0.0,
+                       "nuf_throttled_s": 700549.0984214912,
+                       "migrations": 0, "final_ratio": 1.0, "ratchets": 190,
+                       "backoffs": 203}
+
+
+def streamed_planes(run, hist, arrivals, labels, budget_w: float, seed: int,
+                    cell: dict, dev) -> dict:
+    """The streamed cell with the ballooning rung and the adaptive
+    controller (see `streamed`). First the rung alone on the streamed
+    cell's own sweeps, beside that cell's numbers (`cell`, the `streamed_serve`
+    result); then both planes with a sweep after every micro-batch at
+    PLANES_UTILS, its launch counts read from 0, at 4 hosts, on the CPU
+    (both with the first run's sweep powers) and once more on the card;
+    then the launches of one cap window with each rung."""
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.serve import (AdaptiveConfig, BallooningConfig,
+                                   EmergencyConfig)
+    from repro_torch.sim.telemetry import arrival_batch
+    batch = arrival_batch(arrivals)
+    ecfg = EmergencyConfig.from_model(EMERGENCY_BUDGET_W,
+                                      dwell_s=STREAM_DWELL_S)
+    bcfg, acfg = BallooningConfig(), AdaptiveConfig(**PLANES_ADAPTIVE)
+    both = dict(emergency=ecfg, ballooning=bcfg, adaptive=acfg)
+    warm_state, warm = warm_cluster(seed)
+
+    def pipeline(hosts, device=dev, **planes):
+        return _stream_pipeline(run, hist, labels, budget_w, warm_state,
+                                warm, hosts, device, **planes)
+
+    # the rung alone at the streamed cell's own sweeps (util SWEEP_UTIL)
+    rung = streamed(pipeline(1, emergency=ecfg, ballooning=bcfg), batch, 1,
+                    True, warm)
+    check(rung["balloon_events"] >= 1,
+          "the rung fires on the streamed cell's own sweeps")
+
+    reset_launches()
+    pipes = {"on_1": pipeline(1, **both)}
+    runs = {"on_1": streamed(pipes["on_1"], batch, 1, True, warm,
+                             utils=PLANES_UTILS, sweep_every=1)}
+    launches = dict(KERNEL_LAUNCHES)
+    on1, p1 = runs["on_1"], pipes["on_1"]
+    check(launches["forest"] == on1["micro_batches"] == len(batch) // BATCH,
+          f"streamed planes: a forest launch per micro-batch: {launches}")
+    ast = p1.adaptive_state
+    ratchets, backoffs = int(ast.ratchets), int(ast.backoffs)
+    check(on1["balloon_events"] >= 1, "the ballooning rung fires")
+    check(ratchets >= 1 and backoffs >= 1,
+          f"the controller ratchets and backs off: {ratchets}, {backoffs}")
+    for name, hosts, device, samples in (
+            ("on_4", 4, dev, on1["samples"]),
+            ("cpu", 1, "cpu", on1["samples"]),
+            ("on_1_again", 1, dev, None)):
+        pipes[name] = pipeline(hosts, device, **both)
+        runs[name] = streamed(pipes[name], batch, hosts, True, warm,
+                              samples, utils=PLANES_UTILS, sweep_every=1)
+
+    def same(a, b, what):
+        for f in ("servers", "conservative", "throttled_by_level"):
+            check(np.array_equal(a[f], b[f]), f"{what}: equal {f}")
+        check(a["alarms"] == b["alarms"] and a["cycle"] == b["cycle"],
+              f"{what}: equal alarms and migration cycle")
+
+    def tensors_equal(a, b, what):
+        for f, x, y in zip(a._fields, a, b):
+            check(torch.equal(x.cpu(), y.cpu()), f"{what}: equal {f}")
+    for name in ("on_4", "on_1_again", "cpu"):
+        same(runs[name], on1, f"streamed planes, {name} against on_1")
+        p = pipes[name]
+        for f in ("count", "head", "ratio", "ratchets", "backoffs"):
+            check(torch.equal(getattr(p.adaptive_state, f).cpu(),
+                              getattr(ast, f).cpu()),
+                  f"streamed planes, {name}: adaptive {f} equal")
+        if name == "cpu":
+            continue
+        tensors_equal(p.state, p1.state, f"streamed planes, {name} state")
+        tensors_equal(p.emergency, p1.emergency, f"{name} emergency")
+        tensors_equal(p.balloon_state, p1.balloon_state, f"{name} balloons")
+        tensors_equal(p.adaptive_state, ast, f"{name} adaptive state")
+    again = runs["on_1_again"]
+    check(all(np.array_equal(a, b) for a, b in zip(again["samples"],
+                                                   on1["samples"])),
+          "the repeated run samples the same live aggregates, bit for bit")
+    check(again["ratios"] == on1["ratios"]
+          and again["balloon_events"] == on1["balloon_events"],
+          "the repeated run ratchets and balloons alike")
+    cpu = pipes["cpu"]
+    gaps = {}
+    for what, a, b in (
+            *((f, getattr(p1.state, f), getattr(cpu.state, f))
+              for f in ("free_cores", "gamma_uf", "gamma_nuf", "res_peak",
+                        "mem_nuf")),
+            ("ballooned_gb", p1.balloon_state.ballooned_gb,
+             cpu.balloon_state.ballooned_gb),
+            ("adaptive_util", ast.util, cpu.adaptive_state.util)):
+        gaps[what] = float((a.cpu() - b).abs().max())
+        check(gaps[what] <= 1e-6 * max(1.0, float(b.abs().max())),
+              f"CPU final {what} within float32 rounding of the card's: "
+              f"{gaps[what]}")
+
+    # launches of one cap window (after a first one) with each rung, on a
+    # pipeline that has served one micro-batch
+    chassis = np.arange(N_SERVERS // BLADES)
+    chunk = _rows(batch, np.arange(BATCH))
+    hot = on1["samples"][PLANES_UTILS.index(0.85)]
+
+    def window_launches(**planes):
+        pipe = pipeline(1, **planes)
+        pipe.submit_to(0, chunk, t=np.arange(1.0, BATCH + 1.0))
+
+        def window(t):
+            pipe.cap_to(0, chassis, hot, t=t + (chassis + 1) * 1e-7)
+            return pipe.alarms
+        window(BATCH + 0.5)
+        return device_profile(lambda: None,
+                              lambda: window(BATCH + 1.5))["launches"]
+    per_window = {
+        "emergency": window_launches(emergency=ecfg),
+        "emergency_ballooning": window_launches(emergency=ecfg,
+                                                ballooning=bcfg),
+        "adaptive": window_launches(adaptive=acfg),
+        "all": window_launches(**both)}
+    cycle = on1["cycle"] or {}
+    return {
+        "arrivals": len(batch), "micro_batches": on1["micro_batches"],
+        "sweeps": on1["sweeps"], "utils": list(PLANES_UTILS),
+        "adaptive_cfg": PLANES_ADAPTIVE, "ballooning_cfg": {
+            "w_per_gb": bcfg.w_per_gb, "reclaim_frac": bcfg.reclaim_frac},
+        "budget_w": EMERGENCY_BUDGET_W, "admission_w": budget_w,
+        "alarms": on1["alarms"],
+        "throttled_by_level": on1["throttled_by_level"].tolist(),
+        "admitted": int((on1["servers"] >= 0).sum()),
+        "power_rejected": int((on1["servers"] == -2).sum()),
+        "balloon_events": on1["balloon_events"],
+        "ballooned_peak_gb": on1["ballooned_peak_gb"],
+        "ballooned_gb_end": on1["ballooned_gb"],
+        "ratios": on1["ratios"], "ratchets": ratchets, "backoffs": backoffs,
+        "migration_moves": cycle.get("moves", 0),
+        "due_chassis": len(cycle.get("due_chassis", [])),
+        "launches": launches,
+        "arrivals_per_s": {k: v["arrivals_per_s"] for k, v in runs.items()},
+        "hosts_equal": True, "cpu_equal": True, "repeat_bit_equal": True,
+        "cpu_state_max_gap": gaps,
+        "launches_per_cap_window": per_window,
+        "rung_only_at_cell_sweeps": {
+            "alarms": rung["alarms"],
+            "throttled_by_level": rung["throttled_by_level"].tolist(),
+            "moves": (rung["cycle"] or {}).get("moves", 0),
+            "admitted": int((rung["servers"] >= 0).sum()),
+            "balloon_events": rung["balloon_events"],
+            "ballooned_peak_gb": rung["ballooned_peak_gb"],
+            "hot_sweeps": [n for n in rung["balloon_need"]
+                           if n["demand_w_max"] > 0],
+            "arrivals_per_s": rung["arrivals_per_s"],
+            "cell_without_rung": {
+                "alarms": cell["alarms"],
+                "throttled_by_level": cell["throttled_by_level"],
+                "moves": cell["migration_cycle"]["moves"],
+                "admitted": cell["admitted"]}}}
+
+
+def examples_phase(dev) -> dict:
+    """Both example twins on the card, each read from counts at 0, their
+    printed lines captured, and the quickstart once more on the CPU."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.examples import datacenter_sim, quickstart
+    out = {}
+    for name, mod in (("quickstart", quickstart),
+                      ("datacenter_sim", datacenter_sim)):
+        printed = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            nums = mod.main(device=dev)
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": dict(KERNEL_LAUNCHES),
+                     "printed": printed.getvalue().splitlines()}
+        if name == "quickstart":
+            out[name]["numbers"] = nums
+            continue
+        out[name]["numbers"] = {
+            "crit_acc": nums["table3"]["criticality"]["accuracy_high_conf"],
+            "p95_acc": nums["table3"]["p95"]["accuracy_high_conf"],
+            "p95_pct_high_conf": nums["table3"]["p95"]["pct_high_conf"],
+            **{f"{k}_{f}": getattr(nums[k], f)
+               for k in ("sim_base", "sim_ours")
+               for f in ("placements", "failures", "chassis_score_std",
+                         "server_score_std")},
+            "uf_p95_latency_x": nums["uf_p95_latency_x"],
+            "nuf_slowdown": nums["nuf_slowdown"],
+            "oversubscription": nums["oversubscription"]}
+    q, d = out["quickstart"], out["datacenter_sim"]
+    check(q["launches"]["forest"] > 0 and q["launches"]["template"] > 0,
+          f"the quickstart runs the forest and template kernels: "
+          f"{q['launches']}")
+    check(d["launches"]["template"] > 0,
+          f"the datacenter scenario labels on the card: {d['launches']}")
+    qn = q["numbers"]
+    check(qn["history"] == 600 and 0 < qn["uf_share"] < 1
+          and 0 < qn["admitted"] <= 256 and qn["oversubscription"] > 0,
+          f"quickstart numbers: {qn}")
+    dn = d["numbers"]
+    check(all(0 < dn[k] <= 1 for k in ("crit_acc", "p95_acc",
+                                       "p95_pct_high_conf"))
+          and dn["sim_ours_placements"] > 0
+          and math.isfinite(dn["uf_p95_latency_x"]),
+          f"datacenter numbers: {dn}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        q["cpu_numbers"] = quickstart.main(device="cpu")
+    check(q["cpu_numbers"] == qn,
+          f"the quickstart on the card gives the CPU's numbers: {qn} vs "
+          f"{q['cpu_numbers']}")
+    return out
+
+
+def sim_arms(dev) -> dict:
+    """The ladder arm and the adaptive arm in `simulate` on the serve
+    backend on the card, the ballooning and adaptive twins stepped and
+    checked there at every scan, each compared field by field with its
+    target."""
+    from repro_torch.core.placement import SchedulerPolicy
+    from repro_torch.core.power_model import F_MAX, idle_power
+    from repro_torch.serve import (AdaptiveConfig, BallooningConfig,
+                                   EmergencyConfig, ResourceVector)
+    from repro_torch.sim import scheduler_sim as S
+    static = BLADES * float(idle_power(F_MAX))
+    root = Path(__file__).resolve().parent
+    out = {}
+    for name, spec_kw, admit_w in (
+            ("sim_ladder", dict(ballooning=BallooningConfig(), **SIM_LADDER),
+             static + LADDER_ADMIT_SPAN * (EMERGENCY_BUDGET_W - static)),
+            ("sim_adaptive", dict(adaptive=AdaptiveConfig(**PLANES_ADAPTIVE),
+                                  **SIM_ADAPTIVE), EMERGENCY_BUDGET_W)):
+        t0 = time.perf_counter()
+        m = S.simulate(SchedulerPolicy(), S.PredictionChannel("ml"),
+                       S.SimSpec(serve=S.ServeBackendSpec(
+                           backend="serve",
+                           admission_budget=ResourceVector(watts=admit_w)),
+                           emergency=EmergencyConfig.from_model(
+                               EMERGENCY_BUDGET_W), **spec_kw), device=dev)
+        secs = time.perf_counter() - t0
+        mine = {"admitted": m.placements - m.failures,
+                "failures": m.failures, "uf_throttled_s": m.uf_throttled_s,
+                "nuf_throttled_s": m.nuf_throttled_s,
+                "migrations": m.migrations}
+        if name == "sim_ladder":
+            mine.update(alarms=m.alarms, balloon_events=m.balloon_events,
+                        balloon_reclaimed_gb=m.balloon_reclaimed_gb)
+            record = next(a for a in json.loads(
+                (root / "BENCH_serve_resources.json").read_text())
+                ["ladder"]["arms"] if a["name"] == "ladder/cap-balloon-migrate")
+            target = {k: record[k] for k in mine}
+        else:
+            mine.update(final_ratio=m.adaptive_ratio,
+                        ratchets=m.adaptive_ratchets,
+                        backoffs=m.adaptive_backoffs)
+            record = next(a for a in json.loads(
+                (root / "BENCH_serve_adaptive.json").read_text())
+                ["sweep"]["arms"] if a["name"] == "adaptive")
+            target = SIM_ADAPTIVE_TARGET
+        for k in target:
+            check(mine[k] == target[k],
+                  f"{name}: {k} {mine[k]!r} == target {target[k]!r}")
+        out[name] = {**(SIM_LADDER if name == "sim_ladder" else SIM_ADAPTIVE),
+                     "admission_w": admit_w, "budget_w": EMERGENCY_BUDGET_W,
+                     "seconds": secs, "placements": m.placements,
+                     "arrivals_per_s": m.placements / secs,
+                     "port": mine, "target": target,
+                     "equal_to_target": True,
+                     "reference_record": {k: v for k, v in record.items()
+                                          if k != "wall_s"},
+                     "alarms": m.alarms, "ballooned_gb_end": m.ballooned_gb}
     return out
 
 
@@ -1656,10 +2069,25 @@ def main(argv=None) -> int:
     # read from 0 inside: labeling plus the first streamed run), then the
     # emergency plane in the scheduler simulation, read from counts at 0
     stream = streamed_serve(run, hist, arrivals, budget_w, args.seed, dev)
+    stream_labels = stream.pop("labels")
     emit("streamed_serve", **stream)
     reset_launches()
     emit("sim_emergency", **sim_emergency(dev),
          launches=dict(KERNEL_LAUNCHES))
+
+    # the example twins (counts read from 0 inside, per twin); the
+    # streamed cell with the ballooning rung and the adaptive controller
+    # (counts read from 0 inside: the 1-host run with both planes); the
+    # ladder and adaptive arms of the simulation, read from counts at 0
+    examples = examples_phase(dev)
+    emit("examples", **examples)
+    planes = streamed_planes(run, hist, arrivals, stream_labels, budget_w,
+                             args.seed, stream, dev)
+    emit("streamed_planes", **planes)
+    reset_launches()
+    arms = sim_arms(dev)
+    for name, res in arms.items():
+        emit(name, **res, launches=dict(KERNEL_LAUNCHES))
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [
@@ -1668,6 +2096,8 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/forest/forest.py:95",
          "launches": launches["forest"],
          "launches_streamed": stream["launches"]["forest"],
+         "launches_examples": examples["quickstart"]["launches"]["forest"],
+         "launches_streamed_planes": planes["launches"]["forest"],
          **{k: forest["micro_batch"][k] for k in TIMES},
          "library_ms": None, "shape": forest["micro_batch"]["shape"],
          "blocks": forest["micro_batch"]["blocks"],
@@ -1681,6 +2111,9 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/template/template.py:118",
          "launches": launches["template"],
          "launches_streamed": stream["launches"]["template"],
+         "launches_examples": {
+             k: examples[k]["launches"]["template"]
+             for k in ("quickstart", "datacenter_sim")},
          **{k: res_hist[k] for k in TIMES},
          "library_ms": None, "shape": res_hist["shape"],
          "edge_shapes": [r["shape"] for r in edges["template"]],

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.core.forest import (
-    ObliviousForest, train_gradient_boosting, train_random_forest)
+    ObliviousForest, evaluate, train_gradient_boosting, train_random_forest)
 
 CONFIDENCE_GATE = 0.6
 UF, NUF = 1, 0          # workload-type encoding (bucket 2 in Table III = UF)
@@ -86,3 +86,21 @@ def train_service(x: np.ndarray, uf_labels: np.ndarray,
                    n_trees=n_trees, seed=seed + 3)
     return PredictionService(crit, TwoStageP95Model(stage1, low, high))
 
+
+
+def table3_metrics(service: PredictionService, x: np.ndarray,
+                   uf_labels: np.ndarray, p95_buckets: np.ndarray) -> dict:
+    """Table III rows for one model family (host numpy)."""
+    crit = evaluate(service.criticality, x, uf_labels.astype(np.int64))
+    pb, conf = service.p95.predict(x)
+    hi = conf >= service.confidence_gate
+    p95 = {"pct_high_conf": float(hi.mean()),
+           "accuracy_high_conf": float((pb[hi] == p95_buckets[hi]).mean()),
+           "buckets": {}}
+    for c in range(4):
+        tp = int(((pb == c) & (p95_buckets == c) & hi).sum())
+        fn = int(((pb != c) & (p95_buckets == c) & hi).sum())
+        fp = int(((pb == c) & (p95_buckets != c) & hi).sum())
+        p95["buckets"][c] = {"recall": tp / max(tp + fn, 1),
+                             "precision": tp / max(tp + fp, 1)}
+    return {"criticality": crit, "p95": p95}

@@ -1,2 +1,3 @@
-"""Serving launchers of the LM substrate: the prefill and one-token
-decode steps, and batched greedy serving."""
+"""Launchers: the serving steps and batched greedy serving of the LM
+substrate, and the operator CLI of the oversubscription budget
+(`launch.oversubscribe`)."""

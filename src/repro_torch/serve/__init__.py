@@ -2,11 +2,20 @@
 counterpart of `repro.serve`: featurization, four-forest inference with
 confidence gating, Algorithm-1 placement and power admission, with all
 state resident on the pipeline's device; the per-host ingest merge, the
-power-emergency plane and migration planning."""
+power-emergency plane, the ballooning rung, migration planning and the
+adaptive oversubscription controller."""
 from repro_torch.core.resources import RESOURCES, ResourceVector
+from repro_torch.serve.adaptive import (
+    REASON_NAMES, AdaptiveConfig, AdaptiveOutputs, AdaptiveState,
+    adaptive_step, adaptive_step_np, decision_reason, gate_ratio_on_stale,
+    init_adaptive, init_adaptive_np, offered_power, retarget_pool)
 from repro_torch.serve.admission import (
     headroom_w, projected_chassis_power, resource_caps_from_budget,
     rho_cap_from_budget)
+from repro_torch.serve.ballooning import (
+    BalloonOutputs, BalloonState, BallooningConfig, balloon_demand_w,
+    balloon_demand_w_np, balloon_step, balloon_step_np, init_ballooning,
+    init_ballooning_np, total_ballooned_gb)
 from repro_torch.serve.emergency import (
     CRIT_NUF, CRIT_UF, N_LEVELS, EmergencyConfig, EmergencyOutputs,
     EmergencyState, chassis_rho_levels, chassis_rho_levels_np,
@@ -36,6 +45,13 @@ from repro_torch.serve.placement import (
 
 __all__ = [
     "RESOURCES", "ResourceVector",
+    "REASON_NAMES", "AdaptiveConfig", "AdaptiveOutputs", "AdaptiveState",
+    "adaptive_step", "adaptive_step_np", "decision_reason",
+    "gate_ratio_on_stale", "init_adaptive", "init_adaptive_np",
+    "offered_power", "retarget_pool",
+    "BalloonOutputs", "BalloonState", "BallooningConfig", "balloon_demand_w",
+    "balloon_demand_w_np", "balloon_step", "balloon_step_np",
+    "init_ballooning", "init_ballooning_np", "total_ballooned_gb",
     "headroom_w", "projected_chassis_power", "resource_caps_from_budget",
     "rho_cap_from_budget",
     "CRIT_NUF", "CRIT_UF", "N_LEVELS", "EmergencyConfig",

@@ -19,10 +19,15 @@ event kinds; `flush` serves what is left. `serve` and `depart` bypass
 the queue. With `PlaneBundle.emergency` set, power samples step the
 power-emergency plane (`serve.emergency`): cap windows queue up and ride
 in front of the next micro-batch's placement (`placement.
-place_batch_caps`), and the dwell signal feeds `serve.mitigation`.
+place_batch_caps`), and the dwell signal feeds `serve.mitigation`. With
+`PlaneBundle.ballooning` the windows apply at once, each a balloon step
+(`serve.ballooning`) ahead of the emergency step. With
+`PlaneBundle.adaptive` every window also steps the adaptive controller
+(`serve.adaptive`), whose ratio scales the watt axis of the admission
+ceiling before the next micro-batch.
 
-The adaptive and ballooning planes, the cluster token pool and the
-observability plane are later parts of the port (ROADMAP.md).
+The cluster token pool and the observability plane are later parts of
+the port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -33,9 +38,10 @@ import torch
 
 from repro_torch.core.placement import SchedulerPolicy
 from repro_torch.core.predictor import UF, PredictionService
-from repro_torch.core.resources import ResourceVector
+from repro_torch.core.resources import N_RESOURCES, RESOURCES, ResourceVector
 from repro_torch.device import resolve_device
-from repro_torch.serve import admission, emergency, placement
+from repro_torch.serve import (adaptive, admission, ballooning, emergency,
+                               placement)
 from repro_torch.serve.featurizer import (
     SubscriptionTable, featurize_batch, ingest_population, table_from_history)
 from repro_torch.serve.inference import (
@@ -49,8 +55,6 @@ from repro_torch.sim.telemetry import ArrivalBatch, Population
 #: ports them.
 _LATER_PLANES = {
     "cluster_budget": "Queue 1 item 10 (sharded serving)",
-    "adaptive": "Queue 1 item 9 (online mitigation planes)",
-    "ballooning": "Queue 1 item 9 (online mitigation planes)",
     "obs": "Queue 1 item 11 (observability)",
 }
 
@@ -60,15 +64,18 @@ class PlaneBundle:
     """Control-plane attachments of a pipeline. This part of the port
     carries `chassis_budget`, the per-chassis admission budget as a
     `ResourceVector` (the watts axis converts through the power model
-    into the rho ceiling, cores/GB axes are ledger currency), and
-    `emergency`, the power-emergency plane's `EmergencyConfig`. Setting
-    any other plane raises NotImplementedError naming the ROADMAP
-    item."""
+    into the rho ceiling, cores/GB axes are ledger currency);
+    `emergency`, the power-emergency plane's `EmergencyConfig`;
+    `ballooning`, the rung between capping and migration (it requires
+    `emergency`: it sizes its reclaim with the emergency plane's alarm
+    arithmetic); and `adaptive`, the closed-loop oversubscription
+    controller. Setting `cluster_budget` or `obs` raises
+    NotImplementedError naming the ROADMAP item."""
     chassis_budget: ResourceVector | None = None
     cluster_budget: object = None
     emergency: emergency.EmergencyConfig | None = None
-    adaptive: object = None
-    ballooning: object = None
+    adaptive: adaptive.AdaptiveConfig | None = None
+    ballooning: ballooning.BallooningConfig | None = None
     obs: object = None
 
     def __post_init__(self):
@@ -155,6 +162,12 @@ class ServePipeline:
                  config: ServeConfig | None = None,
                  blades_per_chassis: int | None = None):
         self.config = config or ServeConfig()
+        planes = self.config.planes
+        if planes.ballooning is not None and planes.emergency is None:
+            raise ValueError(
+                "PlaneBundle.ballooning requires PlaneBundle.emergency: the "
+                "ballooning rung probes the emergency plane's alarm "
+                "arithmetic to size its reclaim")
         self.device = state.free_cores.device
         self.table = table
         self.state = state
@@ -199,6 +212,33 @@ class ServePipeline:
                     "chassis floor, and every alarm and cut, would be "
                     "miscalibrated")
             self.emergency = self._init_emergency()
+        # ballooning rung: fires on the same samples, between the NUF
+        # frequency floor and migration
+        self._balloon = None
+        if planes.ballooning is not None:
+            self._balloon = ballooning.init_ballooning(
+                self.n_chassis, dtype=state.free_cores.dtype,
+                device=self.device)
+        # adaptive controller: samples feed per-chassis stability windows,
+        # and the stepped ratio rescales the admission ceiling
+        self.adaptive_cfg = planes.adaptive
+        self._adaptive = None
+        self._res_cap_base = self.res_cap
+        # (R,) time-of-day multipliers of the cores/GB axes
+        # (`set_resource_ratios`); the watts axis stays 1.0
+        self._res_ratios = np.ones(N_RESOURCES)
+        self._ratio_dev = None      # adaptive ratio, a device scalar
+        if self.adaptive_cfg is not None:
+            acfg = self.adaptive_cfg
+            if acfg.blades_per_chassis != self.blades_per_chassis:
+                raise ValueError(
+                    f"adaptive blades_per_chassis="
+                    f"{acfg.blades_per_chassis} does not match the "
+                    f"pipeline's {self.blades_per_chassis}: power samples "
+                    "would read back as the wrong utilization")
+            self._adaptive = adaptive.init_adaptive(
+                acfg, self.n_chassis, dtype=state.free_cores.dtype,
+                device=self.device)
 
     @property
     def rho_cap(self) -> torch.Tensor:
@@ -313,12 +353,13 @@ class ServePipeline:
         plane. They apply at their merged-stream position, so alarms,
         lifts and the effects of any mitigation traffic do not depend on
         the host count. Needs a pipeline built with
-        `PlaneBundle.emergency`. Advancing this host's clock can release
+        `PlaneBundle.emergency` or `PlaneBundle.adaptive` (either plane
+        reads the samples). Advancing this host's clock can release
         queued micro-batches; their results are returned."""
-        if self.emergency_cfg is None:
+        if self.emergency_cfg is None and self.adaptive_cfg is None:
             raise ValueError(
                 "cap_to() needs a pipeline built with "
-                "PlaneBundle.emergency")
+                "PlaneBundle.emergency or PlaneBundle.adaptive")
         self.ingest.cap_to(host, CapBatch(
             np.asarray(chassis, np.int32),
             np.asarray(power_w, np.float32)), t)
@@ -475,17 +516,29 @@ class ServePipeline:
         so a queued window sees the aggregates it would have seen at its
         merged position. Stamps are rebased to the first cap stamp the
         pipeline saw: float32 clocks would quantize the 30 s lift and
-        dwell windows away at epoch-second stamps (~1e9)."""
-        if self.emergency_cfg is None:
+        dwell windows away at epoch-second stamps (~1e9).
+
+        The adaptive controller steps on each window at once: it reads
+        only the placement aggregates, and its ratio must bind the very
+        next micro-batch. With the ballooning rung the emergency windows
+        apply at once too: a balloon deferred to ride with a batch would
+        read the memory ledger after that batch changed it."""
+        if self.emergency_cfg is None and self.adaptive_cfg is None:
             raise ValueError(
                 "received CAPPING events but the pipeline was built "
-                "without PlaneBundle.emergency")
+                "without PlaneBundle.emergency or PlaneBundle.adaptive")
         if self._cap_epoch is None:
             self._cap_epoch = float(t[0])
         t = np.asarray(t, np.float64) - self._cap_epoch
         for lo, hi in _unique_chassis_windows(batch.chassis):
-            self._pending_caps.append(
-                (batch.chassis[lo:hi], batch.power_w[lo:hi], t[lo:hi]))
+            if self.adaptive_cfg is not None:
+                self._adaptive_scan(batch.chassis[lo:hi],
+                                    batch.power_w[lo:hi])
+            if self.emergency_cfg is not None:
+                self._pending_caps.append(
+                    (batch.chassis[lo:hi], batch.power_w[lo:hi], t[lo:hi]))
+        if self._balloon is not None:
+            self._flush_caps()
 
     def _flush_caps(self) -> None:
         """Apply the queued cap windows one at a time: the path for
@@ -497,17 +550,108 @@ class ServePipeline:
             self._alarms += int(out.alarm.sum())
 
     def _cap_window(self, chassis, power_w, t):
-        """Apply one unique-chassis sample window; returns the step's
-        `EmergencyOutputs`."""
+        """Apply one unique-chassis sample window, through the balloon
+        step first when the rung is attached; returns the emergency
+        step's `EmergencyOutputs`."""
         pw, mask, ts = emergency.scatter_samples(
             self.n_chassis, chassis, power_w, t,
             self.state.free_cores.dtype, self.device)
         rho_lv = emergency.chassis_rho_levels(
             self.state.gamma_nuf, self.state.gamma_uf,
             self.state.chassis_servers)
+        if self._balloon is not None:
+            self._balloon, bout = ballooning.balloon_step(
+                self.config.planes.ballooning, self.emergency_cfg,
+                self._balloon, rho_lv, pw, self.state.mem_nuf, mask)
+            pw = bout.power_adj_w
         self._emergency, out = emergency.masked_step(
             self.emergency_cfg, self._emergency, rho_lv, pw, mask, ts)
         return out
+
+    # -- ballooning rung (serve.ballooning) ----------------------------------
+    @property
+    def balloon_state(self):
+        """Current `serve.ballooning.BalloonState` (None with the rung
+        off); reading it applies queued cap windows like `emergency`."""
+        self._flush_caps()
+        return self._balloon
+
+    def ballooned_gb(self) -> float:
+        """Fleet-wide GB currently ballooned out (0.0 with the rung
+        off)."""
+        if self._balloon is None:
+            return 0.0
+        self._flush_caps()
+        return ballooning.total_ballooned_gb(self._balloon)
+
+    # -- adaptive oversubscription (serve.adaptive) --------------------------
+    @property
+    def adaptive_state(self):
+        """Current `serve.adaptive.AdaptiveState` (None with the
+        controller off). It steps when a window is consumed, so its ratio
+        already binds the next micro-batch."""
+        return self._adaptive
+
+    @property
+    def adaptive_ratio(self) -> float:
+        """Current oversubscription ratio (1.0 with the controller off)."""
+        if self._adaptive is None:
+            return 1.0
+        return float(self._adaptive.ratio)
+
+    def _adaptive_scan(self, chassis, power_w) -> None:
+        """One controller scan over a unique-chassis sample window, then
+        the stepped ratio put in force."""
+        pw, mask, _ = emergency.scatter_samples(
+            self.n_chassis, chassis, power_w, np.zeros(len(chassis)),
+            self.state.free_cores.dtype, self.device)
+        rho_lv = emergency.chassis_rho_levels(
+            self.state.gamma_nuf, self.state.gamma_uf,
+            self.state.chassis_servers)
+        self._adaptive, out = adaptive.adaptive_step(
+            self.adaptive_cfg, self._adaptive, rho_lv, pw, mask)
+        self._apply_ratio(out)
+
+    def _apply_ratio(self, out) -> None:
+        """Scale the watt axis of the admission ceiling by the stepped
+        ratio, on the device (no host sync). `hold_on_stale` needs the
+        prediction scorecard of the observability plane, not ported yet,
+        and has no effect here."""
+        self._ratio_dev = out.ratio
+        self._refresh_caps()
+
+    def _axis_mult(self, dtype) -> torch.Tensor:
+        """(R,) ceiling multiplier: the adaptive ratio on the watts axis
+        times the time-of-day ratios on the cores/GB axes. Both default to
+        1.0, and a multiply by 1.0 is the identity, so with neither plane
+        the base ceiling passes through bit for bit."""
+        one = torch.ones((), dtype=dtype, device=self.device)
+        r = one if self._ratio_dev is None else self._ratio_dev.to(dtype)
+        return torch.stack([r, one, one]) * torch.as_tensor(
+            self._res_ratios, dtype=dtype, device=self.device)
+
+    def _refresh_caps(self) -> None:
+        """Recompute the admission ceiling from the base ceiling and the
+        current per-axis multipliers."""
+        self.res_cap = self._res_cap_base \
+            * self._axis_mult(self._res_cap_base.dtype)
+
+    def set_resource_ratios(self, ratios) -> None:
+        """Install a fresh (R,) time-of-day sample
+        (`core.resources.trough_ratios`): the cores/GB axes of the
+        ceiling rescale at once. The watts axis must be exactly 1.0: a
+        breaker budget is a physical limit and never ratchets."""
+        ratios = np.asarray(ratios, np.float64)
+        if ratios.shape != (N_RESOURCES,):
+            raise ValueError(
+                f"ratios must be ({N_RESOURCES},) over {RESOURCES}, "
+                f"got shape {ratios.shape}")
+        if ratios[0] != 1.0:
+            raise ValueError(
+                f"ratios[0] (watts) must be 1.0, got {ratios[0]}: the watt "
+                "budget is a breaker limit and never ratchets")
+        self._res_ratios = ratios
+        self._refresh_caps()
 
     def throttled_by_level(self) -> np.ndarray:
         """(L,) cumulative throttled-seconds per criticality level (index

@@ -50,7 +50,9 @@ FAIL_TOKENS = -3        # shard's token pool exhausted (sharded serving)
 class DeviceClusterState(NamedTuple):
     """Tensor mirror of `core.placement.ClusterState`'s aggregates over
     the (watts, cores, GB) resource ledger: `res_peak` tracks committed
-    (rho, cores, GB) per chassis, axis 0 being `rho_peak`."""
+    (rho, cores, GB) per chassis, axis 0 being `rho_peak`; `mem_nuf` is
+    the NUF slice of the GB axis, the headroom the ballooning rung
+    reclaims."""
     free_cores: torch.Tensor     # (S,)
     gamma_uf: torch.Tensor       # (S,)
     gamma_nuf: torch.Tensor      # (S,)
@@ -58,6 +60,7 @@ class DeviceClusterState(NamedTuple):
     rho_max: torch.Tensor        # (C,)
     chassis_of: torch.Tensor     # (S,) int64
     chassis_servers: torch.Tensor  # (C, S // C) int64 — servers per chassis
+    mem_nuf: torch.Tensor        # (C,) committed NUF GB (`serve.ballooning`)
 
     @property
     def rho_peak(self) -> torch.Tensor:
@@ -82,19 +85,22 @@ def _chassis_servers(chassis_of: np.ndarray) -> np.ndarray:
 
 
 def device_state(state: ClusterState, dtype=torch.float32, device=None,
-                 mem_gb=None) -> DeviceClusterState:
+                 mem_gb=None, mem_nuf=None) -> DeviceClusterState:
     """Mirror a host `ClusterState` onto `device` in `dtype` (float32 to
     serve, float64 to hold decisions against the numpy oracle). The
     cores axis of `res_peak` is derived from the per-server free cores,
-    the GB axis is `mem_gb` ((C,) committed GB; zeros when None)."""
+    the GB axis is `mem_gb` and its NUF slice `mem_nuf` ((C,) committed
+    GB, total and NUF; zeros when None)."""
     dev = resolve_device(device)
     chassis_of = np.asarray(state.chassis_of_server, np.int64)
     used = float(state.cores_per_server) - np.asarray(state.free_cores,
                                                       np.float64)
     cores_comm = np.bincount(chassis_of, weights=used,
                              minlength=state.n_chassis)
-    mem = np.zeros(state.n_chassis) if mem_gb is None \
-        else np.asarray(mem_gb, np.float64)
+    def gb(a):
+        return np.zeros(state.n_chassis) if a is None \
+            else np.asarray(a, np.float64)
+    mem = gb(mem_gb)
     res_peak = np.stack([np.asarray(state.rho_peak, np.float64),
                          cores_comm, mem], axis=-1)
 
@@ -103,7 +109,7 @@ def device_state(state: ClusterState, dtype=torch.float32, device=None,
     return DeviceClusterState(
         t(state.free_cores), t(state.gamma_uf), t(state.gamma_nuf),
         t(res_peak), t(state.rho_max), t(chassis_of, torch.int64),
-        t(_chassis_servers(chassis_of), torch.int64))
+        t(_chassis_servers(chassis_of), torch.int64), t(gb(mem_nuf)))
 
 
 def fresh_state(n_servers: int, cores_per_server: int, chassis_of,
@@ -179,9 +185,14 @@ def place_batch(state: DeviceClusterState, cores, is_uf, p95_eff, valid,
         cap = torch.cat([cap[:, None], torch.full(
             (cap.shape[0], N_RESOURCES - 1), torch.inf, dtype=dtype,
             device=dev)], -1)
-    # the walk updates private copies in place
-    free, g_uf, g_nuf, res = (a.clone() for a in (
-        state.free_cores, state.gamma_uf, state.gamma_nuf, state.res_peak))
+    # each arrival's NUF GB, taken once for the batch (a product with
+    # 0 or 1, exact in any order)
+    mem_nuf = mem * (1.0 - is_uf.to(dtype))
+    # the walk updates private copies in place; the (C, R) ledger and its
+    # NUF GB slice move as one (C, R + 1) block, one update an arrival
+    free, g_uf, g_nuf = (a.clone() for a in (
+        state.free_cores, state.gamma_uf, state.gamma_nuf))
+    res = torch.cat([state.res_peak, state.mem_nuf[:, None]], -1)
     chassis_of = state.chassis_of
     cps = free.new_full((), float(cores_per_server))
     rho_max = torch.clamp(state.rho_max, min=1e-9)
@@ -213,9 +224,9 @@ def place_batch(state: DeviceClusterState, cores, is_uf, p95_eff, valid,
         s1 = srv.view(1)
         ch = chassis_of.index_select(0, s1)
         w = p95[i] * cores[i]
-        d = torch.stack([w, cores[i], mem[i]])
-        admit = torch.all(res.index_select(0, ch) + d
-                          <= cap.index_select(0, ch))
+        d = torch.stack([w, cores[i], mem[i], mem_nuf[i]])
+        admit = torch.all(res.index_select(0, ch)[:, :N_RESOURCES]
+                          + d[:N_RESOURCES] <= cap.index_select(0, ch))
         scale = (found & admit & valid[i]).to(dtype)
         uf_f = is_uf[i].to(dtype)
         free.index_add_(0, s1, (-cores[i] * scale).view(1))
@@ -226,8 +237,10 @@ def place_batch(state: DeviceClusterState, cores, is_uf, p95_eff, valid,
                                torch.where(~admit, FAIL_POWER, srv)))
     servers = torch.stack(out) if out else \
         torch.empty(0, dtype=torch.int64, device=dev)
-    return state._replace(free_cores=free, gamma_uf=g_uf, gamma_nuf=g_nuf,
-                          res_peak=res), servers
+    return state._replace(
+        free_cores=free, gamma_uf=g_uf, gamma_nuf=g_nuf,
+        res_peak=res[:, :N_RESOURCES].contiguous(),
+        mem_nuf=res[:, N_RESOURCES].contiguous()), servers
 
 
 class SweepCounters(NamedTuple):
@@ -310,11 +323,17 @@ def remove_batch(state: DeviceClusterState, servers, cores, p95_eff, is_uf,
     per_server = segment_sums(
         torch.stack([state.free_cores, state.gamma_uf, state.gamma_nuf], -1),
         srv, torch.stack([cores, -w * uf_f, -w * (1.0 - uf_f)], -1))
+    # the NUF GB slice rides as a fourth column of the chassis sums
+    per_chassis = segment_sums(
+        torch.cat([state.res_peak, state.mem_nuf[:, None]], -1),
+        state.chassis_of[srv],
+        torch.cat([-d, (-mem * (1.0 - uf_f))[:, None]], -1))
     return state._replace(
         free_cores=per_server[:, 0].contiguous(),
         gamma_uf=per_server[:, 1].contiguous(),
         gamma_nuf=per_server[:, 2].contiguous(),
-        res_peak=segment_sums(state.res_peak, state.chassis_of[srv], -d))
+        res_peak=per_chassis[:, :-1].contiguous(),
+        mem_nuf=per_chassis[:, -1].contiguous())
 
 
 def outcome_counters(servers, valid, cores, p95_eff, mem_gb=None) -> dict:

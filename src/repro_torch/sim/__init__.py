@@ -2,7 +2,10 @@
 carried over from `repro.sim`), the cluster scheduler simulation, and
 the chassis power dynamics of the fleet engine.
 
-Front door: build a :class:`SimSpec` and hand it to :func:`simulate`.
+Front door: build a :class:`SimSpec` and hand it to :func:`simulate`;
+its ``emergency``, ``ballooning`` and ``adaptive`` fields take the
+planes' configs (`repro_torch.serve.EmergencyConfig`,
+`BallooningConfig`, `AdaptiveConfig`).
 """
 from repro_torch.sim.scheduler_sim import (GB_PER_CORE, PowerEvalSpec,
                                            PredictionChannel,

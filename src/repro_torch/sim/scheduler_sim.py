@@ -23,11 +23,12 @@ decision oracle) and the `serve` backend (each deployment group through
 `serve.placement.place_batch` on the card, in float64). The random
 stream is the reference's draw for draw, so the same seed gives the same
 arrivals, predictions and decisions. `SimSpec.emergency` drives the
-power-emergency plane (`_EmergencySim`) at every deployment event. Not
-ported yet: the adaptive and ballooning planes (ROADMAP Queue 1 item 9),
-the `serve-sharded` backend (item 10), the observability hooks (item
-11), and the deprecated flat-keyword adapter of the reference's
-`simulate`.
+power-emergency plane (`_EmergencySim`) at every deployment event, with
+`SimSpec.ballooning` its ballooning rung; `SimSpec.adaptive` drives the
+adaptive-ratio controller (`_AdaptiveSim`), whose ratio scales the serve
+backend's watt ceiling. Not ported yet: the `serve-sharded` backend
+(ROADMAP Queue 1 item 10), the observability hooks (item 11), and the
+deprecated flat-keyword adapter of the reference's `simulate`.
 """
 from __future__ import annotations
 
@@ -49,6 +50,8 @@ from repro_torch.sim.fleet import (ServerSpec, VMSpec, build_layout,
                                    stack_layouts)
 
 if TYPE_CHECKING:
+    from repro_torch.serve.adaptive import AdaptiveConfig
+    from repro_torch.serve.ballooning import BallooningConfig
     from repro_torch.serve.emergency import EmergencyConfig
 
 CORES_PER_BLADE = 40            # Table I: 2 x 20 cores
@@ -163,9 +166,8 @@ class SimSpec:
     configs nest as typed sub-specs instead of a flat kwarg sprawl:
     ``serve`` picks the placement path and budgets, ``power`` the
     post-run capping evaluation, and ``emergency``/``adaptive``/
-    ``ballooning`` the online planes (untyped; those planes are not
-    ported yet, and `simulate` raises `NotImplementedError` when one is
-    set).
+    ``ballooning`` the online planes (ballooning requires emergency, and
+    adaptive a serve backend).
     """
     days: float = 30.0
     seed: int = 0
@@ -176,8 +178,8 @@ class SimSpec:
     serve: ServeBackendSpec = field(default_factory=ServeBackendSpec)
     power: PowerEvalSpec | None = None
     emergency: EmergencyConfig | None = None
-    adaptive: object | None = None
-    ballooning: object | None = None
+    adaptive: AdaptiveConfig | None = None
+    ballooning: BallooningConfig | None = None
 
     def __post_init__(self):
         if not self.days > 0:
@@ -345,50 +347,73 @@ def _sample_deployment_size(rng):
 SERVE_GROUP_PAD = 64
 
 
+def _rho_levels(state, chassis_of: np.ndarray, n_chassis: int) -> np.ndarray:
+    """(C, L) committed p95*cores per chassis and criticality level of a
+    host `ClusterState` (non-critical level first)."""
+    return np.stack(
+        [np.bincount(chassis_of, weights=state.gamma_nuf,
+                     minlength=n_chassis),
+         np.bincount(chassis_of, weights=state.gamma_uf,
+                     minlength=n_chassis)], axis=-1)
+
+
+def _check_twin(oracle, twin, what: str) -> None:
+    """Raise unless every field of the torch twin's state is bit-equal to
+    the numpy oracle's."""
+    for name, a, b in zip(oracle._fields, oracle, twin):
+        if not np.array_equal(a, b.cpu().numpy()):
+            raise RuntimeError(
+                f"{what} twin diverged from the numpy oracle in {name}")
+
+
 class _EmergencySim:
     """The power-emergency plane driven inside `simulate`.
 
     Holds one fleet-wide float64 `serve.emergency.EmergencyState` and
     steps it at every deployment event: the committed per-criticality
     aggregates, scaled by the deterministic diurnal utilization sample
-    (`sim.telemetry.diurnal_util`), give each chassis' power sample; the
-    alarm and apportionment step consumes them; chassis whose critical
-    level dwells capped past the threshold get a migration plan
-    (`serve.mitigation`) applied to the cluster state as paired moves.
+    (`sim.telemetry.diurnal_util`), give each chassis' power sample; with
+    a `BallooningConfig` the ballooning rung absorbs first what the NUF
+    floor cannot; the alarm and apportionment step consumes the samples;
+    chassis whose critical level dwells capped past the threshold get a
+    migration plan (`serve.mitigation`) applied to the cluster state as
+    paired moves.
 
     The numpy oracle decides. With a `device` (the serve backend) every
-    scan also steps the torch twin there in float64 and raises unless it
-    is bit-equal to the oracle: the acceptance invariant, checked on
-    every scan. The samples are a pure function of simulation time, so
+    scan also steps the torch twins there in float64 and raises unless
+    they are bit-equal to the oracle: the acceptance invariant, checked
+    on every scan. The samples are a pure function of simulation time, so
     the emergency trace is the same for every backend."""
 
     def __init__(self, cfg: EmergencyConfig, n_chassis: int,
-                 chassis_of: np.ndarray, device=None):
+                 chassis_of: np.ndarray, device=None,
+                 bcfg: BallooningConfig | None = None):
         # `repro_torch.serve` imports this package's telemetry, so the
         # plane's modules are imported when a plane is built
-        from repro_torch.serve import emergency, mitigation
-        self.emg, self.mit = emergency, mitigation
+        from repro_torch.serve import ballooning, emergency, mitigation
+        self.emg, self.mit, self.bal = emergency, mitigation, ballooning
         self.cfg = cfg
+        self.bcfg = bcfg
         self.n_chassis = n_chassis
         self.chassis_of = chassis_of
         self.device = device
         self.st = emergency.init_emergency_np(n_chassis, dtype=np.float64)
+        self.bst = None if bcfg is None else \
+            ballooning.init_ballooning_np(n_chassis, dtype=np.float64)
         self.alarms = 0
         self.migrations = 0
+        self.balloon_events = 0
+        self.balloon_reclaimed_gb = 0.0
 
     def _rho_lv(self, state) -> np.ndarray:
-        c = self.n_chassis
-        return np.stack(
-            [np.bincount(self.chassis_of, weights=state.gamma_nuf,
-                         minlength=c),
-             np.bincount(self.chassis_of, weights=state.gamma_uf,
-                         minlength=c)], axis=-1)
+        return _rho_levels(state, self.chassis_of, self.n_chassis)
 
     def scan(self, t_h: float, state, vm_live: dict,
-             mem_chassis: np.ndarray = None,
+             mem_nuf: np.ndarray = None, mem_chassis: np.ndarray = None,
              gb_cap: np.ndarray = None) -> None:
         """One emergency scan at simulation time `t_h` (hours).
-        `mem_chassis`: (C,) committed GB, the migration planner's GB-fit
+        `mem_nuf`/`mem_chassis`: (C,) committed GB (NUF slice and total),
+        the ballooning rung's headroom and the migration planner's GB-fit
         ledger; `gb_cap`: (C,) chassis GB capacity (None disables the
         destination GB-fit check)."""
         emg = self.emg
@@ -401,20 +426,37 @@ class _EmergencySim:
             np.zeros(self.n_chassis, bool)))
         pw, mask, ts = emg.scatter_samples_np(self.n_chassis, idx, power,
                                               stamps, np.float64)
-        st2, out = emg.masked_step_np(self.cfg, self.st, rho_lv, pw, mask,
-                                      ts)
+        # ballooning rung: absorb the deficit the NUF floor cannot, by
+        # powering NUF DRAM down, before the capping step reads the sample
+        bst2 = bout = None
+        pw_step = pw
+        nuf = np.zeros(self.n_chassis) if mem_nuf is None else mem_nuf
+        if self.bst is not None:
+            bst2, bout = self.bal.balloon_step_np(
+                self.bcfg, self.cfg, self.bst, rho_lv, pw, nuf, mask)
+            pw_step = bout.power_adj_w
+        st2, out = emg.masked_step_np(self.cfg, self.st, rho_lv, pw_step,
+                                      mask, ts)
         if self.device is not None:
             def dev(a):
                 return torch.as_tensor(a, device=self.device)
+            pw_twin = dev(pw)
+            if self.bst is not None:
+                bst_twin, bout_twin = self.bal.balloon_step(
+                    self.bcfg, self.cfg,
+                    self.bal.state_to_torch(self.bst, self.device),
+                    dev(rho_lv), pw_twin, dev(nuf), dev(mask))
+                _check_twin(bst2, bst_twin, "ballooning")
+                pw_twin = bout_twin.power_adj_w
             twin, _ = emg.masked_step(
                 self.cfg, emg.state_to_torch(self.st, self.device),
-                dev(rho_lv), dev(pw), dev(mask), dev(ts))
-            for name, a, b in zip(st2._fields, st2, twin):
-                if not np.array_equal(a, b.cpu().numpy()):
-                    raise RuntimeError(
-                        f"emergency twin diverged from the numpy oracle "
-                        f"in {name}")
+                dev(rho_lv), pw_twin, dev(mask), dev(ts))
+            _check_twin(st2, twin, "emergency")
         self.st = st2
+        if bst2 is not None:
+            self.bst = bst2
+            self.balloon_events += int(bout.inflated.sum())
+            self.balloon_reclaimed_gb += float(bout.reclaimed_gb.sum())
         self.alarms += int(out.alarm.sum())
         # no chassis past the alarm window may exceed its budget when the
         # cut was achievable within the floors (the RAPL-leftover rows
@@ -464,12 +506,67 @@ class _EmergencySim:
         self.st = emg.reset_dwell_np(self.st, due)
 
 
+class _AdaptiveSim:
+    """The adaptive-ratio controller driven inside `simulate`.
+
+    Holds one fleet-wide float64 `serve.adaptive.AdaptiveState` and steps
+    it at every deployment event from the same diurnal samples the
+    emergency plane reads, through `serve.adaptive.offered_power`. The
+    ratio scales the serve backend's watt ceiling for the next placement
+    scan: closed loop, one scan behind, like the pipeline's eager
+    stepping. The numpy oracle decides; with a `device` every scan also
+    steps the torch twin there and raises unless it is bit-equal."""
+
+    def __init__(self, cfg: AdaptiveConfig, n_chassis: int,
+                 chassis_of: np.ndarray, device=None):
+        from repro_torch.serve import adaptive
+        self.adp = adaptive
+        self.cfg = cfg
+        self.n_chassis = n_chassis
+        self.chassis_of = chassis_of
+        self.device = device
+        self.st = adaptive.init_adaptive_np(cfg, n_chassis,
+                                            dtype=np.float64)
+
+    def _rho_lv(self, state) -> np.ndarray:
+        return _rho_levels(state, self.chassis_of, self.n_chassis)
+
+    @property
+    def ratio(self) -> float:
+        """Current fleet oversubscription ratio (starts at 1.0)."""
+        return float(self.st.ratio)
+
+    @property
+    def ratchets(self) -> int:
+        """Up-steps taken so far."""
+        return int(self.st.ratchets)
+
+    @property
+    def backoffs(self) -> int:
+        """Down-steps taken so far."""
+        return int(self.st.backoffs)
+
+    def scan(self, t_h: float, state) -> None:
+        """One controller scan at simulation time `t_h` (hours)."""
+        adp = self.adp
+        u = float(tel.diurnal_util(t_h))
+        rho_lv = self._rho_lv(state)
+        power = np.asarray(adp.offered_power(self.cfg, rho_lv, u))
+        mask = np.ones(self.n_chassis, bool)
+        st2, _ = adp.adaptive_step_np(self.cfg, self.st, rho_lv, power,
+                                      mask)
+        if self.device is not None:
+            def dev(a):
+                return torch.as_tensor(a, device=self.device)
+            twin, _ = adp.adaptive_step(
+                self.cfg, adp.state_to_torch(self.st, self.device),
+                dev(rho_lv), dev(power), dev(mask))
+            _check_twin(st2, twin, "adaptive")
+        self.st = st2
+
+
 def _unported(spec: SimSpec, obs) -> None:
-    """Raise for the planes of later slices, naming their ROADMAP item."""
-    for name in ("adaptive", "ballooning"):
-        if getattr(spec, name) is not None:
-            raise NotImplementedError(
-                f"SimSpec.{name} is not ported yet (ROADMAP Queue 1 item 9)")
+    """Raise for the parts of later slices, naming their ROADMAP item."""
     if spec.serve.backend == "serve-sharded":
         raise NotImplementedError(
             "backend='serve-sharded' is not ported yet (ROADMAP Queue 1 "
@@ -519,15 +616,23 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
     `spec.emergency` steps the power-emergency plane before each
     deployment group (`_EmergencySim`; on the serve backend its torch
     twin also runs on `device`, held bit-equal to the numpy oracle) and
-    fills `SimMetrics.throttled_s`, `alarms` and `migrations`.
+    fills `SimMetrics.throttled_s`, `alarms` and `migrations`;
+    `spec.ballooning` adds the ballooning rung in front of it (the
+    `balloon_*` fields). `spec.adaptive` needs a serve backend: it steps
+    the adaptive controller (`_AdaptiveSim`, its twin checked the same
+    way) after the emergency scan, and its ratio scales the watt ceiling
+    of the group's placement (the `adaptive_*` fields).
 
-    `spec.adaptive`, `spec.ballooning`, the 'serve-sharded' backend and
-    `obs` raise `NotImplementedError`: those planes belong to later
-    parts of the port."""
+    The 'serve-sharded' backend and `obs` raise `NotImplementedError`:
+    they belong to later parts of the port."""
     spec = spec if spec is not None else SimSpec()
     _unported(spec, obs)
     sv = spec.serve
     backend_name = sv.backend
+    if spec.adaptive is not None and backend_name == "event":
+        # the controller scales the serve admission ceiling; the event
+        # rule has none, so a ratio there would bind nothing
+        raise ValueError("SimSpec.adaptive requires a serve backend")
     if sv.ingest_hosts != 1:
         raise ValueError(
             f"ingest_hosts={sv.ingest_hosts} requires "
@@ -550,8 +655,10 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         n_servers=n_servers, cores_per_server=CORES_PER_BLADE,
         chassis_of_server=chassis_of,
         n_chassis=n_servers // BLADES_PER_CHASSIS)
-    # committed-GB ledger per chassis: the joint admission's memory view
+    # committed-GB ledgers per chassis (total and NUF slice): the joint
+    # admission's, the ballooning rung's and the planner's memory view
     mem_chassis = np.zeros(state.n_chassis)
+    mem_nuf_chassis = np.zeros(state.n_chassis)
     gb_cap = None
     if serving:
         serve_res_cap = resource_caps_from_budget(
@@ -562,7 +669,12 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
     emer = None
     if spec.emergency is not None:
         emer = _EmergencySim(spec.emergency, state.n_chassis, chassis_of,
-                             device=dev if serving else None)
+                             device=dev if serving else None,
+                             bcfg=spec.ballooning)
+    adp = None
+    if spec.adaptive is not None:
+        adp = _AdaptiveSim(spec.adaptive, state.n_chassis, chassis_of,
+                           device=dev)
     departures: list = []        # heap of (time, vm_token)
     # token -> (server, cores, p95eff, uf_pred, mem_gb)
     vm_live: dict = {}
@@ -605,6 +717,8 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         mem = cores * GB_PER_CORE
         state.place(srv, cores, p95_eff, uf_pred)
         mem_chassis[chassis_of[srv]] += mem
+        if not uf_pred:
+            mem_nuf_chassis[chassis_of[srv]] += mem
         vm_live[token] = (srv, cores, p95_eff, uf_pred, mem)
         heapq.heappush(departures, (life_h, token))
         token += 1
@@ -622,6 +736,8 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
             srv, cores, p95e, ufp, mem = vm_live.pop(tok)
             state.remove(srv, cores, p95e, ufp)
             mem_chassis[chassis_of[srv]] -= mem
+            if not ufp:
+                mem_nuf_chassis[chassis_of[srv]] -= mem
         while next_sample <= t and next_sample < horizon:
             busy = state.free_cores < CORES_PER_BLADE
             empty_samples.append(1.0 - busy.mean())
@@ -631,8 +747,10 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         if t >= horizon:
             break
         if emer is not None:
-            emer.scan(t, state, vm_live, mem_chassis=mem_chassis,
-                      gb_cap=gb_cap)
+            emer.scan(t, state, vm_live, mem_nuf=mem_nuf_chassis,
+                      mem_chassis=mem_chassis, gb_cap=gb_cap)
+        if adp is not None:
+            adp.scan(t, state)
         # sample the whole deployment group first (placement consumes
         # no randomness, so both backends see the same stream), then
         # place per-VM (event) or via one batched call (serve)
@@ -657,16 +775,20 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
                 cores_a[k], uf_a[k], p95_a[k] = cores, ufp, p95e
             mem_a = cores_a * GB_PER_CORE
             valid = np.arange(SERVE_GROUP_PAD) < n
-            # the diurnal ratchet widens the cores/GB ceilings in the
-            # trough (watts never ratchet — the breaker limit is
-            # physical); the multiply stays in float32 like the
-            # reference's, so a watt-only budget decides as it does
+            # the controller's ratio (stepped just above, one scan behind)
+            # scales the watt ceilings for this group's placement, and
+            # the diurnal ratchet the cores/GB ceilings in the trough
+            # (watts never ratchet: the breaker limit is physical); the
+            # multiply stays in float32 like the reference's, so a
+            # watt-only budget decides as it does
+            ratio = 1.0 if adp is None else adp.ratio
             rrat = trough_ratios(float(tel.diurnal_util(t))) \
                 if sv.diurnal_ratchet else np.ones(N_RESOURCES)
-            cap_mult = np.asarray([1.0, rrat[1], rrat[2]], np.float32)
+            cap_mult = np.asarray([ratio, rrat[1], rrat[2]], np.float32)
             _, srvs = place_batch(
                 device_state(state, torch.float64, device=dev,
-                             mem_gb=mem_chassis), cores_a,
+                             mem_gb=mem_chassis, mem_nuf=mem_nuf_chassis),
+                cores_a,
                 uf_a.astype(bool), p95_a, valid, serve_res_cap * cap_mult,
                 policy, state.cores_per_server, mem_gb=mem_a)
             chosen = [int(s) for s in srvs.cpu().numpy()[:n]]
@@ -682,6 +804,8 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
             mem = cores * GB_PER_CORE
             state.place(srv, cores, p95_eff, uf_pred)
             mem_chassis[chassis_of[srv]] += mem
+            if not uf_pred:
+                mem_nuf_chassis[chassis_of[srv]] += mem
             vm_live[token] = (srv, cores, p95_eff, uf_pred, mem)
             heapq.heappush(departures, (t + life_h, token))
             token += 1
@@ -703,6 +827,14 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         else np.asarray(emer.emg.throttled_by_level(emer.st), np.float64),
         alarms=0 if emer is None else emer.alarms,
         migrations=0 if emer is None else emer.migrations,
+        balloon_events=0 if emer is None else emer.balloon_events,
+        balloon_reclaimed_gb=0.0 if emer is None
+        else emer.balloon_reclaimed_gb,
+        ballooned_gb=0.0 if emer is None or emer.bst is None
+        else float(np.asarray(emer.bst.ballooned_gb).sum()),
+        adaptive_ratio=1.0 if adp is None else adp.ratio,
+        adaptive_ratchets=0 if adp is None else adp.ratchets,
+        adaptive_backoffs=0 if adp is None else adp.backoffs,
         crit_confusion=crit_cm, p95_confusion=p95_cm)
 
 

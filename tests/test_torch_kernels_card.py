@@ -18,7 +18,9 @@ The streamed serving loop (`submit_to`, `depart_to`, `cap_to`, `flush`
 with the power-emergency plane) runs on the card at a small width: its
 decisions, alarms and throttled-seconds must equal the same stream on the
 CPU, the forest kernel must carry every micro-batch, and a second run must
-be bit-equal to the first (departures sum in a fixed order).
+be bit-equal to the first (departures sum in a fixed order). The same holds
+with the ballooning rung and the adaptive controller on as well, where the
+rung must fire and the controller ratchet and back off.
 
 Bars: forest leaf indices exact, sums within 1e-5 per tree of the plain
 version and bit-equal to its emulated summation order; template scores
@@ -244,3 +246,125 @@ def test_streamed_serve_with_emergencies_matches_cpu(cuda):
         torch.testing.assert_close(getattr(card.state, f).cpu(),
                                    getattr(cpu.state, f), rtol=1e-6,
                                    atol=0)
+
+
+#: Utilization of each sweep of the two-plane stream: calm and rising (the
+#: adaptive controller ratchets), hot (it backs off, and the hot chassis'
+#: cuts reach past the NUF floor, so the ballooning rung fires), calm.
+PLANE_UTILS = [0.40, 0.41, 0.42, 0.43, 0.44, 0.45, 0.95, 0.95,
+               0.40, 0.40, 0.40, 0.40, 0.40, 0.40]
+
+
+def _planes_run(world, device, hosts, samples=None):
+    """The streamed loop with the emergency plane, its ballooning rung and
+    the adaptive controller: arrival chunks dealt over `hosts`, departures
+    (with their GB) of the admitted rows two chunks back, and after every
+    chunk two sweeps of every chassis. Sweep powers are `samples` when
+    given, else `sampled_power` at the next PLANE_UTILS value on the live
+    aggregates. Returns the pipeline, the results, the samples and the
+    most GB ballooned out after any sweep."""
+    from repro_torch.serve import (AdaptiveConfig, BallooningConfig,
+                                   EmergencyConfig, PlaneBundle,
+                                   ServeConfig, ServePipeline, emergency)
+    from repro_torch.sim.telemetry import arrival_batch, arrival_stamps
+    svc, hist, labels, arrivals = world
+    ecfg = EmergencyConfig.from_model(1560.0)
+    pipe = ServePipeline.from_history(
+        svc, hist, labels, n_servers=48, cores_per_server=40,
+        blades_per_chassis=12, device=device, config=ServeConfig(
+            batch_size=32, n_ingest_hosts=hosts, planes=PlaneBundle(
+                emergency=ecfg, ballooning=BallooningConfig(),
+                adaptive=AdaptiveConfig(window=8, min_history=3,
+                                        hot_util=0.63, step_up=0.15,
+                                        step_down=0.5, ratio_max=3.0))))
+    n = 16 * len(PLANE_UTILS)
+    stamps = arrival_stamps(n)
+    cores = np.array([v.cores for v in arrivals.vms], np.float32)
+    mem = np.array([v.memory_gb for v in arrivals.vms], np.float32)
+    res, swept, ballooned = [], [], []
+    for k in range(n // 32):
+        idx = np.arange(32 * k, 32 * (k + 1))
+        for h in range(hosts):
+            rows = idx[idx % hosts == h]
+            res += pipe.submit_to(h, arrival_batch(arrivals, rows),
+                                  t=stamps[rows])
+        t_end = stamps[idx[-1]]
+        if k >= 2:
+            r = res[k - 2]
+            rows = np.flatnonzero(r.server >= 0)[::2]
+            res += pipe.depart_to(
+                k % hosts, r.server[rows], cores[32 * (k - 2) + rows],
+                r.p95_eff[rows], r.workload_type[rows] == 1,
+                mem_gb=mem[32 * (k - 2) + rows],
+                t=t_end + 0.25 + 1e-6 * np.arange(len(rows)))
+        for j in range(2):
+            if samples is None:
+                st = pipe.state
+                rho = emergency.chassis_rho_levels(
+                    st.gamma_nuf, st.gamma_uf, st.chassis_servers)
+                power = emergency.sampled_power(
+                    ecfg, rho, PLANE_UTILS[len(swept)],
+                    torch.zeros(rho.shape, dtype=torch.int32, device=device),
+                    torch.zeros(4, dtype=torch.bool, device=device)) \
+                    .cpu().numpy()
+            else:
+                power = samples[len(swept)]
+            swept.append(power)
+            res += pipe.cap_to((k + j + 1) % hosts, np.arange(4), power,
+                               t=t_end + 0.5 + 0.1 * j
+                               + np.arange(1, 5) * 1e-7)
+            ballooned.append(pipe.ballooned_gb())
+    tail = pipe.flush()
+    res += [] if tail is None else [tail]
+    return pipe, res, swept, max(ballooned)
+
+
+@pytest.mark.cuda
+def test_streamed_serve_with_both_planes_matches_cpu(cuda):
+    """Ballooning and the adaptive controller on the card: decisions,
+    alarms, throttled-seconds and the controller state equal the same
+    stream (same sweep powers) on the CPU and at 4 hosts; a second card
+    run is bit-equal; the rung fires and the ratio both ratchets and
+    backs off."""
+    world = _stream_world()
+    reset_launches()
+    card, res, samples, peak_gb = _planes_run(world, cuda, hosts=1)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["forest"] == len(res)
+    runs = [_planes_run(world, "cpu", 1, samples),
+            _planes_run(world, cuda, 4, samples),
+            _planes_run(world, cuda, 1)]
+    st = card.adaptive_state
+    assert int(st.ratchets) > 0 and int(st.backoffs) > 0
+    assert card.alarms > 0 and peak_gb > 0
+    for other, other_res, _, _ in runs:
+        assert other.alarms == card.alarms
+        np.testing.assert_array_equal(other.throttled_by_level(),
+                                      card.throttled_by_level())
+        for a, b in zip(res, other_res, strict=True):
+            np.testing.assert_array_equal(a.server, b.server)
+            np.testing.assert_array_equal(a.conservative, b.conservative)
+        for f in ("count", "head", "ratio", "ratchets", "backoffs"):
+            assert torch.equal(getattr(st, f).cpu(),
+                               getattr(other.adaptive_state, f).cpu()), f
+    # the CPU's aggregates may differ from the card's in the last float32
+    # bit (as in the emergency-only stream above), and the windows and
+    # balloons read them; two card runs are bit-equal
+    cpu = runs[0][0]
+    torch.testing.assert_close(cpu.adaptive_state.util, st.util.cpu(),
+                               rtol=1e-6, atol=0)
+    torch.testing.assert_close(cpu.balloon_state.ballooned_gb,
+                               card.balloon_state.ballooned_gb.cpu(),
+                               rtol=1e-6, atol=1e-6)
+    assert runs[0][3] == pytest.approx(peak_gb, rel=1e-6)
+    again = runs[2]
+    assert all(np.array_equal(a, b) for a, b in zip(again[2], samples))
+    assert again[3] == peak_gb
+    for pipe in (runs[1][0], again[0]):
+        for f in ("free_cores", "gamma_uf", "gamma_nuf", "res_peak",
+                  "mem_nuf"):
+            assert torch.equal(getattr(card.state, f),
+                               getattr(pipe.state, f)), f
+        assert torch.equal(card.balloon_state.ballooned_gb,
+                           pipe.balloon_state.ballooned_gb)
+        assert torch.equal(st.util, pipe.adaptive_state.util)

@@ -103,6 +103,53 @@ def test_streamed_and_emergency_entry_points_default_to_the_card(no_cuda):
     assert event.placements > 0
 
 
+def test_mitigation_and_evaluation_entry_points_default_to_the_card(
+        no_cuda):
+    """The ballooning and adaptive twins' states, a pipeline with both
+    planes, the Table II baselines and the example twins live on the card
+    unless asked for the CPU; the numpy oracles and the CLI need no
+    device."""
+    from repro_torch.core import baselines
+    from repro_torch.examples import datacenter_sim, quickstart
+    from repro_torch.launch import oversubscribe
+    from repro_torch.serve import (AdaptiveConfig, BallooningConfig,
+                                   EmergencyConfig, PlaneBundle, ServeConfig,
+                                   adaptive, ballooning)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ballooning.init_ballooning(3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        adaptive.init_adaptive(AdaptiveConfig(), 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        baselines.fft_score(np.ones((2, 240), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        baselines.acf_score(np.ones((2, 240), np.float32))
+    for mod in (quickstart, datacenter_sim):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main()
+    pop = generate_population(30, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServePipeline.from_history(
+            None, pop, np.zeros(30), n_servers=12, cores_per_server=40,
+            blades_per_chassis=12, config=ServeConfig(planes=PlaneBundle(
+                emergency=EmergencyConfig.from_model(1860.0),
+                ballooning=BallooningConfig(), adaptive=AdaptiveConfig())))
+    spec = scheduler_sim.SimSpec(
+        days=0.05, adaptive=AdaptiveConfig(),
+        serve=scheduler_sim.ServeBackendSpec(backend="serve"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scheduler_sim.simulate(SchedulerPolicy(),
+                               scheduler_sim.PredictionChannel(), spec)
+    assert ballooning.init_ballooning(3, device="cpu").ballooned_gb.is_cpu
+    assert adaptive.init_adaptive_np(AdaptiveConfig(), 3).count.shape == (3,)
+    event = scheduler_sim.simulate(
+        SchedulerPolicy(), scheduler_sim.PredictionChannel(),
+        scheduler_sim.SimSpec(
+            days=0.05, emergency=EmergencyConfig.from_model(1480.0),
+            ballooning=BallooningConfig()))
+    assert event.placements > 0
+    assert oversubscribe.main(["--chassis", "2", "--days", "1"]).budget_w > 0
+
+
 def test_cuda_kernel_on_cpu_tensor_raises():
     x = torch.zeros(4, 18)
     with pytest.raises(ValueError, match="CUDA"):
@@ -155,7 +202,12 @@ def test_import_without_jax():
             "repro_torch.core.capping, repro_torch.core.oversubscription, "
             "repro_torch.runtime.power_control, repro_torch.serve.ingest, "
             "repro_torch.serve.emergency, repro_torch.serve.mitigation, "
-            "repro_torch.serve.pipeline, repro_torch.sim.scheduler_sim; "
+            "repro_torch.serve.pipeline, repro_torch.sim.scheduler_sim, "
+            "repro_torch.serve.ballooning, repro_torch.serve.adaptive, "
+            "repro_torch.core.priority, repro_torch.core.baselines, "
+            "repro_torch.core.predictor, repro_torch.launch.oversubscribe, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.datacenter_sim; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

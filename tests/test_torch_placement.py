@@ -246,7 +246,7 @@ def _loaded(cls, seed, n=36, per=12, cps=40, vms=160):
 
 
 def _assert_device_states_equal(got, want, what):
-    for f in ("free_cores", "gamma_uf", "gamma_nuf", "res_peak"):
+    for f in ("free_cores", "gamma_uf", "gamma_nuf", "res_peak", "mem_nuf"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)),
                                       err_msg=f"{what}: {f}")

@@ -160,22 +160,16 @@ def test_power_evaluation_matches_reference():
     assert np.abs(got.alert_frac - want.alert_frac).max() <= 0.01
 
 
-@pytest.mark.parametrize("plane", ["adaptive", "ballooning",
-                                   "serve-sharded", "obs"])
+@pytest.mark.parametrize("plane", ["serve-sharded", "obs"])
 def test_unported_planes_raise(plane):
-    """The planes of later slices raise, naming their ROADMAP item."""
-    item = {"serve-sharded": "item 10", "obs": "item 11"}.get(plane,
-                                                              "item 9")
+    """The parts of later slices raise, naming their ROADMAP item."""
+    item = {"serve-sharded": "item 10", "obs": "item 11"}[plane]
     spec, obs = S.SimSpec(days=0.1), None
     if plane == "serve-sharded":
         spec = S.SimSpec(days=0.1, serve=S.ServeBackendSpec(
             backend="serve-sharded"))
-    elif plane == "obs":
-        obs = object()
-    elif plane == "ballooning":
-        spec = S.SimSpec(days=0.1, emergency=object(), ballooning=object())
     else:
-        spec = S.SimSpec(days=0.1, **{plane: object()})
+        obs = object()
     with pytest.raises(NotImplementedError, match=item):
         S.simulate(SchedulerPolicy(), S.PredictionChannel(), spec, obs=obs,
                    device="cpu")

@@ -164,8 +164,7 @@ def test_hot_swap_and_observe(world, rserve):
     assert pipe.serve(batch).server.shape == (40,)
 
 
-@pytest.mark.parametrize("plane", ["cluster_budget", "adaptive",
-                                   "ballooning", "obs"])
+@pytest.mark.parametrize("plane", ["cluster_budget", "obs"])
 def test_unported_planes_raise(plane):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PlaneBundle(**{plane: object()})
