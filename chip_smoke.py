@@ -71,7 +71,21 @@ rows; flash and SSD in bf16), and drives the port's two paths:
   `sim_adaptive`), the ballooning and adaptive twins stepped and checked
   on the card at every scan, every field against its target (the
   recorded BENCH_serve_resources.json arm; the reference's own output
-  for the adaptive arm cut to SIM_ADAPTIVE's 0.5 days).
+  for the adaptive arm cut to SIM_ADAPTIVE's 0.5 days);
+- sharded serving (`sharded_serve`, `sharded_planes`, `sim_sharded`): the
+  serving cell through `ShardedServePipeline` at 1, 2 and 4 shards (1
+  shard gives the main path's decisions and final state bit for bit; 2
+  and 4 shards the CPU's decisions and a repeated card run's bits) and at
+  4 shards under a cluster budget of 80 % of the rho 1 shard admitted
+  (the pools hold the budget, run out, spill and account for every
+  admission); the streamed cell with both planes at 4 shards over 1,024
+  arrivals, at 1 and 4 hosts and on the CPU, and at 1 shard against the
+  unsharded pipeline; the Fig 7 simulation on the serve-sharded backend
+  (1 shard gives the event trace; 4 shards on the CPU the card's trace;
+  the reference test's cluster budget rejects with every group's token
+  conservation check holding), with arrivals/s, launches per arrival
+  (the sharded serving runs profiled whole, spills included) and the
+  device idle share.
 
 It also builds the serving cell's history table twice and serves the
 arrivals twice, and checks the tables bit-equal and the decisions equal
@@ -153,10 +167,11 @@ T4_LOADS, T4_FLOORS = (1.0, 0.9, 0.8), (0.5, 0.6, 0.75)
 #: The Fig 7 run's length, cut from the reference test's 4 days to keep
 #: the whole script near 500 s.
 SIM_DAYS = 1.0
-#: The profiled serve-backend run of the Fig 7 phase, at PR 16's length:
-#: its launches per arrival move with the run's length, so a shorter run
-#: would not compare with earlier readings.
-SIM_PROFILE_DAYS = 0.25
+#: The profiled serve-backend run of the Fig 7 phase. Its launches per
+#: arrival move with the run's length (~900 over 0.1 days, ~690 over
+#: 0.25), and the profiler costs ~0.7 ms a launch: 0.25 days took 145 s
+#: of the script, 0.1 days ~22 s.
+SIM_PROFILE_DAYS = 0.1
 TIGHT_BUDGET_W = 12 * 112.0 + 60.0
 
 
@@ -426,8 +441,10 @@ def device_profile(fn, traced=None, kernels=()) -> dict:
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the card's activity alone: it holds the kernels and the runtime's
+    # launch calls, and skips recording every host operator, which costs
+    # more than the launch it wraps on the long runs
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         (traced or fn)()
         torch.cuda.synchronize()
     events = prof.key_averages()
@@ -1144,6 +1161,9 @@ STREAM_HOSTS = (1, 4)
 DEPART_EVERY, SWEEP_EVERY, SWEEP_UTIL = 4, 4, 0.85
 EMERGENCY_BUDGET_W = 12 * 310.0 / 2.0
 STREAM_DWELL_S, MIGRATE_AFTER = 600.0, 4
+#: Micro-batches of the streamed cell's profiled run (its idle share);
+#: each costs the profiler ~14 s.
+STREAM_PROFILE_BATCHES = 2
 WARM_EVERY, WARM_OCCUPANCY, WARM_UF = 3, 0.7, 0.7
 #: The reference benchmark's 2x emergency sim (benchmarks/serve_emergency.py)
 #: and its record (BENCH_serve_emergency.json, `throttled_2x`).
@@ -1189,27 +1209,31 @@ def warm_cluster(seed: int):
 
 
 def _stream_pipeline(run, hist, labels, budget_w, warm_state, warm, hosts,
-                     device, **planes):
+                     device, shards=None, **planes):
     """A streamed-cell pipeline on `device` over the warm cluster, its GB
     ledger (total and NUF slice) seeded from the warm VMs, with the
-    `PlaneBundle` fields given in `planes`."""
+    `PlaneBundle` fields given in `planes`; a `ShardedServePipeline` of
+    `shards` shards when given."""
     from repro_torch.serve import (PlaneBundle, ResourceVector, ServeConfig,
-                                   ServePipeline, device_state)
-    pipe = ServePipeline.from_history(
-        run["svc"], hist, labels, n_servers=N_SERVERS,
-        cores_per_server=CORES, blades_per_chassis=BLADES, device=device,
-        config=ServeConfig(batch_size=BATCH, n_ingest_hosts=hosts,
-                           planes=PlaneBundle(
-                               chassis_budget=ResourceVector(watts=budget_w),
-                               **planes)))
+                                   ServePipeline, ShardedServeConfig,
+                                   ShardedServePipeline, device_state,
+                                   table_from_history)
     chassis = warm[0] // BLADES
     n_chassis = N_SERVERS // BLADES
-    pipe.state = device_state(
+    state = device_state(
         warm_state, device=device,
         mem_gb=np.bincount(chassis, weights=warm[4], minlength=n_chassis),
         mem_nuf=np.bincount(chassis, weights=warm[4] * ~warm[3],
                             minlength=n_chassis))
-    return pipe
+    table = table_from_history(
+        hist, labels, max(v.subscription for v in hist.vms) + 1024, device)
+    cls, cfg, extra = (ServePipeline, ServeConfig, {}) if shards is None \
+        else (ShardedServePipeline, ShardedServeConfig, {"n_shards": shards})
+    return cls(run["svc"], table, state, CORES, blades_per_chassis=BLADES,
+               config=cfg(batch_size=BATCH, n_ingest_hosts=hosts,
+                          planes=PlaneBundle(
+                              chassis_budget=ResourceVector(watts=budget_w),
+                              **planes), **extra))
 
 
 def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None,
@@ -1355,7 +1379,8 @@ def _balloon_need(pipe, power) -> dict:
     headroom."""
     from repro_torch.serve import ballooning, emergency
     st, bcfg = pipe.state, pipe.config.planes.ballooning
-    ballooned = pipe.balloon_state.ballooned_gb.double().cpu().numpy()
+    ballooned = pipe.balloon_state.ballooned_gb.double().cpu().numpy() \
+        .reshape(-1)
     rho = emergency.chassis_rho_levels_np(
         st.gamma_nuf.double().cpu().numpy(),
         st.gamma_uf.double().cpu().numpy(), st.chassis_servers.cpu().numpy())
@@ -1466,8 +1491,8 @@ def streamed_serve(run, hist, arrivals, budget_w: float, seed: int,
     per_window = launches_of(lambda: (
         pipe.cap_to(0, chassis, power, t=stamps[1, -1] + 0.5
                     + (chassis + 1) * 1e-7), pipe.alarms))
-    seg = [_rows(batch, np.arange(i * 4 * BATCH, (i + 1) * 4 * BATCH))
-           for i in range(2)]
+    n = STREAM_PROFILE_BATCHES * BATCH
+    seg = [_rows(batch, np.arange(i * n, (i + 1) * n)) for i in range(2)]
     prof = device_profile(
         lambda: streamed(pipeline(1, True, labels), seg[0], 1, True, warm),
         lambda: streamed(pipeline(1, True, labels), seg[1], 1, True, warm))
@@ -1495,8 +1520,8 @@ def streamed_serve(run, hist, arrivals, budget_w: float, seed: int,
         "launches_per_fused_micro_batch": per_fused,
         "launches_per_cap_window": per_window,
         "launches_per_cap_window_fused": per_fused - per_batch,
-        "profile_1024_arrivals": {k: prof[k] for k in (
-            "wall_ms", "device_busy_ms", "device_idle_share", "launches")}}
+        "profile": {"arrivals": n, **{k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share", "launches")}}}
 
 
 def sim_emergency(dev) -> dict:
@@ -1864,6 +1889,436 @@ def sim_arms(dev) -> dict:
     return out
 
 
+#: Sharded serving: the serving cell through `ShardedServePipeline` at
+#: SHARD_COUNTS shards, then at 4 shards under a cluster budget whose token
+#: pool is SHARD_POOL_SHARE of the rho the 1-shard run admitted.
+SHARD_COUNTS = (1, 2, 4)
+SHARD_POOL_SHARE = 0.8
+#: The streamed cell with both planes at PLANE_SHARDS shards over its first
+#: SHARDED_STREAM_BATCHES micro-batches, a sweep after each: calm and
+#: settling (the controllers ratchet), then hot (they back off, and the
+#: rung fires).
+PLANE_SHARDS, SHARDED_STREAM_BATCHES = 4, 4
+SHARDED_PLANES_UTILS = (0.40, 0.41, 0.42, 0.85)
+#: Fig 7 on the serve-sharded backend (alpha 0.8, `ml`, seed 0), its
+#: launches read from a profiled run of SIM_SHARDED_PROFILE_DAYS, and the
+#: cluster budget of the reference's test: a 400-rho token pool.
+SIM_SHARDED_DAYS, SIM_SHARDED_PROFILE_DAYS = 0.25, 0.05
+SIM_TOKEN_RHO = 400.0
+
+
+def _sharded_serve_run(run, hist, budget_w, shards, dev, cluster_w=None,
+                       profiled=False):
+    """The serving cell's arrivals through a fresh `ShardedServePipeline`
+    of `shards` shards on `dev`, in the main path's micro-batches; the
+    cluster budget `cluster_w` (watts) when given; the whole run under the
+    profiler when `profiled`. Returns the pipeline, the per-batch results,
+    the wall, the batch latencies, the arrivals each batch spilled and the
+    profile."""
+    import torch
+    from repro_torch.serve import (PlaneBundle, ResourceVector,
+                                   ShardedServeConfig, ShardedServePipeline)
+    pipe = ShardedServePipeline.from_history(
+        run["svc"], hist, run["labels"], n_servers=N_SERVERS,
+        cores_per_server=CORES, blades_per_chassis=BLADES, device=dev,
+        config=ShardedServeConfig(batch_size=BATCH, n_shards=shards,
+                                  planes=PlaneBundle(
+            chassis_budget=ResourceVector(watts=budget_w),
+            cluster_budget=None if cluster_w is None
+            else ResourceVector(watts=cluster_w))))
+    parts, batch_ms, spilled, prof = [], [], [], None
+
+    def serve_all():
+        for chunk in micro_batches(run["batch"]):
+            t0, before = time.perf_counter(), pipe.spill_info["spilled"]
+            parts.append(pipe.serve(chunk))      # ends in a host fetch
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            spilled.append(pipe.spill_info["spilled"] - before)
+    t_serve = time.perf_counter()
+    if profiled:
+        prof = device_profile(lambda: None, serve_all)
+    else:
+        serve_all()
+    if str(dev) != "cpu":
+        torch.cuda.synchronize()
+    return (pipe, parts, time.perf_counter() - t_serve, batch_ms, spilled,
+            prof)
+
+
+def _outcomes(parts, cores) -> dict:
+    """Decision counts of a served run and the rho it admitted."""
+    servers = np.concatenate([p.server for p in parts])
+    p95 = np.concatenate([p.p95_eff for p in parts]).astype(np.float64)
+    adm = servers >= 0
+    return {"admitted": int(adm.sum()),
+            "capacity_rejected": int((servers == -1).sum()),
+            "power_rejected": int((servers == -2).sum()),
+            "token_rejected": int((servers == -3).sum()),
+            "rho_admitted": float((p95 * cores)[adm].sum())}
+
+
+def sharded_serve(run, hist, budget_w: float, main_servers, main_state,
+                  extra, dev) -> dict:
+    """The serving cell through `ShardedServePipeline` on the card: at 1
+    shard it must give the main path's decisions and final state bit for
+    bit; at 2 and 4 shards a CPU replay (2, and 4 under the budget) and a
+    repeated card run must give the same; at 4 shards under a cluster
+    budget (SHARD_POOL_SHARE of the 1-shard run's admitted rho) the
+    admitted rho stays within the pool, tokens run out, arrivals spill,
+    the pools account for every admission, and when every admitted VM
+    departs they return to the pool. Each timed card run's
+    launch counts read from 0; a forest launch per micro-batch. A
+    repeated run goes under the profiler whole: its launches give
+    launches per arrival and per micro-batch over the run, spills
+    included, and its busy time over the timed run's wall the device idle
+    share. Each run records the arrivals every micro-batch spilled. At 1
+    shard, which never spills, a micro-batch after the cell's (`extra`)."""
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.core.power_model import (F_MAX, ServerPowerModel,
+                                              idle_power)
+    from repro_torch.serve import rho_pool_from_budget
+    cores = run["batch"].cores.astype(np.float64)
+    n_batches = N_ARRIVALS // BATCH
+    out, pipes, runs, results = {}, {}, {}, {}
+
+    def card(name, shards, cluster_w=None, profiled=False):
+        reset_launches()
+        pipe, parts, wall, bm, spilled, prof = _sharded_serve_run(
+            run, hist, budget_w, shards, dev, cluster_w, profiled)
+        launches = dict(KERNEL_LAUNCHES)
+        check(launches["forest"] == len(parts) == n_batches,
+              f"{name}: a forest launch per micro-batch: {launches}")
+        res = _outcomes(parts, cores)
+        check(res["admitted"] + res["capacity_rejected"]
+              + res["power_rejected"] + res["token_rejected"] == N_ARRIVALS,
+              f"{name}: admitted + capacity + power + token == arrivals")
+        out[name] = {**res, "shards": shards, "spill": pipe.spill_info,
+                     "spilled_per_micro_batch": spilled,
+                     "launches": launches}
+        if prof is None:
+            s = sorted(bm)
+            out[name].update(
+                arrivals_per_s=N_ARRIVALS / wall, wall_s=wall,
+                batch_p50_ms=float(np.percentile(s, 50)),
+                batch_p99_ms=float(np.percentile(s, 99)))
+        pipes[name] = pipe
+        runs[name] = np.concatenate([p.server for p in parts])
+        results[name] = parts
+        return pipe, prof
+
+    for shards in SHARD_COUNTS:
+        card(f"shards_{shards}", shards)
+    check(np.array_equal(runs["shards_1"], main_servers),
+          "1 shard: the main path's decisions for every arrival")
+    for f, a, b in zip(main_state._fields, pipes["shards_1"].global_state(),
+                       main_state):
+        check(torch.equal(a, b), f"1 shard: final {f} bit-equal to the "
+              "main path's")
+    pool = SHARD_POOL_SHARE * out["shards_1"]["rho_admitted"]
+    cluster_w = N_SERVERS * float(idle_power(F_MAX)) \
+        + ServerPowerModel().p_dyn_per_core * pool
+    pool = rho_pool_from_budget(cluster_w, N_SERVERS)
+    pipe, _ = card("shards_4_budget", 4, cluster_w)
+    b4 = out["shards_4_budget"]
+    check(b4["rho_admitted"] <= pool * (1 + 1e-6),
+          f"4 shards: admitted rho {b4['rho_admitted']} within the pool "
+          f"{pool}")
+    check(b4["token_rejected"] > 0, "4 shards: the pool runs out")
+    check(pipe.spill_info["spilled"] > 0
+          and pipe.spill_info["spill_admitted"] > 0,
+          f"4 shards: arrivals spill and land: {pipe.spill_info}")
+    left = float(pipe.pool_left().astype(np.float64).sum())
+    check(abs(left - (pool - b4["rho_admitted"])) <= 1e-4 * pool,
+          f"4 shards: pools left {left} == pool - admitted "
+          f"{pool - b4['rho_admitted']}")
+    b4.update(pool_rho=pool, cluster_budget_w=cluster_w, pool_left=left)
+
+    # the CPU replays, and the repeated card runs with their profiles
+    for name, shards, cw in (("shards_2", 2, None),
+                             ("shards_4_budget", 4, cluster_w)):
+        t0 = time.perf_counter()
+        cpu, parts, _, _, _, _ = _sharded_serve_run(run, hist, budget_w,
+                                                    shards, "cpu", cw)
+        out[name]["cpu_serve_s"] = time.perf_counter() - t0
+        check(np.array_equal(np.concatenate([p.server for p in parts]),
+                             runs[name]),
+              f"{name}: the CPU decides as the card")
+        check(np.allclose(cpu.pool_left_vec(), pipes[name].pool_left_vec(),
+                          rtol=1e-6, atol=1e-3),
+              f"{name}: CPU pools within float32 rounding of the card's")
+    for name, shards, cw in (("shards_2", 2, None), ("shards_4", 4, None),
+                             ("shards_4_budget", 4, cluster_w)):
+        again, prof = card(f"{name}_again", shards, cw, profiled=True)
+        check(np.array_equal(runs[f"{name}_again"], runs[name]),
+              f"{name}: a repeated card run decides alike")
+        for f, a, b in zip(again.global_state()._fields,
+                           again.global_state(),
+                           pipes[name].global_state()):
+            check(torch.equal(a, b), f"{name}: repeated final {f} "
+                  "bit-equal")
+        check(torch.equal(again.sharded.pool, pipes[name].sharded.pool),
+              f"{name}: repeated pools bit-equal")
+        busy = prof["device_busy_ms"]
+        wall = out[name]["wall_s"] * 1e3
+        out[name]["profile"] = {
+            "whole_run": True,
+            "launches_per_micro_batch": prof["launches"] / n_batches,
+            "launches_per_arrival": prof["launches"] / N_ARRIVALS,
+            "device_busy_ms": busy, "run_wall_ms": wall,
+            "device_idle_share": 1.0 - busy / wall
+            if isinstance(busy, float) else "not measured",
+            "top_device_ms": prof["top_device_ms"]}
+    # every VM the budgeted run admitted departs: each shard's pool gets
+    # back what it gave, and the cluster is empty again
+    pipe, parts = pipes["shards_4_budget"], results["shards_4_budget"]
+    srv = runs["shards_4_budget"]
+    adm = srv >= 0
+    peak = float(pipe.global_state().res_peak.abs().max())
+    pipe.depart(srv[adm], cores[adm],
+                np.concatenate([p.p95_eff for p in parts])[adm],
+                np.concatenate([p.workload_type for p in parts])[adm] == 1,
+                mem_gb=run["batch"].memory_gb[adm])
+    back = float(pipe.pool_left().astype(np.float64).sum())
+    st = pipe.global_state()
+    check(abs(back - pool) <= 1e-4 * pool,
+          f"4 shards: departures credit the pools back to {back} of {pool}")
+    left_over = float(st.res_peak.abs().max())
+    check(bool((st.free_cores == CORES).all()) and left_over <= 1e-5 * peak,
+          f"4 shards: the departed cluster is empty (ledger {left_over} "
+          f"left of {peak}: float32 rounding)")
+    b4["pool_left_after_departures"] = back
+    prof = serve_profile(pipes["shards_1"], *extra)
+    prof["launches_per_micro_batch"] = prof["launches_per_arrival"] * BATCH
+    out["shards_1"]["profile"] = prof
+    out["pool_share"] = SHARD_POOL_SHARE
+    out["checks"] = {"one_shard_equals_main_path": True,
+                     "budget_held": True, "tokens_conserved": True,
+                     "cpu_equal": True, "repeat_bit_equal": True}
+    return out
+
+
+def sharded_planes(run, hist, arrivals, labels, budget_w: float, seed: int,
+                   dev) -> dict:
+    """The streamed cell with both planes (`streamed_planes`'s) at
+    PLANE_SHARDS shards over SHARDED_STREAM_BATCHES micro-batches, a sweep
+    after each at SHARDED_PLANES_UTILS: its launch counts read from 0,
+    then at 4 hosts and on the CPU with the first run's sweep powers, whose
+    decisions, alarms, throttled-seconds and plane states must agree; the
+    rung must fire and the per-shard controllers ratchet and back off. At
+    1 shard the sharded pipeline must decide as the unsharded one (and
+    sample the same powers). Then the launches of one standalone cap
+    window at PLANE_SHARDS shards with each rung."""
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.serve import (AdaptiveConfig, BallooningConfig,
+                                   EmergencyConfig)
+    from repro_torch.sim.telemetry import arrival_batch
+    batch = _rows(arrival_batch(arrivals),
+                  np.arange(SHARDED_STREAM_BATCHES * BATCH))
+    ecfg = EmergencyConfig.from_model(EMERGENCY_BUDGET_W,
+                                      dwell_s=STREAM_DWELL_S)
+    bcfg, acfg = BallooningConfig(), AdaptiveConfig(**PLANES_ADAPTIVE)
+    both = dict(emergency=ecfg, ballooning=bcfg, adaptive=acfg)
+    warm_state, warm = warm_cluster(seed)
+    kw = dict(utils=SHARDED_PLANES_UTILS, sweep_every=1)
+
+    def pipeline(hosts, shards=PLANE_SHARDS, device=dev, **planes):
+        return _stream_pipeline(run, hist, labels, budget_w, warm_state,
+                                warm, hosts, device, shards,
+                                **(planes or both))
+
+    reset_launches()
+    p4 = pipeline(1)
+    on4 = streamed(p4, batch, 1, True, warm, **kw)
+    launches = dict(KERNEL_LAUNCHES)
+    check(launches["forest"] == on4["micro_batches"]
+          == SHARDED_STREAM_BATCHES,
+          f"sharded planes: a forest launch per micro-batch: {launches}")
+    ast = p4.adaptive_state
+    ratchets, backoffs = ast.ratchets.tolist(), ast.backoffs.tolist()
+    check(on4["balloon_events"] >= 1, "sharded planes: the rung fires")
+    check(sum(ratchets) >= 1 and sum(backoffs) >= 1,
+          f"sharded planes: a shard's ratio ratchets and one backs off: "
+          f"{ratchets}, {backoffs}")
+    pipes, runs = {"on_4": p4}, {"on_4": on4}
+    for name, hosts, device in (("hosts_4", 4, dev), ("cpu", 1, "cpu")):
+        pipes[name] = pipeline(hosts, device=device)
+        runs[name] = streamed(pipes[name], batch, hosts, True, warm,
+                              on4["samples"], **kw)
+
+    def same(a, b, what, ratios=True):
+        """Equal decisions, throttled-seconds and alarms; and the ratios
+        read after each sweep, where both runs read them at one point of
+        the stream (a 4-host run applies a sweep when every host's clock
+        has passed it, so it reads them later)."""
+        for f in ("servers", "conservative", "throttled_by_level"):
+            check(np.array_equal(a[f], b[f]), f"{what}: equal {f}")
+        check(a["alarms"] == b["alarms"], f"{what}: equal alarms "
+              f"{a['alarms']}, {b['alarms']}")
+        check(not ratios or len(a["ratios"]) == len(b["ratios"]) and all(
+            np.array_equal(np.ravel(x), np.ravel(y))
+            for x, y in zip(a["ratios"], b["ratios"])),
+            f"{what}: equal ratios")
+
+    def planes_equal(p, q, what):
+        for name, x, y in (("state", p.global_state(), q.global_state()),
+                           ("emergency", p.emergency, q.emergency),
+                           ("balloons", p.balloon_state, q.balloon_state),
+                           ("adaptive", p.adaptive_state, q.adaptive_state)):
+            for f, a, b in zip(x._fields, x, y):
+                check(torch.equal(a.cpu(), b.cpu().reshape(a.shape)),
+                      f"{what}: {name} {f} equal")
+    same(runs["hosts_4"], on4, "sharded planes, 4 hosts against 1",
+         ratios=False)
+    planes_equal(pipes["hosts_4"], p4, "sharded planes, 4 hosts")
+    same(runs["cpu"], on4, "sharded planes, the CPU against the card")
+    cpu = pipes["cpu"]
+    for f in ("count", "head", "ratio", "ratchets", "backoffs"):
+        check(torch.equal(getattr(cpu.adaptive_state, f),
+                          getattr(ast, f).cpu()),
+              f"sharded planes, CPU: adaptive {f} equal")
+    for f in ("pstate", "rapl"):
+        check(torch.equal(getattr(cpu.emergency, f),
+                          getattr(p4.emergency, f).cpu()),
+              f"sharded planes, CPU: emergency {f} equal")
+    gaps = {}
+    for what, a, b in (
+            *((f, getattr(p4.global_state(), f),
+               getattr(cpu.global_state(), f))
+              for f in ("free_cores", "gamma_uf", "gamma_nuf", "res_peak",
+                        "mem_nuf")),
+            ("ballooned_gb", p4.balloon_state.ballooned_gb,
+             cpu.balloon_state.ballooned_gb),
+            ("adaptive_util", ast.util, cpu.adaptive_state.util)):
+        gaps[what] = float((a.cpu() - b).abs().max())
+        check(gaps[what] <= 1e-6 * max(1.0, float(b.abs().max())),
+              f"sharded planes: CPU final {what} within float32 rounding "
+              f"of the card's: {gaps[what]}")
+
+    # one shard against the unsharded pipeline on the same stream
+    unsharded, one = pipeline(1, None), pipeline(1, 1)
+    runs["unsharded"] = streamed(unsharded, batch, 1, True, warm, **kw)
+    runs["shards_1"] = streamed(one, batch, 1, True, warm, **kw)
+    same(runs["shards_1"], runs["unsharded"], "1 shard against unsharded")
+    check(all(np.array_equal(a, b) for a, b in zip(
+        runs["shards_1"]["samples"], runs["unsharded"]["samples"])),
+        "1 shard samples the unsharded run's live aggregates, bit for bit")
+    for name, x, y in (("state", one.global_state(), unsharded.state),
+                       ("emergency", one.emergency, unsharded.emergency),
+                       ("balloons", one.balloon_state,
+                        unsharded.balloon_state),
+                       ("adaptive", one.adaptive_state,
+                        unsharded.adaptive_state)):
+        for f, a, b in zip(x._fields, x, y):
+            check(torch.equal(a.reshape(b.shape), b),
+                  f"1 shard: {name} {f} equal to the unsharded run's")
+
+    # launches of one standalone cap window at PLANE_SHARDS shards, after
+    # a first one, on a pipeline that has served one micro-batch
+    chassis = np.arange(N_SERVERS // BLADES)
+    chunk = _rows(batch, np.arange(BATCH))
+    hot = on4["samples"][-1]
+
+    def window_launches(**planes):
+        pipe = pipeline(1, **planes)
+        pipe.submit_to(0, chunk, t=np.arange(1.0, BATCH + 1.0))
+
+        def window(t):
+            pipe.cap_to(0, chassis, hot, t=t + (chassis + 1) * 1e-7)
+            return pipe.alarms
+        window(BATCH + 0.5)
+        return device_profile(lambda: None,
+                              lambda: window(BATCH + 1.5))["launches"]
+    per_window = {
+        "emergency": window_launches(emergency=ecfg),
+        "emergency_ballooning": window_launches(emergency=ecfg,
+                                                ballooning=bcfg),
+        "adaptive": window_launches(adaptive=acfg),
+        "all": window_launches(**both)}
+    return {
+        "shards": PLANE_SHARDS, "arrivals": len(batch),
+        "micro_batches": on4["micro_batches"], "sweeps": on4["sweeps"],
+        "utils": list(SHARDED_PLANES_UTILS), "alarms": on4["alarms"],
+        "throttled_by_level": on4["throttled_by_level"].tolist(),
+        "admitted": int((on4["servers"] >= 0).sum()),
+        "power_rejected": int((on4["servers"] == -2).sum()),
+        "balloon_events": on4["balloon_events"],
+        "ballooned_peak_gb": on4["ballooned_peak_gb"],
+        "ratios": [np.ravel(r).tolist() for r in on4["ratios"]],
+        "ratchets": ratchets, "backoffs": backoffs, "launches": launches,
+        "arrivals_per_s": {k: v["arrivals_per_s"] for k, v in runs.items()},
+        "hosts_equal": True, "cpu_equal": True,
+        "one_shard_equals_unsharded": True, "cpu_state_max_gap": gaps,
+        "launches_per_cap_window": per_window}
+
+
+def sim_sharded(dev) -> dict:
+    """The Fig 7 simulation on the serve-sharded backend on the card over
+    SIM_SHARDED_DAYS: 1 shard gives the event trace; a CPU run gives the
+    4-shard trace; under the
+    reference test's cluster budget the pools reject placements while the
+    per-group token conservation check holds. Launches per arrival at 1
+    and 4 shards from profiled runs of SIM_SHARDED_PROFILE_DAYS."""
+    import torch
+    from repro_torch.core.placement import SchedulerPolicy
+    from repro_torch.core.power_model import (F_MAX, ServerPowerModel,
+                                              idle_power)
+    from repro_torch.core.resources import ResourceVector
+    from repro_torch.sim import scheduler_sim as S
+    pol, ch = SchedulerPolicy(alpha=0.8), S.PredictionChannel("ml")
+    n_servers = S.RACKS * S.CHASSIS_PER_RACK * S.BLADES_PER_CHASSIS
+    budget_w = n_servers * float(idle_power(F_MAX)) \
+        + ServerPowerModel().p_dyn_per_core * SIM_TOKEN_RHO
+    out, traces = {"days": SIM_SHARDED_DAYS}, {}
+
+    def sim(name, device, days=SIM_SHARDED_DAYS, **serve):
+        tr = []
+        t0 = time.perf_counter()
+        m = S.simulate(pol, ch, S.SimSpec(
+            days=days, seed=0, serve=S.ServeBackendSpec(**serve)),
+            trace=tr, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        traces[name] = tr
+        out[name] = {"seconds": wall, "arrivals_per_s": m.placements / wall,
+                     "placements": m.placements, "failures": m.failures,
+                     "failure_rate": m.failure_rate}
+        return m
+    sim("event", dev)
+    sim("shards_1", dev, backend="serve-sharded", shards=1)
+    sim("shards_4", dev, backend="serve-sharded", shards=4)
+    sim("shards_4_cpu", "cpu", backend="serve-sharded", shards=4)
+    sim("shards_4_budget", dev, backend="serve-sharded", shards=4,
+        cluster_budget=ResourceVector(watts=budget_w))
+    check(traces["shards_1"] == traces["event"],
+          "serve-sharded at 1 shard on the card gives the event trace")
+    check(traces["shards_4_cpu"] == traces["shards_4"],
+          "the 4-shard trace on the card equals the CPU's")
+    check(out["shards_4_budget"]["failures"] > 0
+          and -3 in traces["shards_4_budget"],
+          "the cluster budget's pools reject placements (FAIL_TOKENS)")
+    out["shards_4_budget"].update(budget_w=budget_w,
+                                  token_rejected=traces["shards_4_budget"]
+                                  .count(-3), conservation_held=True)
+    for shards in (1, 4):
+        runs = []
+        prof = device_profile(lambda: runs.append(S.simulate(
+            pol, ch, S.SimSpec(days=SIM_SHARDED_PROFILE_DAYS, seed=0,
+                               serve=S.ServeBackendSpec(
+                                   backend="serve-sharded", shards=shards)),
+            device=dev)))
+        n = runs[-1].placements
+        out[f"shards_{shards}"]["profile"] = {
+            "days": SIM_SHARDED_PROFILE_DAYS, "placements": n,
+            "launches_per_arrival": prof["launches"] / n,
+            "device_idle_share": prof["device_idle_share"],
+            "wall_ms": prof["wall_ms"]}
+    out["traces_equal"] = True
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1949,6 +2404,7 @@ def main(argv=None) -> int:
     run = main_path(pop, hist, arrivals, budget_w, dev)
     launches = dict(KERNEL_LAUNCHES)
     pipe, parts = run["pipe"], run["parts"]
+    main_state = pipe.state     # the main path's final state, for 1 shard
     servers = np.concatenate([p.server for p in parts])
     n_batches = len(parts)
     admitted = int((servers >= 0).sum())
@@ -2035,9 +2491,9 @@ def main(argv=None) -> int:
     # where a served micro-batch's time goes, on two batches after the
     # main path (their launches come after the counts were read)
     nxt = rest.vms[N_ARRIVALS:N_ARRIVALS + 2 * BATCH]
-    emit("serve_profile", **serve_profile(
-        pipe, arrival_batch(type(rest)(vms=nxt[:BATCH])),
-        arrival_batch(type(rest)(vms=nxt[BATCH:]))))
+    extra = (arrival_batch(type(rest)(vms=nxt[:BATCH])),
+             arrival_batch(type(rest)(vms=nxt[BATCH:])))
+    emit("serve_profile", **serve_profile(pipe, *extra))
 
     # flash and SSD kernels against their plain versions: at the LM
     # path's prefill shapes and at one long prompt
@@ -2089,6 +2545,20 @@ def main(argv=None) -> int:
     for name, res in arms.items():
         emit(name, **res, launches=dict(KERNEL_LAUNCHES))
 
+    # sharded serving: the serving cell at 1, 2 and 4 shards and under a
+    # cluster budget (each card run read from counts at 0 inside); the
+    # streamed cell with both planes at 4 shards (its counts read from 0
+    # inside); the Fig 7 simulation on the serve-sharded backend, read
+    # from counts at 0
+    shard_serve = sharded_serve(run, hist, budget_w, servers, main_state,
+                                extra, dev)
+    emit("sharded_serve", **shard_serve)
+    shard_planes = sharded_planes(run, hist, arrivals, stream_labels,
+                                  budget_w, args.seed, dev)
+    emit("sharded_planes", **shard_planes)
+    reset_launches()
+    emit("sim_sharded", **sim_sharded(dev), launches=dict(KERNEL_LAUNCHES))
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "forest_sums", "route": "cuda",
@@ -2098,6 +2568,10 @@ def main(argv=None) -> int:
          "launches_streamed": stream["launches"]["forest"],
          "launches_examples": examples["quickstart"]["launches"]["forest"],
          "launches_streamed_planes": planes["launches"]["forest"],
+         "launches_sharded_serve": {
+             k: v["launches"]["forest"] for k, v in shard_serve.items()
+             if isinstance(v, dict) and "launches" in v},
+         "launches_sharded_planes": shard_planes["launches"]["forest"],
          **{k: forest["micro_batch"][k] for k in TIMES},
          "library_ms": None, "shape": forest["micro_batch"]["shape"],
          "blocks": forest["micro_batch"]["blocks"],

@@ -2,8 +2,9 @@
 counterpart of `repro.serve`: featurization, four-forest inference with
 confidence gating, Algorithm-1 placement and power admission, with all
 state resident on the pipeline's device; the per-host ingest merge, the
-power-emergency plane, the ballooning rung, migration planning and the
-adaptive oversubscription controller."""
+power-emergency plane, the ballooning rung, migration planning, the
+adaptive oversubscription controller, and sharded serving under the
+reserve/commit token protocol."""
 from repro_torch.core.resources import RESOURCES, ResourceVector
 from repro_torch.serve.adaptive import (
     REASON_NAMES, AdaptiveConfig, AdaptiveOutputs, AdaptiveState,
@@ -37,11 +38,20 @@ from repro_torch.serve.ingest import (
 from repro_torch.serve.mitigation import (LiveVMs, MigrationPlan,
                                           plan_migrations)
 from repro_torch.serve.pipeline import (
-    PlaneBundle, ServeConfig, ServePipeline, ServeResult)
+    PlaneBundle, ServeConfig, ServePipeline, ServeResult, ShardedServeConfig,
+    ShardedServePipeline)
 from repro_torch.serve.placement import (
     FAIL_CAPACITY, FAIL_POWER, FAIL_TOKENS, DeviceClusterState, SweepCounters,
     device_state, fresh_state, outcome_counters, place_batch,
-    place_batch_caps, remove_batch, score_chassis_batch, score_server_batch)
+    place_batch_caps, place_batch_pooled, remove_batch, score_chassis_batch,
+    score_server_batch)
+from repro_torch.serve.sharding import (
+    ShardedState, apply_adaptive_sharded, apply_caps_ballooned_sharded,
+    apply_caps_sharded, chassis_to_shard, consume_departures,
+    init_adaptive_sharded, init_ballooning_sharded, init_emergency_sharded,
+    place_group_sharded, remove_sharded, resource_pool_from_budget,
+    rho_pool_from_budget, route_shard, shard_state, split_caps,
+    split_departures, unshard_state)
 
 __all__ = [
     "RESOURCES", "ResourceVector",
@@ -72,8 +82,15 @@ __all__ = [
     "empty_caps", "empty_departures", "kway_merge", "slice_soa",
     "LiveVMs", "MigrationPlan", "plan_migrations",
     "PlaneBundle", "ServeConfig", "ServePipeline", "ServeResult",
+    "ShardedServeConfig", "ShardedServePipeline",
     "FAIL_CAPACITY", "FAIL_POWER", "FAIL_TOKENS", "DeviceClusterState",
     "SweepCounters", "device_state", "fresh_state", "outcome_counters",
-    "place_batch", "place_batch_caps", "remove_batch",
+    "place_batch", "place_batch_caps", "place_batch_pooled", "remove_batch",
     "score_chassis_batch", "score_server_batch",
+    "ShardedState", "apply_adaptive_sharded", "apply_caps_ballooned_sharded",
+    "apply_caps_sharded", "chassis_to_shard", "consume_departures",
+    "init_adaptive_sharded", "init_ballooning_sharded",
+    "init_emergency_sharded", "place_group_sharded", "remove_sharded",
+    "resource_pool_from_budget", "rho_pool_from_budget", "route_shard",
+    "shard_state", "split_caps", "split_departures", "unshard_state",
 ]

@@ -268,10 +268,14 @@ def adaptive_step_np(cfg: AdaptiveConfig, st: AdaptiveState, rho_lv,
 
 def retarget_pool(cfg: AdaptiveConfig, base_pool, ratio, committed):
     """Free-pool level after the controller retargets the allowance:
-    ``max(base_pool * ratio - committed, 0)`` (host numpy). ``base_pool`` is the
+    ``max(base_pool * ratio - committed, 0)``. ``base_pool`` is the
     ratio-1.0 allowance, ``committed`` what placed VMs reserved. The
     floor at zero keeps committed tokens irrevocable, so ``committed +
-    free == max(base * ratio, committed)`` through any ratio walk."""
+    free == max(base * ratio, committed)`` through any ratio walk. On
+    host numpy, or on tensors on their device (the sharded pipeline's
+    (N, R) pools)."""
+    if torch.is_tensor(base_pool):
+        return torch.clamp(base_pool * ratio - committed, min=0)
     return np.maximum(np.asarray(base_pool) * ratio - np.asarray(committed),
                       0)
 

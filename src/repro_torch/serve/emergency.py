@@ -390,8 +390,16 @@ def chassis_rho_levels(gamma_nuf: torch.Tensor, gamma_uf: torch.Tensor,
                        chassis_servers: torch.Tensor) -> torch.Tensor:
     """`chassis_rho_levels_np` on tensors: one gather of both levels,
     then the K blade columns added in numpy's order — never a float
-    `index_add` or `bincount`, whose order the card does not fix."""
-    g = torch.stack([gamma_nuf, gamma_uf], -1)[chassis_servers]  # (C,K,L)
+    `index_add` or `bincount`, whose order the card does not fix. With a
+    leading shard axis ((N, S/N) aggregates, an (N, C/N, K) table of
+    local ids) each shard gathers from its own row."""
+    g = torch.stack([gamma_nuf, gamma_uf], -1)
+    if chassis_servers.ndim > 2:
+        n, s_loc = g.shape[0], g.shape[1]
+        offs = torch.arange(n, device=g.device).view(n, 1, 1) * s_loc
+        g = g.reshape(n * s_loc, -1)[chassis_servers + offs]  # (N,C,K,L)
+    else:
+        g = g[chassis_servers]                                # (C,K,L)
     return _numpy_order_sum(g, -2)
 
 

@@ -26,8 +26,10 @@ place_batch_caps`), and the dwell signal feeds `serve.mitigation`. With
 (`serve.adaptive`), whose ratio scales the watt axis of the admission
 ceiling before the next micro-batch.
 
-The cluster token pool and the observability plane are later parts of
-the port (ROADMAP.md).
+`ShardedServePipeline` partitions the cluster state into shards that
+place each micro-batch together under the reserve/commit token protocol
+of `serve.sharding`, with `PlaneBundle.cluster_budget` as the token
+pool. The observability plane is a later part of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from repro_torch.core.predictor import UF, PredictionService
 from repro_torch.core.resources import N_RESOURCES, RESOURCES, ResourceVector
 from repro_torch.device import resolve_device
 from repro_torch.serve import (adaptive, admission, ballooning, emergency,
-                               placement)
+                               placement, sharding)
 from repro_torch.serve.featurizer import (
     SubscriptionTable, featurize_batch, ingest_population, table_from_history)
 from repro_torch.serve.inference import (
@@ -54,7 +56,6 @@ from repro_torch.sim.telemetry import ArrivalBatch, Population
 #: PlaneBundle fields not carried yet -> the ROADMAP.md Queue 1 item that
 #: ports them.
 _LATER_PLANES = {
-    "cluster_budget": "Queue 1 item 10 (sharded serving)",
     "obs": "Queue 1 item 11 (observability)",
 }
 
@@ -65,14 +66,16 @@ class PlaneBundle:
     carries `chassis_budget`, the per-chassis admission budget as a
     `ResourceVector` (the watts axis converts through the power model
     into the rho ceiling, cores/GB axes are ledger currency);
+    `cluster_budget`, the global `ResourceVector` whose token pools a
+    `ShardedServePipeline` enforces (an unsharded pipeline ignores it);
     `emergency`, the power-emergency plane's `EmergencyConfig`;
     `ballooning`, the rung between capping and migration (it requires
     `emergency`: it sizes its reclaim with the emergency plane's alarm
     arithmetic); and `adaptive`, the closed-loop oversubscription
-    controller. Setting `cluster_budget` or `obs` raises
-    NotImplementedError naming the ROADMAP item."""
+    controller. Setting `obs` raises NotImplementedError naming the
+    ROADMAP item."""
     chassis_budget: ResourceVector | None = None
-    cluster_budget: object = None
+    cluster_budget: ResourceVector | None = None
     emergency: emergency.EmergencyConfig | None = None
     adaptive: adaptive.AdaptiveConfig | None = None
     ballooning: ballooning.BallooningConfig | None = None
@@ -118,6 +121,12 @@ class ServeResult:
     @property
     def n_power_rejected(self) -> int:
         return int((self.server == placement.FAIL_POWER).sum())
+
+    @property
+    def n_token_rejected(self) -> int:
+        """Arrivals every shard's token pool refused (sharded serving
+        under a `cluster_budget`)."""
+        return int((self.server == placement.FAIL_TOKENS).sum())
 
     @property
     def n_conservative(self) -> int:
@@ -216,9 +225,7 @@ class ServePipeline:
         # frequency floor and migration
         self._balloon = None
         if planes.ballooning is not None:
-            self._balloon = ballooning.init_ballooning(
-                self.n_chassis, dtype=state.free_cores.dtype,
-                device=self.device)
+            self._balloon = self._init_ballooning()
         # adaptive controller: samples feed per-chassis stability windows,
         # and the stepped ratio rescales the admission ceiling
         self.adaptive_cfg = planes.adaptive
@@ -236,9 +243,7 @@ class ServePipeline:
                     f"{acfg.blades_per_chassis} does not match the "
                     f"pipeline's {self.blades_per_chassis}: power samples "
                     "would read back as the wrong utilization")
-            self._adaptive = adaptive.init_adaptive(
-                acfg, self.n_chassis, dtype=state.free_cores.dtype,
-                device=self.device)
+            self._adaptive = self._init_adaptive()
 
     @property
     def rho_cap(self) -> torch.Tensor:
@@ -250,6 +255,18 @@ class ServePipeline:
         return emergency.init_emergency(
             self.n_chassis, dtype=self.state.free_cores.dtype,
             device=self.device)
+
+    def _init_ballooning(self) -> ballooning.BalloonState:
+        """Fresh all-deflated balloon state in the state's dtype."""
+        return ballooning.init_ballooning(
+            self.n_chassis, dtype=self.state.free_cores.dtype,
+            device=self.device)
+
+    def _init_adaptive(self) -> adaptive.AdaptiveState:
+        """Fresh controller state at ratio 1.0 in the state's dtype."""
+        return adaptive.init_adaptive(
+            self.adaptive_cfg, self.n_chassis,
+            dtype=self.state.free_cores.dtype, device=self.device)
 
     @property
     def emergency(self):
@@ -443,18 +460,19 @@ class ServePipeline:
             return torch.as_tensor(out, device=self.device)
         valid = torch.arange(pad_to, device=self.device) < b
         servers = self._place(padded(batch.cores), is_uf, p95_eff, valid,
-                              padded(batch.memory_gb))
+                              padded(batch.memory_gb), b)
         self.served += b
         host = [a[:b].cpu().numpy() for a in (
             servers, q["workload_type_used"], q["p95_bucket_used"],
             p95_eff, q["conservative"])]
         return ServeResult(*host)
 
-    def _place(self, cores, is_uf, p95_eff, valid, mem):
-        """Placement stage of one padded micro-batch: Algorithm 1 with
-        power admission against the cluster state; returns the (B,)
-        decisions (FAIL_* codes on reject). Cap windows queued since the
-        last batch are applied first (`placement.place_batch_caps`)."""
+    def _place(self, cores, is_uf, p95_eff, valid, mem, n_valid: int):
+        """Placement stage of one padded micro-batch (its first `n_valid`
+        rows real): Algorithm 1 with power admission against the cluster
+        state; returns the (B,) decisions (FAIL_* codes on reject). Cap
+        windows queued since the last batch are applied first
+        (`placement.place_batch_caps`)."""
         if self._pending_caps:
             pw, mask, ts = self._stacked_caps()
             self._pending_caps = []
@@ -688,3 +706,224 @@ class ServePipeline:
         """(C,) watts of remaining per-chassis admission headroom."""
         return admission.headroom_w(self.state, budget_w,
                                     self.blades_per_chassis)
+
+
+@dataclass(frozen=True)
+class ShardedServeConfig(ServeConfig):
+    """`ServeConfig` plus the shard count; `batch_size` must be divisible
+    by `n_shards`. On one card the shards run as a leading batch axis,
+    with N-1 spillover rounds and the pools rebalanced before each."""
+    n_shards: int = 1
+
+
+class ShardedServePipeline(ServePipeline):
+    """`ServePipeline` with the cluster state partitioned into shards
+    (`serve.sharding`). Featurization and forest inference are
+    shard-agnostic (one call a micro-batch); the placement fans out:
+    arrivals go to their home shard, place together under the
+    reserve/commit token protocol, and spill to the other shards when the
+    home shard rejects them. `PlaneBundle.cluster_budget` sets the global
+    budget the pools enforce: the admitted ``p95*cores`` over all shards
+    never exceeds its rho-unit pool while the pools are only drawn and
+    credited. Retargeting them (an adaptive scan, `set_resource_ratios`)
+    floors each shard's pool at 0 on its own, as the reference does, so
+    once a shard has committed past its 1/N slice of the budget the other
+    shards are handed more than the budget has left (ROADMAP.md Queue 3).
+    The emergency, ballooning and adaptive planes run per shard, each
+    shard over the chassis it owns.
+
+    `state` and `res_cap` read the shards (`global_state()` and the
+    per-shard ceilings in force, in global chassis order) and cannot be
+    assigned: the shards live in `sharded`."""
+
+    def __init__(self, service: PredictionService,
+                 table: SubscriptionTable,
+                 state: placement.DeviceClusterState,
+                 cores_per_server: int,
+                 config: ShardedServeConfig | None = None,
+                 blades_per_chassis: int | None = None):
+        config = config or ShardedServeConfig()
+        if config.batch_size % config.n_shards:
+            raise ValueError(
+                f"batch_size {config.batch_size} not divisible by "
+                f"n_shards {config.n_shards}")
+        super().__init__(service, table, state, cores_per_server,
+                         config=config,
+                         blades_per_chassis=blades_per_chassis)
+        n = config.n_shards
+        budget = config.planes.cluster_budget
+        # gross: the ratio-1.0 (R,) allowance the adaptive controller
+        # retargets the free pools against
+        gross = np.full(N_RESOURCES, np.inf) if budget is None else \
+            sharding.resource_pool_from_budget(budget, state.n_servers)
+        finite = np.isfinite(gross)
+        pool_total = None
+        if finite.any():
+            # a warm cluster has resources committed already: the pool is
+            # what remains of the allowance on each axis, so the budget
+            # holds from the first batch
+            committed = state.res_peak.cpu().numpy().astype(
+                np.float64).sum(0)
+            pool_total = np.where(finite, np.maximum(gross - committed, 0.0),
+                                  np.inf)
+        self.sharded = sharding.shard_state(
+            self.state, n, rho_cap=self.res_cap, pool_total=pool_total)
+        del self._handed_over       # the shards hold the state and caps
+        self._sharded_cap_base = self.sharded.res_cap
+        self._pool_base = None if pool_total is None else torch.as_tensor(
+            np.broadcast_to(gross / n, (n, N_RESOURCES)).copy()).to(
+                device=self.device, dtype=self.sharded.pool.dtype)
+        self.spill_info = {"rounds": 0, "spilled": 0, "spill_admitted": 0}
+
+    # `state` and `res_cap` as the base constructor assigns them, then as
+    # views of the shards
+    def _view(name):
+        def get(self):
+            if "sharded" not in self.__dict__:
+                return self._handed_over[name]
+            if name == "state":
+                return self.global_state()
+            return self.sharded.res_cap.reshape(-1, N_RESOURCES)
+
+        def put(self, value):
+            if "sharded" in self.__dict__:
+                raise AttributeError(
+                    f"ShardedServePipeline.{name} is a view of the shards: "
+                    "they live in `sharded`")
+            self.__dict__.setdefault("_handed_over", {})[name] = value
+        return property(get, put)
+
+    state = _view("state")
+    res_cap = _view("res_cap")
+    del _view
+
+    # -- placement -----------------------------------------------------------
+    def _place(self, cores, is_uf, p95_eff, valid, mem, n_valid: int):
+        """The sharded protocol on one padded micro-batch; the cap windows
+        queued since the last batch step in its home round."""
+        cfg = self.config
+        kw = {}
+        if self._pending_caps:
+            kw = dict(emer=self._emergency, caps=self._sharded_caps(),
+                      ecfg=self.emergency_cfg)
+            self._pending_caps = []
+        out = sharding.place_group_sharded(
+            self.sharded, cores, is_uf, p95_eff,
+            np.arange(len(cores)) < n_valid, cfg.policy,
+            self.cores_per_server, mem_gb=mem, **kw)
+        if kw:
+            self.sharded, servers, info, self._emergency, sweep = out
+            self._alarms += int(sweep.alarms)
+        else:
+            self.sharded, servers, info = out
+        self.spill_info = {k: v + info[k] for k, v in self.spill_info.items()}
+        return torch.as_tensor(servers)
+
+    def _sharded_caps(self):
+        """The queued unique-chassis windows as stacked (N, W, C/N)
+        operands of the home round, merged order kept (host numpy)."""
+        rows = [sharding.split_caps(self.sharded, c, p, t)
+                for c, p, t in self._pending_caps]
+        return tuple(np.stack([r[k] for r in rows], axis=1)
+                     for k in range(3))
+
+    def _apply_departures(self, servers, cores, p95_eff, is_uf,
+                          mem_gb=None) -> None:
+        """Each departure leaves its owner shard and credits its (R,)
+        demand to that shard's pool (`sharding.remove_sharded`). Queued
+        cap windows apply first: they read the aggregates before it."""
+        self._flush_caps()
+        self.sharded = sharding.remove_sharded(
+            self.sharded, servers, cores, p95_eff, is_uf, mem_gb=mem_gb)
+
+    # -- the planes, per shard -----------------------------------------------
+    def _init_emergency(self):
+        return sharding.init_emergency_sharded(
+            self.n_chassis, self.config.n_shards,
+            dtype=self.state.free_cores.dtype, device=self.device)
+
+    def _init_ballooning(self):
+        return sharding.init_ballooning_sharded(
+            self.n_chassis, self.config.n_shards,
+            dtype=self.state.free_cores.dtype, device=self.device)
+
+    def _init_adaptive(self):
+        return sharding.init_adaptive_sharded(
+            self.adaptive_cfg, self.n_chassis, self.config.n_shards,
+            dtype=self.state.free_cores.dtype, device=self.device)
+
+    @property
+    def adaptive_ratio(self) -> np.ndarray:
+        """(N,) per-shard oversubscription ratios (all 1.0 with the
+        controller off): each shard adapts the budget slice it owns."""
+        if self._adaptive is None:
+            return np.ones(self.config.n_shards)
+        return self._adaptive.ratio.cpu().numpy()
+
+    def _adaptive_scan(self, chassis, power_w) -> None:
+        """Step every shard's controller on one unique-chassis window."""
+        self._adaptive, out = sharding.apply_adaptive_sharded(
+            self.adaptive_cfg, self.sharded, self._adaptive, chassis,
+            power_w)
+        self._apply_ratio(out)
+
+    def _axis_mult(self, dtype) -> torch.Tensor:
+        """(N, R) multipliers: each shard's ratio on the watts axis, the
+        shared time-of-day ratios on cores/GB."""
+        ones = torch.ones(self.config.n_shards, dtype=dtype,
+                          device=self.device)
+        r = ones if self._ratio_dev is None else self._ratio_dev.to(dtype)
+        return torch.stack([r, ones, ones], -1) * torch.as_tensor(
+            self._res_ratios, dtype=dtype, device=self.device)
+
+    def _refresh_caps(self) -> None:
+        """Put the current multipliers in force: rescale each shard's
+        ceiling and retarget its free pool against its committed ledger
+        (`adaptive.retarget_pool` floors it at 0, so tokens committed to
+        placed VMs are never revoked). The ledger is summed over the
+        shard's chassis in numpy's order, so the pools repeat on the card."""
+        mult = self._axis_mult(self._sharded_cap_base.dtype)
+        pool = self.sharded.pool
+        if self._pool_base is not None:
+            committed = emergency._numpy_order_sum(
+                self.sharded.shards.res_peak, -2)
+            pool = adaptive.retarget_pool(self.adaptive_cfg,
+                                          self._pool_base, mult, committed)
+        self.sharded = self.sharded._replace(
+            res_cap=self._sharded_cap_base * mult[:, None, :], pool=pool)
+
+    def _cap_window(self, chassis, power_w, t):
+        """One unique-chassis window on every shard at once, through the
+        balloon step first when the rung is attached."""
+        if self._balloon is not None:
+            (self._emergency, self._balloon, out,
+             _) = sharding.apply_caps_ballooned_sharded(
+                self.emergency_cfg, self.config.planes.ballooning,
+                self.sharded, self._emergency, self._balloon, chassis,
+                power_w, t)
+            return out
+        self._emergency, out = sharding.apply_caps_sharded(
+            self.emergency_cfg, self.sharded, self._emergency, chassis,
+            power_w, t)
+        return out
+
+    def _dwell_mask(self, mask: np.ndarray) -> np.ndarray:
+        return mask.reshape(self.config.n_shards, -1)
+
+    # -- diagnostics ----------------------------------------------------------
+    def global_state(self) -> placement.DeviceClusterState:
+        """The sharded aggregates as one cluster state."""
+        return sharding.unshard_state(self.sharded)
+
+    def chassis_headroom_w(self, budget_w) -> np.ndarray:
+        return admission.headroom_w(self.global_state(), budget_w,
+                                    self.blades_per_chassis)
+
+    def pool_left(self) -> np.ndarray:
+        """(N,) tokens left per shard, rho units: the watts axis of
+        `pool_left_vec`."""
+        return self.sharded.pool[:, 0].cpu().numpy()
+
+    def pool_left_vec(self) -> np.ndarray:
+        """(N, R) tokens left per shard and axis (+inf where unbudgeted)."""
+        return self.sharded.pool.cpu().numpy()

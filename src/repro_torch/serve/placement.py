@@ -23,6 +23,13 @@ state (`serve/admission.py`). `place_batch_caps` steps the power-
 emergency state through the cap windows queued since the last batch,
 then places it.
 
+One walk (`_walk`) serves every form: its state carries a leading shard
+axis, each step places slot i of every shard at once, and an optional
+(N, R) token pool must clear each admission and is drawn down by it
+(FAIL_TOKENS). `place_batch` is the one-shard call without a pool, which
+skips the pool's compares at the Python level, `place_batch_pooled` the
+one-shard call with one, and `serve.sharding` drives N shards.
+
 Departures (`remove_batch`) credit the aggregates with order-fixed
 segment sums (`serve._segments`): a batch names one server or chassis
 many times, and the card's float `index_add` adds such repeats in the
@@ -163,6 +170,127 @@ def _as(x, dtype, device):
                            dtype=dtype, device=device)
 
 
+def _walk(state: DeviceClusterState, cores, is_uf, p95, valid, mem, cap,
+          pool, policy: SchedulerPolicy, cores_per_server: int):
+    """The placement walk over N shards at once. Every state leaf carries
+    a leading (N,) shard axis over local server and chassis ids; the
+    arrivals are (N, B/N) tensors, `cap` the (N, C/N, R) ceiling and
+    `pool` the (N, R) token balance, or None for no pool. Slot i of every
+    shard steps together: each shard ranks its own servers (ties to the
+    smaller local index) and commits to its own slice, through flat
+    indices ``shard * S/N + server`` into flattened copies. Returns
+    (state, servers (N, B/N) local ids with FAIL_* codes, pool)."""
+    n, s_loc = state.free_cores.shape
+    c_loc = state.rho_max.shape[-1]
+    dtype, dev = state.free_cores.dtype, state.free_cores.device
+    # each arrival's NUF GB, taken once for the batch (a product with
+    # 0 or 1, exact in any order)
+    mem_nuf = mem * (1.0 - is_uf.to(dtype))
+    # the walk updates private flat copies in place; the (C, R) ledger
+    # and its NUF GB slice move as one (C, R + 1) block, one update an
+    # arrival
+    free, g_uf, g_nuf = (a.reshape(-1).clone() for a in (
+        state.free_cores, state.gamma_uf, state.gamma_nuf))
+    res = torch.cat([state.res_peak, state.mem_nuf[..., None]],
+                    -1).reshape(n * c_loc, N_RESOURCES + 1)
+    cap = cap.reshape(n * c_loc, N_RESOURCES)
+    free_s, g_uf_s, g_nuf_s = (a.view(n, s_loc) for a in (free, g_uf, g_nuf))
+    # flat server and chassis offsets of each shard (none with one shard,
+    # so the unsharded walk keeps its launches)
+    chassis_of, offs = state.chassis_of, None
+    if n > 1:
+        shard = torch.arange(n, device=dev)
+        chassis_of = chassis_of + (shard * c_loc)[:, None]
+        offs = shard * s_loc
+    chassis_flat = chassis_of.reshape(-1)
+    cps = free.new_full((), float(cores_per_server))
+    rho_max = torch.clamp(state.rho_max, min=1e-9)
+    a = policy.alpha
+    weights = [policy.packing_weight] \
+        + ([policy.power_weight] if policy.use_power_rule else [])
+    neg_inf = free.new_full((), -torch.inf)
+    out = []
+    for i in range(cores.shape[-1]):
+        c_i, uf_i, valid_i = cores[:, i], is_uf[:, i], valid[:, i]
+        feasible = (free_s >= c_i[:, None]) & valid_i[:, None]
+        n_feas = feasible.sum(-1)
+        rules = [1.0 - free_s / cps]                        # packing
+        if policy.use_power_rule:
+            kappa = (1.0 - res.view(n, c_loc, -1)[..., 0]
+                     / rho_max).view(-1)[chassis_of]
+            diff = torch.where(uf_i[:, None], g_nuf_s - g_uf_s,
+                               g_uf_s - g_nuf_s)
+            eta = 0.5 * (1.0 + diff / cps)
+            rules.append(a * kappa + (1.0 - a) * eta)
+        rw = _rank_weights(torch.stack(rules), feasible, n_feas[:, None])
+        obj = weights[0] * rw[0]
+        for r in range(1, len(weights)):
+            obj = obj + weights[r] * rw[r]
+        srv = torch.argmax(torch.where(feasible, obj, neg_inf), dim=-1)
+        # admission check + masked state update: capacity fails first,
+        # then any axis of the chassis ceiling, then any axis of the pool
+        # (indices stay (N,) tensors: indexing by a 0-dim tensor would
+        # read it back to the host and stall the walk)
+        found = n_feas > 0
+        srv = torch.where(found, srv, 0)
+        flat = srv if offs is None else srv + offs
+        ch = chassis_flat.index_select(0, flat)
+        w = p95[:, i] * c_i
+        d = torch.stack([w, c_i, mem[:, i], mem_nuf[:, i]], -1)
+        dr = d[:, :N_RESOURCES]
+        admit = (res.index_select(0, ch)[:, :N_RESOURCES] + dr
+                 <= cap.index_select(0, ch)).all(-1)
+        ok = found & admit & valid_i
+        if pool is not None:
+            admit_pool = (dr <= pool).all(-1)
+            ok = ok & admit_pool
+            code = torch.where(admit_pool, srv, FAIL_TOKENS)
+        else:
+            code = srv
+        scale = ok.to(dtype)
+        uf_f = uf_i.to(dtype)
+        free.index_add_(0, flat, -c_i * scale)
+        g_uf.index_add_(0, flat, w * scale * uf_f)
+        g_nuf.index_add_(0, flat, w * scale * (1.0 - uf_f))
+        res.index_add_(0, ch, d * scale[:, None])
+        if pool is not None:
+            pool = pool - dr * scale[:, None]
+        out.append(torch.where(~found, FAIL_CAPACITY,
+                               torch.where(~admit, FAIL_POWER, code)))
+    servers = torch.stack(out, -1) if out else \
+        torch.empty((n, 0), dtype=torch.int64, device=dev)
+    res = res.view(n, c_loc, N_RESOURCES + 1)
+    return state._replace(
+        free_cores=free_s, gamma_uf=g_uf_s, gamma_nuf=g_nuf_s,
+        res_peak=res[..., :N_RESOURCES].contiguous(),
+        mem_nuf=res[..., N_RESOURCES].contiguous()), servers, pool
+
+
+def _place_one(state: DeviceClusterState, cores, is_uf, p95_eff, valid,
+               rho_cap, pool, policy, cores_per_server, mem_gb):
+    """`_walk` over one unsharded state: every operand gains a leading
+    shard axis of 1 as a view, and the results lose it."""
+    dtype, dev = state.free_cores.dtype, state.free_cores.device
+    cores = _as(cores, dtype, dev)
+    mem = torch.zeros_like(cores) if mem_gb is None \
+        else _as(mem_gb, dtype, dev)
+    cap = _as(rho_cap, dtype, dev)
+    if cap.ndim == 1:                       # watt-axis ceiling only
+        cap = torch.cat([cap[:, None], torch.full(
+            (cap.shape[0], N_RESOURCES - 1), torch.inf, dtype=dtype,
+            device=dev)], -1)
+    one = state._replace(**{f: getattr(state, f)[None] for f in (
+        "free_cores", "gamma_uf", "gamma_nuf", "res_peak", "rho_max",
+        "chassis_of", "mem_nuf")})
+    st, servers, pool = _walk(
+        one, cores[None], _as(is_uf, torch.bool, dev)[None],
+        _as(p95_eff, dtype, dev)[None], _as(valid, torch.bool, dev)[None],
+        mem[None], cap[None], pool, policy, cores_per_server)
+    st = state._replace(**{f: getattr(st, f)[0] for f in (
+        "free_cores", "gamma_uf", "gamma_nuf", "res_peak", "mem_nuf")})
+    return st, servers[0], pool
+
+
 def place_batch(state: DeviceClusterState, cores, is_uf, p95_eff, valid,
                 rho_cap, policy: SchedulerPolicy, cores_per_server: int,
                 mem_gb=None):
@@ -173,74 +301,30 @@ def place_batch(state: DeviceClusterState, cores, is_uf, p95_eff, valid,
     `mem_gb`: optional (B,) GB demand (None places zero GB). Returns
     (new_state, servers (B,) int64) with FAIL_* codes for rejects. The
     input state is left as it was."""
+    st, servers, _ = _place_one(state, cores, is_uf, p95_eff, valid,
+                                rho_cap, None, policy, cores_per_server,
+                                mem_gb)
+    return st, servers
+
+
+def place_batch_pooled(state: DeviceClusterState, pool, cores, is_uf,
+                       p95_eff, valid, rho_cap, policy: SchedulerPolicy,
+                       cores_per_server: int, mem_gb=None):
+    """`place_batch` with an explicit token pool: an admission must also
+    clear the pool on every axis with its (R,) demand ``(p95*cores,
+    cores, GB)`` and draws the pool down by it, else FAIL_TOKENS. `pool`
+    is a scalar rho balance (other axes +inf) or an (R,) balance. The
+    per-shard reserve primitive of `serve.sharding`. Returns (new_state,
+    servers, pool_left (R,))."""
     dtype, dev = state.free_cores.dtype, state.free_cores.device
-    cores = _as(cores, dtype, dev)
-    is_uf = _as(is_uf, torch.bool, dev)
-    p95 = _as(p95_eff, dtype, dev)
-    valid = _as(valid, torch.bool, dev)
-    mem = torch.zeros_like(cores) if mem_gb is None \
-        else _as(mem_gb, dtype, dev)
-    cap = _as(rho_cap, dtype, dev)
-    if cap.ndim == 1:                       # watt-axis ceiling only
-        cap = torch.cat([cap[:, None], torch.full(
-            (cap.shape[0], N_RESOURCES - 1), torch.inf, dtype=dtype,
-            device=dev)], -1)
-    # each arrival's NUF GB, taken once for the batch (a product with
-    # 0 or 1, exact in any order)
-    mem_nuf = mem * (1.0 - is_uf.to(dtype))
-    # the walk updates private copies in place; the (C, R) ledger and its
-    # NUF GB slice move as one (C, R + 1) block, one update an arrival
-    free, g_uf, g_nuf = (a.clone() for a in (
-        state.free_cores, state.gamma_uf, state.gamma_nuf))
-    res = torch.cat([state.res_peak, state.mem_nuf[:, None]], -1)
-    chassis_of = state.chassis_of
-    cps = free.new_full((), float(cores_per_server))
-    rho_max = torch.clamp(state.rho_max, min=1e-9)
-    a = policy.alpha
-    weights = [policy.packing_weight] \
-        + ([policy.power_weight] if policy.use_power_rule else [])
-    neg_inf = free.new_full((), -torch.inf)
-    out = []
-    for i in range(cores.shape[0]):
-        feasible = (free >= cores[i]) & valid[i]
-        n_feas = feasible.sum()
-        rules = [1.0 - free / cps]                          # packing
-        if policy.use_power_rule:
-            kappa = (1.0 - res[:, 0] / rho_max)[chassis_of]
-            diff = torch.where(is_uf[i], g_nuf - g_uf, g_uf - g_nuf)
-            eta = 0.5 * (1.0 + diff / cps)
-            rules.append(a * kappa + (1.0 - a) * eta)
-        rw = _rank_weights(torch.stack(rules), feasible, n_feas)
-        obj = weights[0] * rw[0]
-        for r in range(1, len(weights)):
-            obj = obj + weights[r] * rw[r]
-        srv = torch.argmax(torch.where(feasible, obj, neg_inf))
-        # admission check + masked state update: capacity fails first,
-        # then any axis of the chassis ceiling
-        # (indices stay 1-element tensors: indexing by a 0-dim tensor
-        # would read it back to the host and stall the walk)
-        found = n_feas > 0
-        srv = torch.where(found, srv, 0)
-        s1 = srv.view(1)
-        ch = chassis_of.index_select(0, s1)
-        w = p95[i] * cores[i]
-        d = torch.stack([w, cores[i], mem[i], mem_nuf[i]])
-        admit = torch.all(res.index_select(0, ch)[:, :N_RESOURCES]
-                          + d[:N_RESOURCES] <= cap.index_select(0, ch))
-        scale = (found & admit & valid[i]).to(dtype)
-        uf_f = is_uf[i].to(dtype)
-        free.index_add_(0, s1, (-cores[i] * scale).view(1))
-        g_uf.index_add_(0, s1, (w * scale * uf_f).view(1))
-        g_nuf.index_add_(0, s1, (w * scale * (1.0 - uf_f)).view(1))
-        res.index_add_(0, ch, (d * scale)[None])
-        out.append(torch.where(~found, FAIL_CAPACITY,
-                               torch.where(~admit, FAIL_POWER, srv)))
-    servers = torch.stack(out) if out else \
-        torch.empty(0, dtype=torch.int64, device=dev)
-    return state._replace(
-        free_cores=free, gamma_uf=g_uf, gamma_nuf=g_nuf,
-        res_peak=res[:, :N_RESOURCES].contiguous(),
-        mem_nuf=res[:, N_RESOURCES].contiguous()), servers
+    pool = _as(pool, dtype, dev)
+    if pool.ndim == 0:
+        pool = torch.cat([pool[None], torch.full(
+            (N_RESOURCES - 1,), torch.inf, dtype=dtype, device=dev)])
+    st, servers, pool = _place_one(state, cores, is_uf, p95_eff, valid,
+                                   rho_cap, pool[None], policy,
+                                   cores_per_server, mem_gb)
+    return st, servers, pool[0]
 
 
 class SweepCounters(NamedTuple):
@@ -254,10 +338,11 @@ class SweepCounters(NamedTuple):
     cut_by_level_w: Any  # (L,) realized watts cut per criticality level
 
 
-def _zero_sweep(dtype, device) -> SweepCounters:
-    """All-zero `SweepCounters` on `device`."""
+def _zero_sweep(dtype, device, batch_shape=()) -> SweepCounters:
+    """All-zero `SweepCounters` on `device`, per leading shard."""
     def z(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+        return torch.zeros(tuple(batch_shape) + shape, dtype=dt,
+                           device=device)
     return SweepCounters(z(dt=torch.int64), z(dt=torch.int64), z(), z(),
                          z(emergency.N_LEVELS))
 
@@ -266,21 +351,23 @@ def _apply_cap_windows(ecfg, state: DeviceClusterState, emer, pw, mask,
                        ts):
     """Step the emergency state through W queued sample windows against
     the current cluster aggregates. pw/mask/ts: (W, C) dense
-    `emergency.masked_step` operands in merged order. The windows were
+    `emergency.masked_step` operands in merged order ((W, N, C/N) over a
+    sharded state, whose counters then stay per shard). The windows were
     all merged before the arrival batch they ride with, and a cap touches
     only the emergency state, so stepping them back to back ahead of the
     placement is the same as applying each at its merged position.
     Returns ``(emergency_state, SweepCounters)``."""
     rho_lv = emergency.chassis_rho_levels(
         state.gamma_nuf, state.gamma_uf, state.chassis_servers)
-    acc = _zero_sweep(state.free_cores.dtype, state.free_cores.device)
+    acc = _zero_sweep(state.free_cores.dtype, state.free_cores.device,
+                      rho_lv.shape[:-2])
     for p, m, t in zip(pw, mask, ts):
         emer, out = emergency.masked_step(ecfg, emer, rho_lv, p, m, t)
         acc = SweepCounters(
-            acc.samples + m.sum(), acc.alarms + out.alarm.sum(),
-            acc.cut_w + out.cut_w.sum(),
-            acc.leftover_w + out.leftover_w.sum(),
-            acc.cut_by_level_w + out.cut_by_level_w.sum(0))
+            acc.samples + m.sum(-1), acc.alarms + out.alarm.sum(-1),
+            acc.cut_w + out.cut_w.sum(-1),
+            acc.leftover_w + out.leftover_w.sum(-1),
+            acc.cut_by_level_w + out.cut_by_level_w.sum(-2))
     return emer, acc
 
 

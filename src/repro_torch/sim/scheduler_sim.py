@@ -26,8 +26,9 @@ arrivals, predictions and decisions. `SimSpec.emergency` drives the
 power-emergency plane (`_EmergencySim`) at every deployment event, with
 `SimSpec.ballooning` its ballooning rung; `SimSpec.adaptive` drives the
 adaptive-ratio controller (`_AdaptiveSim`), whose ratio scales the serve
-backend's watt ceiling. Not ported yet: the `serve-sharded` backend
-(ROADMAP Queue 1 item 10), the observability hooks (item 11), and the
+backend's watt ceiling. The `serve-sharded` backend places each group
+through the sharded reserve/commit protocol (`serve.sharding`). Not
+ported yet: the observability hooks (ROADMAP Queue 1 item 11) and the
 deprecated flat-keyword adapter of the reference's `simulate`.
 """
 from __future__ import annotations
@@ -128,14 +129,17 @@ class ServeBackendSpec:
     against (DESIGN.md §16).
 
     backend:          'event' | 'serve' | 'serve-sharded' (see
-                      `simulate`; 'serve-sharded' is not ported yet).
+                      `simulate`).
     admission_budget: per-chassis `ResourceVector` ceiling for the
                       serve path (None = unbounded).
     cluster_budget:   global `ResourceVector` the sharded token pools
                       enforce.
     shards:           state partitions of the sharded protocol.
     ingest_hosts:     per-host queues the arrival stream is dealt
-                      over (sharded backend only).
+                      over (sharded backend only). A group's arrivals
+                      carry unique increasing stamps, so the merge by
+                      stamp is the arrival order at any host count:
+                      the trace does not depend on it.
     diurnal_ratchet:  condition the cores/GB admission ceilings (and
                       sharded pool axes) on the diurnal trough via
                       `core.resources.trough_ratios` — Coach-style
@@ -567,10 +571,6 @@ class _AdaptiveSim:
 
 def _unported(spec: SimSpec, obs) -> None:
     """Raise for the parts of later slices, naming their ROADMAP item."""
-    if spec.serve.backend == "serve-sharded":
-        raise NotImplementedError(
-            "backend='serve-sharded' is not ported yet (ROADMAP Queue 1 "
-            "item 10)")
     if obs is not None:
         raise NotImplementedError(
             "obs is not ported yet (ROADMAP Queue 1 item 11)")
@@ -599,7 +599,13 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
                 `serve.admission_budget` adds per-chassis (watts, cores,
                 GB) admission ceilings (rejections count as failures);
                 `serve.diurnal_ratchet` scales their cores/GB axes by
-                `core.resources.trough_ratios` of the diurnal sample.
+                `core.resources.trough_ratios` of the diurnal sample;
+      'serve-sharded' — each group placed through the sharded protocol
+                (`serve.sharding.place_group_sharded`, `serve.shards`
+                shards) in float64 on `device`, its token pool the
+                `serve.cluster_budget` net of everything committed; every
+                group asserts that each finite pool axis drew exactly
+                what it admitted.
 
     `device` is where the serve backend places and the power evaluation
     (`spec.power` with its 'torch' backend) runs: None means the card,
@@ -623,8 +629,8 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
     way) after the emergency scan, and its ratio scales the watt ceiling
     of the group's placement (the `adaptive_*` fields).
 
-    The 'serve-sharded' backend and `obs` raise `NotImplementedError`:
-    they belong to later parts of the port."""
+    `obs` raises `NotImplementedError`: it belongs to a later part of the
+    port."""
     spec = spec if spec is not None else SimSpec()
     _unported(spec, obs)
     sv = spec.serve
@@ -633,7 +639,9 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         # the controller scales the serve admission ceiling; the event
         # rule has none, so a ratio there would bind nothing
         raise ValueError("SimSpec.adaptive requires a serve backend")
-    if sv.ingest_hosts != 1:
+    if sv.ingest_hosts != 1 and backend_name != "serve-sharded":
+        # only the sharded backend deals groups over host queues; ignoring
+        # the knob elsewhere would make a host-count check pass vacuously
         raise ValueError(
             f"ingest_hosts={sv.ingest_hosts} requires "
             f"backend='serve-sharded', got {backend_name!r}")
@@ -641,12 +649,15 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         raise ValueError(
             "diurnal_ratchet conditions the serve admission ceilings; "
             "it requires a serve backend")
-    serving = backend_name == "serve"
+    serving = backend_name in ("serve", "serve-sharded")
     dev = resolve_device(device) if serving or (
         spec.power is not None and spec.power.backend == "torch") else None
     if serving:
         from repro_torch.serve.admission import resource_caps_from_budget
         from repro_torch.serve.placement import device_state, place_batch
+        from repro_torch.serve.sharding import (place_group_sharded,
+                                                resource_pool_from_budget,
+                                                shard_state)
     from repro_torch.core.features import p95_bucket
     rng = np.random.default_rng(spec.seed)
     n_servers = RACKS * CHASSIS_PER_RACK * BLADES_PER_CHASSIS
@@ -664,6 +675,9 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         serve_res_cap = resource_caps_from_budget(
             sv.admission_budget or ResourceVector(),
             BLADES_PER_CHASSIS, state.n_chassis)
+        serve_pool_total = resource_pool_from_budget(
+            sv.cluster_budget or ResourceVector(), n_servers)
+        pool_finite = np.isfinite(serve_pool_total)
         gb_cap_col = serve_res_cap[:, 2].astype(np.float64)
         gb_cap = gb_cap_col if np.isfinite(gb_cap_col).any() else None
     emer = None
@@ -785,13 +799,51 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
             rrat = trough_ratios(float(tel.diurnal_util(t))) \
                 if sv.diurnal_ratchet else np.ones(N_RESOURCES)
             cap_mult = np.asarray([ratio, rrat[1], rrat[2]], np.float32)
-            _, srvs = place_batch(
-                device_state(state, torch.float64, device=dev,
-                             mem_gb=mem_chassis, mem_nuf=mem_nuf_chassis),
-                cores_a,
-                uf_a.astype(bool), p95_a, valid, serve_res_cap * cap_mult,
-                policy, state.cores_per_server, mem_gb=mem_a)
-            chosen = [int(s) for s in srvs.cpu().numpy()[:n]]
+            dstate = device_state(state, torch.float64, device=dev,
+                                  mem_gb=mem_chassis,
+                                  mem_nuf=mem_nuf_chassis)
+            if backend_name == "serve":
+                _, srvs = place_batch(
+                    dstate, cores_a, uf_a.astype(bool), p95_a, valid,
+                    serve_res_cap * cap_mult, policy, state.cores_per_server,
+                    mem_gb=mem_a)
+                chosen = [int(s) for s in srvs.cpu().numpy()[:n]]
+            else:
+                # the pool is the global allowance net of everything
+                # committed, per axis, so the budget holds over the whole
+                # run; the ratio retargets the allowance, never the
+                # committed side (`serve.adaptive.retarget_pool`)
+                committed_vec = np.array([
+                    float(state.rho_peak.sum()),
+                    n_servers * float(CORES_PER_BLADE)
+                    - float(state.free_cores.sum()),
+                    float(mem_chassis.sum())])
+                pool_mult = np.array([ratio, rrat[1], rrat[2]])
+                pool = None if not pool_finite.any() else np.where(
+                    pool_finite,
+                    np.maximum(serve_pool_total * pool_mult
+                               - committed_vec, 0.0), np.inf)
+                sharded = shard_state(dstate, sv.shards,
+                                      rho_cap=serve_res_cap * cap_mult,
+                                      pool_total=pool)
+                _, srvs, info = place_group_sharded(
+                    sharded, cores_a, uf_a.astype(bool), p95_a, valid,
+                    policy, state.cores_per_server, mem_gb=mem_a)
+                # token conservation on every group: each finite pool
+                # axis drew exactly the demand it admitted
+                if pool is not None:
+                    adm = (srvs >= 0) & valid
+                    admitted_vec = np.array([
+                        float((p95_a * cores_a)[adm].sum()),
+                        float(cores_a[adm].sum()),
+                        float(mem_a[adm].sum())])
+                    drawn = np.asarray(info["tokens_drawn_vec"])
+                    assert np.allclose(
+                        drawn[pool_finite], admitted_vec[pool_finite],
+                        rtol=1e-9, atol=1e-6), \
+                        "per-resource token conservation violated: " \
+                        f"drawn={drawn} admitted={admitted_vec}"
+                chosen = [int(s) for s in srvs[:n]]
         for i, (cores, life_h, uf_pred, p95_eff) in enumerate(group):
             srv = chosen[i] if chosen is not None else \
                 policy.choose(state, cores, uf_pred)

@@ -255,28 +255,37 @@ PLANE_UTILS = [0.40, 0.41, 0.42, 0.43, 0.44, 0.45, 0.95, 0.95,
                0.40, 0.40, 0.40, 0.40, 0.40, 0.40]
 
 
-def _planes_run(world, device, hosts, samples=None):
+def _planes_run(world, device, hosts, samples=None, shards=None):
     """The streamed loop with the emergency plane, its ballooning rung and
     the adaptive controller: arrival chunks dealt over `hosts`, departures
     (with their GB) of the admitted rows two chunks back, and after every
     chunk two sweeps of every chassis. Sweep powers are `samples` when
     given, else `sampled_power` at the next PLANE_UTILS value on the live
-    aggregates. Returns the pipeline, the results, the samples and the
-    most GB ballooned out after any sweep."""
+    aggregates. With `shards`, a `ShardedServePipeline` under a cluster
+    budget. Returns the pipeline, the results, the samples and the most GB
+    ballooned out after any sweep."""
     from repro_torch.serve import (AdaptiveConfig, BallooningConfig,
                                    EmergencyConfig, PlaneBundle,
-                                   ServeConfig, ServePipeline, emergency)
+                                   ResourceVector, ServeConfig,
+                                   ServePipeline, ShardedServeConfig,
+                                   ShardedServePipeline, emergency)
     from repro_torch.sim.telemetry import arrival_batch, arrival_stamps
     svc, hist, labels, arrivals = world
     ecfg = EmergencyConfig.from_model(1560.0)
-    pipe = ServePipeline.from_history(
+    planes = dict(emergency=ecfg, ballooning=BallooningConfig(),
+                  adaptive=AdaptiveConfig(window=8, min_history=3,
+                                          hot_util=0.63, step_up=0.15,
+                                          step_down=0.5, ratio_max=3.0))
+    cls, cfg, extra = ServePipeline, ServeConfig, {}
+    if shards is not None:
+        cls, cfg, extra = ShardedServePipeline, ShardedServeConfig, \
+            {"n_shards": shards}
+        planes["cluster_budget"] = ResourceVector(watts=48 * 112.0 + 1500.0)
+    pipe = cls.from_history(
         svc, hist, labels, n_servers=48, cores_per_server=40,
-        blades_per_chassis=12, device=device, config=ServeConfig(
-            batch_size=32, n_ingest_hosts=hosts, planes=PlaneBundle(
-                emergency=ecfg, ballooning=BallooningConfig(),
-                adaptive=AdaptiveConfig(window=8, min_history=3,
-                                        hot_util=0.63, step_up=0.15,
-                                        step_down=0.5, ratio_max=3.0))))
+        blades_per_chassis=12, device=device, config=cfg(
+            batch_size=32, n_ingest_hosts=hosts,
+            planes=PlaneBundle(**planes), **extra))
     n = 16 * len(PLANE_UTILS)
     stamps = arrival_stamps(n)
     cores = np.array([v.cores for v in arrivals.vms], np.float32)
@@ -368,3 +377,39 @@ def test_streamed_serve_with_both_planes_matches_cpu(cuda):
         assert torch.equal(card.balloon_state.ballooned_gb,
                            pipe.balloon_state.ballooned_gb)
         assert torch.equal(st.util, pipe.adaptive_state.util)
+
+
+@pytest.mark.cuda
+def test_sharded_streamed_planes_match_cpu(cuda):
+    """`ShardedServePipeline` at 4 shards under a cluster budget, with the
+    three planes, on the card: decisions, alarms, throttled-seconds,
+    per-shard ratios and spill counters equal the same stream (same sweep
+    powers) on the CPU and at 4 hosts; a second card run is bit-equal,
+    pools included; the forest kernel carries every micro-batch and the
+    admitted rho never exceeds the budget's pool."""
+    from repro_torch.serve import rho_pool_from_budget
+    world = _stream_world()
+    reset_launches()
+    card, res, samples, peak_gb = _planes_run(world, cuda, 1, shards=4)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["forest"] == len(res)
+    runs = [_planes_run(world, "cpu", 1, samples, shards=4),
+            _planes_run(world, cuda, 4, samples, shards=4),
+            _planes_run(world, cuda, 1, shards=4)]
+    assert card.alarms > 0 and peak_gb > 0
+    assert card.spill_info["spilled"] > 0
+    for other, other_res, _, _ in runs:
+        assert other.alarms == card.alarms
+        assert other.spill_info == card.spill_info
+        np.testing.assert_array_equal(other.throttled_by_level(),
+                                      card.throttled_by_level())
+        np.testing.assert_array_equal(other.adaptive_ratio,
+                                      card.adaptive_ratio)
+        for a, b in zip(res, other_res, strict=True):
+            np.testing.assert_array_equal(a.server, b.server)
+    for pipe in (runs[1][0], runs[2][0]):
+        assert torch.equal(pipe.sharded.pool, card.sharded.pool)
+        for a, b in zip(pipe.global_state(), card.global_state()):
+            assert torch.equal(a, b)
+    rho = float(card.global_state().rho_peak.double().sum())
+    assert rho <= rho_pool_from_budget(48 * 112.0 + 1500.0, 48) + 1e-3

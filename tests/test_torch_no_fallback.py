@@ -150,6 +150,33 @@ def test_mitigation_and_evaluation_entry_points_default_to_the_card(
     assert oversubscribe.main(["--chassis", "2", "--days", "1"]).budget_w > 0
 
 
+def test_sharded_entry_points_default_to_the_card(no_cuda):
+    """The sharded pipeline, its per-shard plane states and the sim's
+    serve-sharded backend live on the card unless asked for the CPU."""
+    from repro_torch.serve import (AdaptiveConfig, ShardedServeConfig,
+                                   ShardedServePipeline, sharding)
+    pop = generate_population(30, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedServePipeline.from_history(
+            None, pop, np.zeros(30), n_servers=48, cores_per_server=40,
+            blades_per_chassis=12,
+            config=ShardedServeConfig(batch_size=32, n_shards=4))
+    for init in (sharding.init_emergency_sharded,
+                 sharding.init_ballooning_sharded):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init(4, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharding.init_adaptive_sharded(AdaptiveConfig(), 4, 2)
+    spec = scheduler_sim.SimSpec(days=0.05, serve=scheduler_sim.
+                                 ServeBackendSpec(backend="serve-sharded",
+                                                  shards=4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scheduler_sim.simulate(SchedulerPolicy(),
+                               scheduler_sim.PredictionChannel(), spec)
+    assert sharding.init_emergency_sharded(4, 2, device="cpu").rapl.shape \
+        == (2, 2)
+
+
 def test_cuda_kernel_on_cpu_tensor_raises():
     x = torch.zeros(4, 18)
     with pytest.raises(ValueError, match="CUDA"):

@@ -160,19 +160,12 @@ def test_power_evaluation_matches_reference():
     assert np.abs(got.alert_frac - want.alert_frac).max() <= 0.01
 
 
-@pytest.mark.parametrize("plane", ["serve-sharded", "obs"])
+@pytest.mark.parametrize("plane", ["obs"])
 def test_unported_planes_raise(plane):
     """The parts of later slices raise, naming their ROADMAP item."""
-    item = {"serve-sharded": "item 10", "obs": "item 11"}[plane]
-    spec, obs = S.SimSpec(days=0.1), None
-    if plane == "serve-sharded":
-        spec = S.SimSpec(days=0.1, serve=S.ServeBackendSpec(
-            backend="serve-sharded"))
-    else:
-        obs = object()
-    with pytest.raises(NotImplementedError, match=item):
-        S.simulate(SchedulerPolicy(), S.PredictionChannel(), spec, obs=obs,
-                   device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        S.simulate(SchedulerPolicy(), S.PredictionChannel(),
+                   S.SimSpec(days=0.1), obs=object(), device="cpu")
     with pytest.raises(ValueError, match="ballooning requires"):
         S.SimSpec(ballooning=object())
     with pytest.raises(ValueError, match="diurnal_ratchet"):
