@@ -85,7 +85,20 @@ rows; flash and SSD in bf16), and drives the port's two paths:
   the reference test's cluster budget rejects with every group's token
   conservation check holding), with arrivals/s, launches per arrival
   (the sharded serving runs profiled whole, spills included) and the
-  device idle share.
+  device idle share;
+- the observability plane (`obs_serve`, `obs_streamed`, `obs_sharded`,
+  `monitor`): the serving cell with `Observability.full()` (the main
+  path's decisions and state bit for bit, its counters those decisions,
+  every arrival scored and the scorecard reconciled with
+  `core.forest.evaluate`; arrivals/s and launches per micro-batch with
+  obs off and on); the streamed cell with both planes and obs at 1 and 4
+  hosts (the obs-off run's decisions, alarms and throttled-seconds, sweep
+  counters that are the plane's, and the flight recorder replayed on a
+  fresh card pipeline); the 4-shard cell under the pool (obs on decides
+  as off, tokens drawn minus credited is the pools' change, the spill
+  counters the pipeline's); and `repro_torch.launch.monitor --sim` at 4
+  shards on the card (its snapshot, Prometheus text and alerts written
+  under build/obs_monitor/ and read back).
 
 It also builds the serving cell's history table twice and serves the
 arrivals twice, and checks the tables bit-equal and the decisions equal
@@ -2319,6 +2332,413 @@ def sim_sharded(dev) -> dict:
     return out
 
 
+#: The observability phases (`obs_serve`, `obs_streamed`, `obs_sharded`,
+#: `monitor`): the main path's decisions at seed 0 (PERF.md §5);
+#: the monitor CLI's sim (4 shards, MONITOR_DAYS days) and the families
+#: its Prometheus text must hold.
+MAIN_PATH_OUTCOMES = {"admitted": 3340, "conservative": 969}
+#: Passes of `obs_serve`'s timed pairs: each micro-batch served by an
+#: obs-off and an obs-on pipeline back to back, either first in turn, so
+#: the host's drift within a call falls on both sides of every pair.
+OBS_SERVE_PASSES = 3
+MONITOR_SHARDS, MONITOR_DAYS = 4, 0.25
+MONITOR_FAMILIES = ("serve_dispatch_total", "serve_span_seconds",
+                    "emergency_alarms_total",
+                    "emergency_throttled_seconds_total", "adaptive_ratio",
+                    "adaptive_ratchet_total", "quality_scored",
+                    "sim_pred_crit_accuracy", "slo_burn_rate")
+
+
+def obs_serve(run, hist, budget_w: float, main_servers, main_state,
+              main_conservative: int, extra, seed: int, dev) -> dict:
+    """The serving cell with `Observability.full()` on the card: its
+    decisions and final state must be the main path's bit for bit, its
+    counters those decisions (at seed 0 the MAIN_PATH_OUTCOMES), every
+    arrival scored, and the scorecard's high-confidence criticality
+    counters `core.forest.evaluate`'s on the same featurized arrivals.
+    The overhead: over OBS_SERVE_PASSES passes, fresh obs-off and obs-on
+    pipelines serve each micro-batch back to back (either first in
+    turn); each pair's on/off wall ratio, its median and quartiles, and
+    arrivals/s per pass. The launches of one micro-batch (`extra[0]`)
+    with obs off and on, after equal runs. The obs-on path's launch
+    counts are read from 0 around each of its micro-batches of the first
+    pass."""
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.core.forest import evaluate
+    from repro_torch.obs import Observability
+    from repro_torch.serve import (PlaneBundle, ResourceVector, ServeConfig,
+                                   ServePipeline, featurize_batch)
+
+    def pipeline(obs):
+        return ServePipeline.from_history(
+            run["svc"], hist, run["labels"], n_servers=N_SERVERS,
+            cores_per_server=CORES, blades_per_chassis=BLADES, device=dev,
+            config=ServeConfig(batch_size=BATCH, planes=PlaneBundle(
+                chassis_budget=ResourceVector(watts=budget_w), obs=obs)))
+
+    obs = Observability.full()
+    chunks = list(micro_batches(run["batch"]))
+    ms = {"off": [], "on": []}
+    checked, launches = [], {k: 0 for k in KERNEL_LAUNCHES}
+    for rnd in range(OBS_SERVE_PASSES):
+        pipes = {"off": pipeline(None),
+                 "on": pipeline(obs if rnd == 0 else Observability.full())}
+        if rnd == 0:
+            checked_pipe = pipes["on"]
+        for k, chunk in enumerate(chunks):
+            for name in (("off", "on") if (k + rnd) % 2 == 0
+                         else ("on", "off")):
+                first = rnd == 0 and name == "on"
+                if first:
+                    reset_launches()
+                t0 = time.perf_counter()
+                res = pipes[name].serve(chunk)   # ends in a host copy
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+                if first:
+                    checked.append(res)
+                    for kern, n in KERNEL_LAUNCHES.items():
+                        launches[kern] += n
+    torch.cuda.synchronize()
+    ratios = np.array(ms["on"]) / np.array(ms["off"])
+    servers = np.concatenate([p.server for p in checked])
+    check(np.array_equal(servers, main_servers),
+          "obs_serve: the main path's decision for every arrival")
+    for f, a, b in zip(main_state._fields, checked_pipe.state, main_state):
+        check(torch.equal(a, b), f"obs_serve: final {f} bit-equal to the "
+              "main path's")
+    n_batches = N_ARRIVALS // BATCH
+    check(launches["forest"] == n_batches,
+          f"obs_serve: a forest launch per micro-batch: {launches}")
+    v = obs.registry.value
+    admitted = int((main_servers >= 0).sum())
+    rejects = {r: int(v("serve_rejects_total", reason=r))
+               for r in ("capacity", "power", "tokens")}
+    counters = {"arrivals": int(v("serve_arrivals_total")),
+                "admits": int(v("serve_admits_total")),
+                "conservative": int(v("serve_conservative_total")),
+                "batches": int(v("serve_batches_total")),
+                "rejects": rejects}
+    check(counters["arrivals"] == N_ARRIVALS
+          and counters["admits"] == admitted
+          and counters["conservative"] == main_conservative
+          and counters["batches"] == n_batches,
+          f"obs_serve: counters are the main path's decisions: {counters}")
+    check(sum(rejects.values()) == N_ARRIVALS - admitted,
+          f"obs_serve: rejects by reason sum to {N_ARRIVALS - admitted}: "
+          f"{rejects}")
+    if seed == 0:
+        check(admitted == MAIN_PATH_OUTCOMES["admitted"]
+              and main_conservative == MAIN_PATH_OUTCOMES["conservative"],
+              f"obs_serve: {admitted} admitted, {main_conservative} "
+              f"conservative at seed 0: {MAIN_PATH_OUTCOMES}")
+    card = obs.quality
+    check(card.n_scored == N_ARRIVALS,
+          f"obs_serve: every arrival scored: {card.n_scored}")
+    check(obs.audit.total_recorded == N_ARRIVALS,
+          "obs_serve: an audit row per arrival")
+    online = card.offline_style("crit")
+    x = featurize_batch(checked_pipe.table, run["batch"]).cpu().numpy()
+    y = np.asarray(run["batch"].user_facing, np.int64)
+    svc = run["svc"]
+    offline = evaluate(svc.criticality, x, y,
+                       confidence=svc.confidence_gate)
+    for k in ("pct_high_conf", "accuracy_high_conf"):
+        check(math.isclose(online[k], offline[k], rel_tol=1e-9),
+              f"obs_serve: scorecard {k} {online[k]} == evaluate's "
+              f"{offline[k]}")
+    for c, vals in offline["buckets"].items():
+        for k in ("recall", "precision"):
+            got = online["buckets"][c][k]
+            check(math.isclose(got, vals[k], rel_tol=1e-9),
+                  f"obs_serve: class {c} {k} {got} == evaluate's {vals[k]}")
+    spans = {k: {"count": int(n), "total_s": s}
+             for k, (n, s) in obs.tracer.totals().items()}
+    check(all(spans.get(k, {}).get("count") == n_batches
+              for k in ("featurize", "infer", "place", "commit")),
+          f"obs_serve: a span of each stage per micro-batch: {spans}")
+    # launches of one more micro-batch with obs off and on, on pipelines
+    # that have served the same arrivals
+    per_batch = {
+        name: device_profile(lambda: None, lambda p=pipes[name]: p.serve(
+            extra[0]))["launches"] for name in ("off", "on")}
+    check(per_batch["on"] >= per_batch["off"],
+          f"obs_serve: launches per micro-batch {per_batch}")
+    n_chunks = len(chunks)
+    return {
+        "arrivals": N_ARRIVALS, "micro_batches": n_batches,
+        "admitted": admitted, "conservative": main_conservative,
+        "counters": counters, "scored": card.n_scored,
+        "scorecard": {"crit_accuracy": card.crit_accuracy,
+                      "p95_accuracy": card.p95_accuracy,
+                      "model_stale": card.model_stale,
+                      "drift": card.drift(), "offline_style": online},
+        "evaluate": offline, "spans": spans,
+        "arrivals_per_s": {k: [N_ARRIVALS * 1e3 / sum(
+            v[i * n_chunks:(i + 1) * n_chunks]) for i in range(
+                OBS_SERVE_PASSES)] for k, v in ms.items()},
+        "batch_p50_ms": {k: float(np.median(v)) for k, v in ms.items()},
+        "pairs": len(ratios),
+        "overhead_share": float(np.median(ratios)) - 1.0,
+        "overhead_share_quartiles": (np.percentile(ratios, [25, 75])
+                                     - 1.0).tolist(),
+        "pairs_on_slower": int((ratios > 1.0).sum()),
+        "launches": launches, "launches_per_micro_batch": per_batch,
+        "extra_launches_per_micro_batch": per_batch["on"]
+        - per_batch["off"],
+        "decisions_equal_main_path": True, "scorecard_reconciles": True}
+
+
+def obs_streamed(run, hist, arrivals, labels, budget_w: float, seed: int,
+                 dev) -> dict:
+    """The streamed cell with both planes (`streamed_planes`'s) and
+    `Observability.full()` at 1 and 4 hosts against the same cell with
+    obs off: equal decisions, conservative flags, alarms,
+    throttled-seconds and migration cycle; the sweep counters those of
+    the plane (alarms `pipe.alarms`, one window of the 60 chassis per
+    sweep, the watts removed covering the demand no floor left over);
+    and the flight recorder replayed through a fresh card pipeline
+    (`verify_replay`) gives the recorded decisions. The launch counts
+    read from 0 around the 1-host obs run."""
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.obs import LEVEL_NAMES, Observability
+    from repro_torch.obs.recorder import verify_replay
+    from repro_torch.serve import (AdaptiveConfig, BallooningConfig,
+                                   EmergencyConfig)
+    from repro_torch.sim.telemetry import arrival_batch
+    batch = arrival_batch(arrivals)
+    both = dict(emergency=EmergencyConfig.from_model(
+        EMERGENCY_BUDGET_W, dwell_s=STREAM_DWELL_S),
+        ballooning=BallooningConfig(),
+        adaptive=AdaptiveConfig(**PLANES_ADAPTIVE))
+    warm_state, warm = warm_cluster(seed)
+    kw = dict(utils=PLANES_UTILS, sweep_every=1)
+    n_chassis = N_SERVERS // BLADES
+
+    def pipeline(hosts, obs=None):
+        return _stream_pipeline(run, hist, labels, budget_w, warm_state,
+                                warm, hosts, dev, obs=obs, **both)
+    off = streamed(pipeline(1), batch, 1, True, warm, **kw)
+    out, launches = {"off": {"arrivals_per_s": off["arrivals_per_s"]}}, None
+    for hosts in STREAM_HOSTS:
+        obs = Observability.full()
+        pipe = pipeline(hosts, obs)
+        if hosts == 1:
+            reset_launches()
+        r = streamed(pipe, batch, hosts, True, warm, off["samples"], **kw)
+        if hosts == 1:
+            launches = dict(KERNEL_LAUNCHES)
+        what = f"obs_streamed, {hosts} hosts"
+        for f in ("servers", "conservative", "throttled_by_level"):
+            check(np.array_equal(r[f], off[f]), f"{what}: equal {f}")
+        check(r["alarms"] == off["alarms"] and r["cycle"] == off["cycle"],
+              f"{what}: equal alarms and migration cycle")
+        v = obs.registry.value
+        sweep = {k: v(f"emergency_{k}_total") for k in (
+            "alarms", "cap_windows", "samples", "cut_watts",
+            "leftover_watts")}
+        removed = sum(v("emergency_level_cut_watts_total", level=lv)
+                      for lv in LEVEL_NAMES)
+        check(sweep["alarms"] == r["alarms"] == pipe.alarms,
+              f"{what}: alarm counter {sweep['alarms']} == the plane's "
+              f"{r['alarms']}")
+        check(sweep["cap_windows"] == r["sweeps"]
+              and sweep["samples"] == n_chassis * r["sweeps"],
+              f"{what}: a window of {n_chassis} samples per sweep: {sweep}")
+        check(removed >= sweep["cut_watts"] - sweep["leftover_watts"]
+              - 1e-3 * max(1.0, sweep["cut_watts"]),
+              f"{what}: watts removed {removed} cover the demand past the "
+              f"floors {sweep}")
+        check(v("serve_arrivals_total") == len(batch)
+              and obs.quality.n_scored == len(batch),
+              f"{what}: every arrival counted and scored")
+        rec = obs.recorder
+        check(not rec.wrapped, f"{what}: the recorder holds the stream")
+        t0 = time.perf_counter()
+        got = verify_replay(rec, pipeline(1))
+        replay_s = time.perf_counter() - t0
+        check(np.array_equal(got, off["servers"]),
+              f"{what}: the replay gives every recorded decision")
+        trail = obs.adaptive
+        out[f"hosts_{hosts}"] = {
+            "arrivals_per_s": r["arrivals_per_s"],
+            "sweep_counters": sweep, "watts_removed": removed,
+            "alarms": r["alarms"], "replay_s": replay_s,
+            "replayed_decisions": len(got),
+            "adaptive_rows": trail.total_recorded,
+            "adaptive_backoffs": len(trail.backoffs()),
+            "adaptive_last": trail.explain(trail.total_recorded - 1)
+            .describe() if trail.total_recorded else None,
+            "slo_active": [a["slo"] for a in obs.slo.active_alerts()],
+            "slo_alerts_total": {r_: int(s["alerts"]) for r_, s
+                                 in obs.slo.summary().items()},
+            "recorder": {k: rec.summary()[k] for k in (
+                "rows", "runs", "by_kind", "dropped_runs")},
+            "incidents": len(rec.incidents),
+            "balloon_inflations": v("balloon_inflations_total"),
+            "spans": {k: int(n) for k, (n, _) in obs.tracer.totals()
+                      .items()}}
+    return {"arrivals": len(batch), "sweeps": off["sweeps"],
+            "alarms": off["alarms"], "launches": launches,
+            "decisions_equal_obs_off": True, "replay_equal": True, **out}
+
+
+def obs_sharded(run, hist, budget_w: float, cluster_w: float, dev) -> dict:
+    """The serving cell at 4 shards under `sharded_serve`'s 80 % pool
+    (`cluster_w`), obs on against obs off (timed off, on, on, off):
+    bit-equal decisions and pools;
+    then every other admitted VM departs from the obs pipeline, and the
+    tokens it drew minus the tokens departures credited must be the
+    pools' change (1e-4 relative), the spill counters the pipeline's
+    `spill_info`. The launch counts read from 0 around the obs run."""
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.obs import Observability
+    from repro_torch.serve import (PlaneBundle, ResourceVector,
+                                   ShardedServeConfig, ShardedServePipeline)
+
+    def pipeline(obs):
+        return ShardedServePipeline.from_history(
+            run["svc"], hist, run["labels"], n_servers=N_SERVERS,
+            cores_per_server=CORES, blades_per_chassis=BLADES, device=dev,
+            config=ShardedServeConfig(
+                batch_size=BATCH, n_shards=4, planes=PlaneBundle(
+                    chassis_budget=ResourceVector(watts=budget_w),
+                    cluster_budget=ResourceVector(watts=cluster_w),
+                    obs=obs)))
+
+    def serve_all(pipe):
+        t0 = time.perf_counter()
+        parts = [pipe.serve(chunk) for chunk in micro_batches(run["batch"])]
+        torch.cuda.synchronize()
+        return parts, time.perf_counter() - t0
+    off = pipeline(None)
+    parts_off, wall_off = serve_all(off)
+    obs = Observability.full()
+    on = pipeline(obs)
+    pool_start = on._pool_tokens_left()
+    reset_launches()
+    parts, wall_on = serve_all(on)
+    launches = dict(KERNEL_LAUNCHES)
+    # a second pair, the other side first
+    wall_on2 = serve_all(pipeline(Observability.full()))[1]
+    wall_off2 = serve_all(pipeline(None))[1]
+    walls = {"off": [wall_off, wall_off2], "on": [wall_on, wall_on2]}
+    servers = np.concatenate([p.server for p in parts])
+    check(np.array_equal(servers,
+                         np.concatenate([p.server for p in parts_off])),
+          "obs_sharded: obs on decides as obs off")
+    check(torch.equal(on.sharded.pool, off.sharded.pool),
+          "obs_sharded: pools bit-equal with obs on and off")
+    check((servers == -3).sum() > 0, "obs_sharded: the pools run out")
+    adm = np.flatnonzero(servers >= 0)[::2]
+    p95 = np.concatenate([p.p95_eff for p in parts])
+    uf = np.concatenate([p.workload_type for p in parts]) == 1
+    on.depart(servers[adm], run["batch"].cores[adm], p95[adm], uf[adm],
+              mem_gb=run["batch"].memory_gb[adm])
+    pool_end = on._pool_tokens_left()
+    v = obs.registry.value
+    drawn = v("serve_tokens_drawn_total")
+    credited = v("serve_tokens_credited_total")
+    change = pool_start - pool_end
+    check(abs((drawn - credited) - change) <= 1e-4 * abs(change),
+          f"obs_sharded: drawn {drawn} - credited {credited} == the pools' "
+          f"change {change}")
+    info = on.spill_info
+    spill = {"rounds": v("serve_spill_rounds_total"),
+             "spilled": v("serve_spilled_total"),
+             "spill_admitted": v("serve_spill_admits_total")}
+    n_batches = N_ARRIVALS // BATCH
+    check(spill["spilled"] == info["spilled"]
+          and spill["spill_admitted"] == info["spill_admitted"]
+          and spill["rounds"] == info["rounds"] - n_batches
+          and v("serve_dispatch_total", kind="sharded_round")
+          == info["rounds"],
+          f"obs_sharded: spill counters {spill} match {info}")
+    check(launches["forest"] == n_batches,
+          f"obs_sharded: a forest launch per micro-batch: {launches}")
+    return {"shards": 4, "cluster_budget_w": cluster_w,
+            "admitted": int((servers >= 0).sum()),
+            "token_rejected": int((servers == -3).sum()),
+            "pool_start": pool_start, "pool_end": pool_end,
+            "tokens_drawn": drawn, "tokens_credited": credited,
+            "departed": len(adm), "spill_counters": spill,
+            "spill_info": info, "launches": launches,
+            "arrivals_per_s": {k: [N_ARRIVALS / w for w in v]
+                               for k, v in walls.items()},
+            "overhead_share": sum(walls["on"]) / sum(walls["off"]) - 1.0,
+            "decisions_equal_obs_off": True, "tokens_conserved": True}
+
+
+def monitor_phase(dev) -> dict:
+    """`python -m repro_torch.launch.monitor --sim` on `dev` at
+    MONITOR_SHARDS shards over MONITOR_DAYS days,
+    writing its snapshot, Prometheus text and alerts under
+    build/obs_monitor/: the snapshot must parse back to the bundle's, the
+    Prometheus text hold MONITOR_FAMILIES, the alerts their schema. The
+    launch counts read from 0 around it."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.launch import monitor
+    out_dir = Path(__file__).resolve().parent / "build" / "obs_monitor"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {k: str(out_dir / f) for k, f in (
+        ("out", "obs_snapshot.json"), ("prom", "metrics.prom"),
+        ("alerts", "obs_alerts.json"))}
+    report = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        obs = monitor.main(["--sim", "--device", str(dev),
+                            "--shards", str(MONITOR_SHARDS),
+                            "--days", str(MONITOR_DAYS),
+                            *(x for k, p in paths.items()
+                              for x in (f"--{k}", p))])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(KERNEL_LAUNCHES)
+    with open(paths["out"]) as f:
+        snap = json.load(f)
+    check(snap == json.loads(json.dumps(monitor.snapshot_dict(obs))),
+          "monitor: the snapshot parses back to the bundle's")
+    with open(paths["prom"]) as f:
+        prom = f.read()
+    check(prom == obs.registry.to_prometheus(),
+          "monitor: the Prometheus text is the registry's")
+    missing = [k for k in MONITOR_FAMILIES if k not in prom]
+    check(not missing, f"monitor: Prometheus families missing: {missing}")
+    with open(paths["alerts"]) as f:
+        alerts = json.load(f)
+    check(set(alerts) == {"active", "rules"}
+          and all(alerts["rules"][a["slo"]]["active"]
+                  for a in alerts["active"]),
+          "monitor: the alerts artifact's schema")
+    v = obs.registry.value
+    check(v("sim_placements_total") > 0
+          and v("serve_dispatch_total", kind="sharded_round") > 0,
+          "monitor: the sim placed through the sharded rounds")
+    text = report.getvalue()
+    return {"shards": MONITOR_SHARDS, "days": MONITOR_DAYS,
+            "seconds": seconds, "report_lines": len(text.splitlines()),
+            "sections": [ln for ln in text.splitlines()
+                         if ln.startswith("== ")],
+            "placements": v("sim_placements_total"),
+            "failures": v("sim_failures_total"),
+            "alarms": v("emergency_alarms_total"),
+            "migrations": v("emergency_migrations_total"),
+            "throttled_s": {lv: v("emergency_throttled_seconds_total",
+                                  level=lv) for lv in ("nuf", "uf")},
+            "sharded_rounds": v("serve_dispatch_total",
+                                kind="sharded_round"),
+            "scored": obs.quality.n_scored,
+            "active_alerts": [a["slo"] for a in alerts["active"]],
+            "families": list(MONITOR_FAMILIES),
+            "snapshot_bytes": os.path.getsize(paths["out"]),
+            "prom_lines": len(prom.splitlines()), "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2559,6 +2979,29 @@ def main(argv=None) -> int:
     reset_launches()
     emit("sim_sharded", **sim_sharded(dev), launches=dict(KERNEL_LAUNCHES))
 
+    # the observability plane: the serving cell, the streamed cell with
+    # both planes and the 4-shard pooled cell with `Observability.full()`
+    # against obs off, and the monitor CLI's sim (each obs run's counts
+    # read from 0 inside)
+    o_serve = obs_serve(run, hist, budget_w, servers, main_state,
+                        conservative, extra, args.seed, dev)
+    emit("obs_serve", **o_serve)
+    o_stream = obs_streamed(run, hist, arrivals, stream_labels, budget_w,
+                            args.seed, dev)
+    emit("obs_streamed", **o_stream)
+    o_shard = obs_sharded(run, hist, budget_w,
+                          shard_serve["shards_4_budget"]["cluster_budget_w"],
+                          dev)
+    emit("obs_sharded", **o_shard)
+    o_mon = monitor_phase(dev)
+    emit("monitor", **o_mon)
+    obs_launches = {name: {k: r["launches"][k]
+                           for k in ("forest", "template")}
+                    for name, r in (("obs_serve", o_serve),
+                                    ("obs_streamed", o_stream),
+                                    ("obs_sharded", o_shard),
+                                    ("monitor", o_mon))}
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "forest_sums", "route": "cuda",
@@ -2572,6 +3015,7 @@ def main(argv=None) -> int:
              k: v["launches"]["forest"] for k, v in shard_serve.items()
              if isinstance(v, dict) and "launches" in v},
          "launches_sharded_planes": shard_planes["launches"]["forest"],
+         "launches_obs": {k: v["forest"] for k, v in obs_launches.items()},
          **{k: forest["micro_batch"][k] for k in TIMES},
          "library_ms": None, "shape": forest["micro_batch"]["shape"],
          "blocks": forest["micro_batch"]["blocks"],
@@ -2588,6 +3032,7 @@ def main(argv=None) -> int:
          "launches_examples": {
              k: examples[k]["launches"]["template"]
              for k in ("quickstart", "datacenter_sim")},
+         "launches_obs": {k: v["template"] for k, v in obs_launches.items()},
          **{k: res_hist[k] for k in TIMES},
          "library_ms": None, "shape": res_hist["shape"],
          "edge_shapes": [r["shape"] for r in edges["template"]],

@@ -70,8 +70,10 @@ class AdaptiveConfig:
     ``step_down`` should be several times ``step_up``. The power-model
     fields read power samples back as utilization like
     `serve.emergency.util_from_power`. ``hold_on_stale`` clamps the
-    applied ratio to ``ratio_min`` while the prediction scorecard reports
-    a stale model; without that scorecard it has no effect."""
+    applied ratio to ``ratio_min`` while the prediction scorecard of the
+    pipeline's obs plane (`repro_torch.obs.PredictionScorecard`, on with
+    `PlaneBundle.obs`) reports a stale model; a pipeline without that
+    scorecard applies the ratio unclamped."""
     window: int = 16
     min_history: int = 4
     spread_q_lo: float = 0.1
@@ -385,11 +387,12 @@ def adaptive_step(cfg: AdaptiveConfig, st: AdaptiveState,
 # --- host helpers, either form ---------------------------------------------
 
 def gate_ratio_on_stale(cfg: AdaptiveConfig, ratio, stale: bool):
-    """The applied ratio, clamped to ``cfg.ratio_min`` while the
-    prediction scorecard reports a stale model and passed through
-    otherwise. The controller state is never rewritten, so the integrated
-    ratio resumes once the model scores fresh again. Takes a numpy array
-    or a tensor, scalar or batched."""
+    """The applied ratio, clamped to ``cfg.ratio_min`` while the obs
+    plane's prediction scorecard reports a stale model (`stale`, its
+    `model_stale`; the pipelines call this from `_apply_ratio`) and
+    passed through otherwise. The controller state is never rewritten, so
+    the integrated ratio resumes once the model scores fresh again. Takes
+    a numpy array or a tensor, scalar or batched."""
     if not stale:
         return ratio
     if torch.is_tensor(ratio):

@@ -29,19 +29,27 @@ ceiling before the next micro-batch.
 `ShardedServePipeline` partitions the cluster state into shards that
 place each micro-batch together under the reserve/commit token protocol
 of `serve.sharding`, with `PlaneBundle.cluster_budget` as the token
-pool. The observability plane is a later part of the port (ROADMAP.md).
+pool. `PlaneBundle.obs`, a `repro_torch.obs.Observability`, records what
+the pipeline decided (metrics, audit rows, spans, windows, the
+prediction scorecard, SLO burn rates, the flight recorder) on the host,
+from outputs the device calls already returned: decisions are the same
+bits with it on or off.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch.core import features
 from repro_torch.core.placement import SchedulerPolicy
 from repro_torch.core.predictor import UF, PredictionService
 from repro_torch.core.resources import N_RESOURCES, RESOURCES, ResourceVector
 from repro_torch.device import resolve_device
+from repro_torch.obs import LEVEL_NAMES, Observability
 from repro_torch.serve import (adaptive, admission, ballooning, emergency,
                                placement, sharding)
 from repro_torch.serve.featurizer import (
@@ -53,40 +61,26 @@ from repro_torch.serve.ingest import (
     slice_soa)
 from repro_torch.sim.telemetry import ArrivalBatch, Population
 
-#: PlaneBundle fields not carried yet -> the ROADMAP.md Queue 1 item that
-#: ports them.
-_LATER_PLANES = {
-    "obs": "Queue 1 item 11 (observability)",
-}
-
 
 @dataclass(frozen=True)
 class PlaneBundle:
-    """Control-plane attachments of a pipeline. This part of the port
-    carries `chassis_budget`, the per-chassis admission budget as a
-    `ResourceVector` (the watts axis converts through the power model
-    into the rho ceiling, cores/GB axes are ledger currency);
-    `cluster_budget`, the global `ResourceVector` whose token pools a
-    `ShardedServePipeline` enforces (an unsharded pipeline ignores it);
-    `emergency`, the power-emergency plane's `EmergencyConfig`;
-    `ballooning`, the rung between capping and migration (it requires
-    `emergency`: it sizes its reclaim with the emergency plane's alarm
-    arithmetic); and `adaptive`, the closed-loop oversubscription
-    controller. Setting `obs` raises NotImplementedError naming the
-    ROADMAP item."""
+    """Control-plane attachments of a pipeline: `chassis_budget`, the
+    per-chassis admission budget as a `ResourceVector` (the watts axis
+    converts through the power model into the rho ceiling, cores/GB
+    axes are ledger currency); `cluster_budget`, the global
+    `ResourceVector` whose token pools a `ShardedServePipeline` enforces
+    (an unsharded pipeline ignores it); `emergency`, the power-emergency
+    plane's `EmergencyConfig`; `ballooning`, the rung between capping
+    and migration (it requires `emergency`: it sizes its reclaim with
+    the emergency plane's alarm arithmetic); `adaptive`, the closed-loop
+    oversubscription controller; and `obs`, the observability plane
+    (decision-neutral, host-side)."""
     chassis_budget: ResourceVector | None = None
     cluster_budget: ResourceVector | None = None
     emergency: emergency.EmergencyConfig | None = None
     adaptive: adaptive.AdaptiveConfig | None = None
     ballooning: ballooning.BallooningConfig | None = None
-    obs: object = None
-
-    def __post_init__(self):
-        for name, item in _LATER_PLANES.items():
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"PlaneBundle.{name} is not ported yet: ROADMAP.md "
-                    f"{item}")
+    obs: Observability | None = None
 
 
 @dataclass(frozen=True)
@@ -144,6 +138,13 @@ def _concat_batches(parts: list) -> ArrivalBatch:
                           for f in ArrivalBatch.__dataclass_fields__))
 
 
+def _host(x, dtype=None) -> np.ndarray:
+    """A tensor or array as a host numpy array (in `dtype` when given):
+    the obs plane's read of an output a device call already returned."""
+    a = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    return a if dtype is None else a.astype(dtype)
+
+
 def _unique_chassis_windows(chassis: np.ndarray):
     """Split one merged CAPPING run into maximal prefixes with unique
     chassis ids, in order: a window applies one sample per chassis, so a
@@ -180,6 +181,22 @@ class ServePipeline:
         self.device = state.free_cores.device
         self.table = table
         self.state = state
+        # observability plane (repro_torch.obs): host-side consumers of
+        # outputs the device calls already return, so obs on or off never
+        # changes a decision
+        self.obs = planes.obs
+        # ingest watermark (stamp of the newest drained merged run), the
+        # clock the windows, SLO and recorder pillars aggregate on; 0.0
+        # until the first streamed event
+        self._watermark = 0.0
+        # direct serve() calls bypass the ingest merge, so their decisions
+        # are not replayable: the flight recorder skips them while this
+        # flag is up
+        self._recorder_suspended = False
+        self._batches = 0
+        self._has_pool = False      # the sharded subclass may flip it
+        self._chassis_of_host = state.chassis_of.cpu().numpy()
+        self._rule_idx = self._policy_rule_index(self.config.policy)
         self.cores_per_server = int(cores_per_server)
         # double-buffered model: index _active serves, 1-_active packs
         self._buffers = [pack_service(service, self.device), None]
@@ -235,6 +252,7 @@ class ServePipeline:
         # (`set_resource_ratios`); the watts axis stays 1.0
         self._res_ratios = np.ones(N_RESOURCES)
         self._ratio_dev = None      # adaptive ratio, a device scalar
+        self._ratio_prev = 1.0      # the ratio before the last scan
         if self.adaptive_cfg is not None:
             acfg = self.adaptive_cfg
             if acfg.blades_per_chassis != self.blades_per_chassis:
@@ -287,6 +305,214 @@ class ServePipeline:
         self._flush_caps()
         return self._alarms
 
+    # -- observability (repro_torch.obs) -------------------------------------
+    @staticmethod
+    def _policy_rule_index(policy: SchedulerPolicy) -> int:
+        """Admission-rule index recorded into the audit trail: 0 =
+        packing rule only (NoRule baseline), 1 = power rule only, 2 =
+        combined weighted aggregation (the paper's default)."""
+        if not policy.use_power_rule or policy.power_weight == 0:
+            return 0
+        if policy.packing_weight == 0:
+            return 1
+        return 2
+
+    def _span(self, name: str):
+        """Span context for one pipeline stage (no-op without obs)."""
+        if self.obs is not None:
+            return self.obs.span(name)
+        return contextlib.nullcontext()
+
+    def _count_dispatch(self, kind: str) -> None:
+        """Count one device step of the pipeline into
+        ``serve_dispatch_total{kind=...}`` (the reference's call-site
+        names; no-op without obs)."""
+        if self.obs is not None:
+            self.obs.registry.counter(
+                "serve_dispatch_total",
+                help="compiled kernel dispatches, by call site",
+                kind=kind).inc()
+
+    def _pool_tokens_left(self) -> float:
+        """Remaining power tokens recorded into audit rows (+inf when no
+        cluster watt budget bounds admission: the unsharded pipeline and
+        unbudgeted sharded pipelines)."""
+        return float("inf")
+
+    def _record_batch(self, batch: ArrivalBatch, res: ServeResult,
+                      raw=None) -> None:
+        """Fold one served batch's decisions into the metrics registry,
+        the audit trail and the windows, scorecard and flight recorder: a
+        host-side reduction of outputs the placement already returned
+        (`placement.outcome_counters`, plus the raw heads fetched beside
+        them when the quality pillar is on)."""
+        if self.obs is None:
+            return
+        reg = self.obs.registry
+        self._batches += 1
+        b = len(res.server)
+        valid = np.ones(b, bool)
+        cnt = placement.outcome_counters(
+            res.server, valid, np.asarray(batch.cores), res.p95_eff,
+            mem_gb=np.asarray(batch.memory_gb))
+        reg.counter("serve_batches_total",
+                    help="micro-batches served").inc()
+        reg.counter("serve_arrivals_total",
+                    help="arrivals decided").inc(b)
+        reg.counter("serve_admits_total",
+                    help="arrivals admitted").inc(cnt["admits"])
+        for reason, key in (("capacity", "fail_capacity"),
+                            ("power", "fail_power"),
+                            ("tokens", "fail_tokens")):
+            reg.counter("serve_rejects_total",
+                        help="arrivals rejected, by reason",
+                        reason=reason).inc(cnt[key])
+        reg.counter("serve_conservative_total",
+                    help="decisions that hit a confidence gate").inc(
+                        res.n_conservative)
+        reg.counter("serve_rho_admitted_total",
+                    help="admitted sum(p95*cores), rho units").inc(
+                        cnt["rho_admitted"])
+        reg.counter("serve_cores_admitted_total",
+                    help="admitted virtual cores").inc(
+                        cnt["cores_admitted"])
+        reg.counter("serve_gb_admitted_total",
+                    help="admitted memory, GB").inc(cnt["gb_admitted"])
+        if self.obs.audit is not None:
+            srv = np.asarray(res.server)
+            chassis = np.where(
+                srv >= 0, self._chassis_of_host[np.maximum(srv, 0)], -1)
+            self.obs.audit.record_batch(
+                t=time.time(), batch=self._batches, servers=srv,
+                chassis=chassis, rule=self._rule_idx,
+                cores=np.asarray(batch.cores),
+                is_uf=res.workload_type == UF, p95_eff=res.p95_eff,
+                valid=valid, conservative=res.conservative,
+                pool_left=self._pool_tokens_left())
+        if self.obs.windows is not None:
+            w, t = self.obs.windows, self._watermark
+            w.observe(t, "arrivals", n=b)
+            if cnt["admits"]:
+                w.observe(t, "admits", n=int(cnt["admits"]))
+            if b - cnt["admits"]:
+                w.observe(t, "rejects", n=int(b - cnt["admits"]))
+            if res.n_conservative:
+                w.observe(t, "conservative", n=int(res.n_conservative))
+            w.observe(t, "rho_admitted", float(cnt["rho_admitted"]))
+        if self.obs.quality is not None and raw is not None:
+            self.obs.quality.record(
+                true_crit=np.asarray(batch.user_facing, np.int64),
+                true_bucket=np.asarray(
+                    features.p95_bucket(np.asarray(batch.p95_util)),
+                    np.int64),
+                crit_used=res.workload_type,
+                bucket_used=res.p95_bucket,
+                crit_raw=raw[0], crit_conf=raw[1],
+                bucket_raw=raw[2], bucket_conf=raw[3],
+                conservative=res.conservative)
+        if (self.obs.recorder is not None
+                and not self._recorder_suspended):
+            self.obs.recorder.record_decision(
+                np.asarray(res.server), self._watermark)
+        self._obs_tick()
+
+    def _obs_tick(self) -> None:
+        """Advance the watermark-clock pillars: close the tumbling
+        windows the watermark passed, re-sample the SLO monitor from the
+        registry counters, and evaluate the burn-rate alerts (no-op for
+        pillars that are off)."""
+        if self.obs is None:
+            return
+        if self.obs.windows is not None:
+            self.obs.windows.advance(self._watermark)
+        if self.obs.slo is not None:
+            self.obs.slo.sample(self._watermark, self.obs.registry)
+            self.obs.slo.evaluate(self._watermark)
+
+    def _record_sweep(self, sweep: placement.SweepCounters,
+                      windows: int) -> None:
+        """Fold one emergency sweep's counters into the registry.
+        `windows` is counted on the host (summing per-shard copies would
+        overcount it)."""
+        if self.obs is None:
+            return
+        reg = self.obs.registry
+        samples = int(_host(sweep.samples))
+        alarms = int(_host(sweep.alarms))
+        cut_w = float(_host(sweep.cut_w))
+        reg.counter("emergency_cap_windows_total",
+                    help="cap sample windows applied").inc(windows)
+        reg.counter("emergency_samples_total",
+                    help="chassis power samples consumed").inc(samples)
+        reg.counter("emergency_alarms_total",
+                    help="power-emergency alarms raised").inc(alarms)
+        reg.counter("emergency_cut_watts_total",
+                    help="watts of reduction demanded past the "
+                    "target").inc(cut_w)
+        reg.counter("emergency_leftover_watts_total",
+                    help="demanded watts no frequency floor could "
+                    "absorb (RAPL backstop)").inc(
+                        float(_host(sweep.leftover_w)))
+        if cut_w > 0.0:
+            reg.histogram("emergency_cut_watts",
+                          help="watts of cut demanded per sweep"
+                          ).observe(cut_w)
+        for level, w in zip(LEVEL_NAMES,
+                            _host(sweep.cut_by_level_w, np.float64)):
+            reg.counter("emergency_level_cut_watts_total",
+                        help="watts actually removed, by criticality "
+                        "level",
+                        level=level).inc(float(w))
+        if self.obs.windows is not None:
+            wp, t = self.obs.windows, self._watermark
+            if alarms:
+                wp.observe(t, "alarms", n=alarms)
+            if cut_w > 0.0:
+                wp.observe(t, "cut_watts", cut_w)
+                wp.observe_hist("cut_watts", cut_w, lo=0.0, hi=2.0e4)
+        if self.obs.quality is not None:
+            self.obs.quality.observe_alarms(alarms, cut_w=cut_w,
+                                            samples=samples)
+        if self.obs.recorder is not None and alarms:
+            self.obs.recorder.mark_incident(
+                self._watermark, alarms,
+                {k: reg.value(k) for k in (
+                    "emergency_alarms_total",
+                    "emergency_cut_watts_total",
+                    "emergency_leftover_watts_total",
+                    "serve_arrivals_total")})
+        self._obs_tick()
+
+    def _record_adaptive(self, out) -> None:
+        """Export one controller decision: ratio gauge, step counters and
+        an `obs.audit.AdaptiveTrail` reason row, host-side reads of
+        outputs the step already returned."""
+        if self.obs is None:
+            return
+        reg = self.obs.registry
+        r = float(out.ratio)
+        ratchet, backoff = bool(out.ratchet), bool(out.backoff)
+        reg.gauge("adaptive_ratio",
+                  help="oversubscription ratio of the adaptive "
+                  "controller").set(r)
+        reg.counter("adaptive_ratchet_total",
+                    help="adaptive-controller up-steps taken").inc(
+                        int(ratchet))
+        reg.counter("adaptive_backoff_total",
+                    help="adaptive-controller down-steps taken").inc(
+                        int(backoff))
+        if self.obs.adaptive is not None:
+            n_known = int(out.n_known)
+            self.obs.adaptive.record(
+                t=time.time(), shard=-1, ratio=r,
+                stable_frac=float(out.stable_frac), n_known=n_known,
+                n_stable=int(out.n_stable),
+                action=1 if ratchet else (-1 if backoff else 0),
+                reason=adaptive.decision_reason(
+                    self._ratio_prev, r, n_known, ratchet, backoff,
+                    bool(out.hot)))
+        self._ratio_prev = r
+
     @classmethod
     def from_history(cls, service: PredictionService, history: Population,
                      uf_labels, n_servers: int, cores_per_server: int,
@@ -316,6 +542,10 @@ class ServePipeline:
         self._buffers[standby] = pack_service(new_service, self.device)
         self._active = standby
         self.swaps += 1
+        if self.obs is not None and self.obs.quality is not None:
+            # the old model's confusion, calibration and drift say nothing
+            # about the one now serving
+            self.obs.quality.on_hot_swap()
 
     def observe(self, history: Population, uf_labels) -> None:
         """Fold freshly labeled telemetry into the subscription
@@ -344,8 +574,11 @@ class ServePipeline:
         several hosts a batch is served only once every host's clock has
         passed it: push (or `flush`) from all hosts to keep the
         watermark moving."""
-        self.ingest.submit_to(host, batch, t)
-        return self._drain_events(self.ingest.poll())
+        with self._span("ingest"):
+            self.ingest.submit_to(host, batch, t)
+        with self._span("merge"):
+            events = self.ingest.poll()
+        return self._drain_events(events)
 
     def depart_to(self, host: int, servers, cores, p95_eff, is_uf,
                   t=None, mem_gb=None) -> list[ServeResult]:
@@ -357,11 +590,16 @@ class ServePipeline:
         Rows with negated cores are pinned arrivals (`serve.mitigation`).
         Advancing this host's clock can release queued micro-batches;
         their results are returned."""
-        self.ingest.depart_to(host, DepartureBatch(
-            np.asarray(servers, np.int32), np.asarray(cores, np.float32),
-            np.asarray(p95_eff, np.float32), np.asarray(is_uf, bool),
-            None if mem_gb is None else np.asarray(mem_gb, np.float32)), t)
-        return self._drain_events(self.ingest.poll())
+        with self._span("ingest"):
+            self.ingest.depart_to(host, DepartureBatch(
+                np.asarray(servers, np.int32),
+                np.asarray(cores, np.float32),
+                np.asarray(p95_eff, np.float32), np.asarray(is_uf, bool),
+                None if mem_gb is None
+                else np.asarray(mem_gb, np.float32)), t)
+        with self._span("merge"):
+            events = self.ingest.poll()
+        return self._drain_events(events)
 
     def cap_to(self, host: int, chassis, power_w,
                t=None) -> list[ServeResult]:
@@ -377,17 +615,22 @@ class ServePipeline:
             raise ValueError(
                 "cap_to() needs a pipeline built with "
                 "PlaneBundle.emergency or PlaneBundle.adaptive")
-        self.ingest.cap_to(host, CapBatch(
-            np.asarray(chassis, np.int32),
-            np.asarray(power_w, np.float32)), t)
-        return self._drain_events(self.ingest.poll())
+        with self._span("ingest"):
+            self.ingest.cap_to(host, CapBatch(
+                np.asarray(chassis, np.int32),
+                np.asarray(power_w, np.float32)), t)
+        with self._span("merge"):
+            events = self.ingest.poll()
+        return self._drain_events(events)
 
     def flush(self) -> ServeResult | None:
         """Serve everything still queued, watermark ignored (padded up to
         the batch size; chunked if the drain releases more than one
         micro-batch), and apply trailing cap windows. Returns one
         concatenated result, or None."""
-        out = self._drain_events(self.ingest.drain())
+        with self._span("merge"):
+            events = self.ingest.drain()
+        out = self._drain_events(events)
         if self._queued:
             merged = _concat_batches(self._pending)
             self._pending, self._queued = [], 0
@@ -401,22 +644,36 @@ class ServePipeline:
         """Apply one released merged-event window in stream order:
         arrival runs accumulate toward (and serve) full micro-batches,
         departure and cap runs apply at their merged position (before
-        any micro-batch served after them)."""
+        any micro-batch served after them). The flight recorder, when
+        on, copies every run as it applies."""
         bs = self.config.batch_size
         out: list[ServeResult] = []
+        rec = None if self.obs is None else self.obs.recorder
         pos = 0
         for kind, lo, hi in events.runs():
             t_run = events.t[pos:pos + (hi - lo)]
             pos += hi - lo
+            if len(t_run):
+                # the merged stream is the clock the windows, SLO and
+                # recorder pillars aggregate on
+                self._watermark = float(t_run[-1])
             if kind == CAPPING:
-                self._apply_caps(slice_soa(events.caps, lo, hi), t_run)
+                caps = slice_soa(events.caps, lo, hi)
+                if rec is not None:
+                    rec.record_caps(t_run, caps)
+                self._apply_caps(caps, t_run)
                 continue
             if kind != ARRIVAL:
                 d = slice_soa(events.departures, lo, hi)
+                if rec is not None:
+                    rec.record_departures(t_run, d)
                 self._apply_departures(d.server, d.cores, d.p95_eff,
                                        d.is_uf, d.mem_gb)
                 continue
-            self._pending.append(slice_soa(events.arrivals, lo, hi))
+            arr = slice_soa(events.arrivals, lo, hi)
+            if rec is not None:
+                rec.record_arrivals(t_run, arr)
+            self._pending.append(arr)
             self._queued += hi - lo
             if self._queued < bs:
                 continue
@@ -432,40 +689,60 @@ class ServePipeline:
 
     def serve(self, batch: ArrivalBatch) -> ServeResult:
         """Serve one batch synchronously, bypassing the queue, in
-        micro-batches of the configured size."""
-        bs = self.config.batch_size
-        if len(batch) <= bs:
-            return self._serve_padded(batch)
-        parts = [ArrivalBatch(*(getattr(batch, f)[i:i + bs]
-                                for f in ArrivalBatch.__dataclass_fields__))
-                 for i in range(0, len(batch), bs)]
-        return _concat_results([self._serve_padded(p) for p in parts])
+        micro-batches of the configured size. Bypassed batches are
+        invisible to the flight recorder: only the streamed (queue) path
+        is replayable (`obs.recorder`)."""
+        self._recorder_suspended = True
+        try:
+            bs = self.config.batch_size
+            if len(batch) <= bs:
+                return self._serve_padded(batch)
+            parts = [ArrivalBatch(*(getattr(batch, f)[i:i + bs]
+                                    for f in
+                                    ArrivalBatch.__dataclass_fields__))
+                     for i in range(0, len(batch), bs)]
+            return _concat_results([self._serve_padded(p) for p in parts])
+        finally:
+            self._recorder_suspended = False
 
     def _serve_padded(self, batch: ArrivalBatch) -> ServeResult:
         b = len(batch)
         pad_to = self.config.batch_size
         packed, meta = self._buffers[self._active]
-        x = featurize_batch(self.table, batch, pad_to=pad_to)
-        q = served_query(packed, meta, x)
-        is_uf = q["workload_type_used"] == UF
-        if self.config.policy.use_utilization_predictions:
-            p95_eff = bucket_to_p95_torch(q["p95_bucket_used"])
-        else:
-            p95_eff = torch.ones(pad_to, dtype=torch.float32,
-                                 device=self.device)
+        with self._span("featurize"):
+            x = featurize_batch(self.table, batch, pad_to=pad_to)
+        with self._span("infer"):
+            q = served_query(packed, meta, x)
+            is_uf = q["workload_type_used"] == UF
+            if self.config.policy.use_utilization_predictions:
+                p95_eff = bucket_to_p95_torch(q["p95_bucket_used"])
+            else:
+                p95_eff = torch.ones(pad_to, dtype=torch.float32,
+                                     device=self.device)
 
         def padded(a):
             out = np.zeros(pad_to, np.float32)
             out[:b] = a
             return torch.as_tensor(out, device=self.device)
         valid = torch.arange(pad_to, device=self.device) < b
-        servers = self._place(padded(batch.cores), is_uf, p95_eff, valid,
-                              padded(batch.memory_gb), b)
+        cores, mem = padded(batch.cores), padded(batch.memory_gb)
+        with self._span("place"):
+            servers = self._place(cores, is_uf, p95_eff, valid, mem, b)
         self.served += b
-        host = [a[:b].cpu().numpy() for a in (
-            servers, q["workload_type_used"], q["p95_bucket_used"],
-            p95_eff, q["conservative"])]
-        return ServeResult(*host)
+        with self._span("commit"):
+            # the quality pillar also reads the raw (ungated) heads and
+            # their confidences, from the same forest launch: more copies
+            # to the host, no input to any device call
+            fetch = (servers, q["workload_type_used"], q["p95_bucket_used"],
+                     p95_eff, q["conservative"])
+            score = self.obs is not None and self.obs.quality is not None
+            if score:
+                fetch += (q["workload_type"], q["workload_conf"],
+                          q["p95_bucket"], q["p95_conf"])
+            host = [a[:b].cpu().numpy() for a in fetch]
+        res = ServeResult(*host[:5])
+        self._record_batch(batch, res, raw=host[5:] if score else None)
+        return res
 
     def _place(self, cores, is_uf, p95_eff, valid, mem, n_valid: int):
         """Placement stage of one padded micro-batch (its first `n_valid`
@@ -474,15 +751,19 @@ class ServePipeline:
         windows queued since the last batch are applied first
         (`placement.place_batch_caps`)."""
         if self._pending_caps:
+            n_windows = len(self._pending_caps)
             pw, mask, ts = self._stacked_caps()
             self._pending_caps = []
+            self._count_dispatch("place_batch_caps")
             (self.state, servers, self._emergency,
              sweep) = placement.place_batch_caps(
                 self.state, self._emergency, pw, mask, ts, cores, is_uf,
                 p95_eff, valid, self.res_cap, self.config.policy,
                 self.cores_per_server, self.emergency_cfg, mem_gb=mem)
             self._alarms += int(sweep.alarms)
+            self._record_sweep(sweep, windows=n_windows)
             return servers
+        self._count_dispatch("place_batch")
         self.state, servers = placement.place_batch(
             self.state, cores, is_uf, p95_eff, valid, self.res_cap,
             self.config.policy, self.cores_per_server, mem_gb=mem)
@@ -564,8 +845,18 @@ class ServePipeline:
         `alarms`, departures, the end of a `flush`)."""
         pending, self._pending_caps = self._pending_caps, []
         for chassis, power_w, t in pending:
-            out = self._cap_window(chassis, power_w, t)
-            self._alarms += int(out.alarm.sum())
+            with self._span("emergency"):
+                out = self._cap_window(chassis, power_w, t)
+            alarms = int(out.alarm.sum())
+            self._alarms += alarms
+            if self.obs is not None:
+                cbl = _host(out.cut_by_level_w, np.float64)
+                self._record_sweep(placement.SweepCounters(
+                    samples=len(chassis), alarms=alarms,
+                    cut_w=_host(out.cut_w, np.float64).sum(),
+                    leftover_w=_host(out.leftover_w, np.float64).sum(),
+                    cut_by_level_w=cbl.reshape(
+                        -1, emergency.N_LEVELS).sum(0)), windows=1)
 
     def _cap_window(self, chassis, power_w, t):
         """Apply one unique-chassis sample window, through the balloon
@@ -578,12 +869,17 @@ class ServePipeline:
             self.state.gamma_nuf, self.state.gamma_uf,
             self.state.chassis_servers)
         if self._balloon is not None:
+            self._count_dispatch("balloon_cap_step")
             self._balloon, bout = ballooning.balloon_step(
                 self.config.planes.ballooning, self.emergency_cfg,
                 self._balloon, rho_lv, pw, self.state.mem_nuf, mask)
             pw = bout.power_adj_w
+        else:
+            self._count_dispatch("cap_step")
         self._emergency, out = emergency.masked_step(
             self.emergency_cfg, self._emergency, rho_lv, pw, mask, ts)
+        if self._balloon is not None:
+            self._record_balloon(bout)
         return out
 
     # -- ballooning rung (serve.ballooning) ----------------------------------
@@ -601,6 +897,30 @@ class ServePipeline:
             return 0.0
         self._flush_caps()
         return ballooning.total_ballooned_gb(self._balloon)
+
+    def _record_balloon(self, bout) -> None:
+        """Export one balloon sweep's outputs: reclaim/release/absorb
+        counters and the standing-balloon gauge, host-side reductions of
+        outputs the step already returned."""
+        if self.obs is None:
+            return
+        reg = self.obs.registry
+        reg.counter("balloon_reclaimed_gb_total",
+                    help="GB ballooned out of NUF VMs").inc(
+                        float(_host(bout.reclaimed_gb, np.float64).sum()))
+        reg.counter("balloon_released_gb_total",
+                    help="ballooned GB handed back on alarm clear").inc(
+                        float(_host(bout.released_gb, np.float64).sum()))
+        reg.counter("balloon_absorbed_watts_total",
+                    help="DRAM watts absorbed by standing + fresh "
+                    "balloons").inc(
+                        float(_host(bout.absorbed_w, np.float64).sum()))
+        reg.counter("balloon_inflations_total",
+                    help="chassis sweeps where the rung fired").inc(
+                        int(_host(bout.inflated).sum()))
+        reg.gauge("balloon_ballooned_gb",
+                  help="fleet GB currently ballooned out").set(
+                      ballooning.total_ballooned_gb(self._balloon))
 
     # -- adaptive oversubscription (serve.adaptive) --------------------------
     @property
@@ -626,17 +946,27 @@ class ServePipeline:
         rho_lv = emergency.chassis_rho_levels(
             self.state.gamma_nuf, self.state.gamma_uf,
             self.state.chassis_servers)
+        self._count_dispatch("adaptive_step")
         self._adaptive, out = adaptive.adaptive_step(
             self.adaptive_cfg, self._adaptive, rho_lv, pw, mask)
         self._apply_ratio(out)
 
     def _apply_ratio(self, out) -> None:
         """Scale the watt axis of the admission ceiling by the stepped
-        ratio, on the device (no host sync). `hold_on_stale` needs the
-        prediction scorecard of the observability plane, not ported yet,
-        and has no effect here."""
+        ratio, on the device (no host sync with obs off). With
+        ``AdaptiveConfig.hold_on_stale`` the *applied* ratio is clamped
+        to ``ratio_min`` while the obs plane's prediction scorecard
+        reports `model_stale` (`adaptive.gate_ratio_on_stale`); the
+        controller state is untouched, so the ratio resumes once the
+        model scores fresh. Without the scorecard it has no effect."""
         self._ratio_dev = out.ratio
+        cfg = self.adaptive_cfg
+        if (cfg.hold_on_stale and self.obs is not None
+                and self.obs.quality is not None):
+            self._ratio_dev = adaptive.gate_ratio_on_stale(
+                cfg, out.ratio, self.obs.quality.model_stale)
         self._refresh_caps()
+        self._record_adaptive(out)
 
     def _axis_mult(self, dtype) -> torch.Tensor:
         """(R,) ceiling multiplier: the adaptive ratio on the watts axis
@@ -766,6 +1096,7 @@ class ShardedServePipeline(ServePipeline):
                 np.float64).sum(0)
             pool_total = np.where(finite, np.maximum(gross - committed, 0.0),
                                   np.inf)
+        self._has_pool = pool_total is not None
         self.sharded = sharding.shard_state(
             self.state, n, rho_cap=self.res_cap, pool_total=pool_total)
         del self._handed_over       # the shards hold the state and caps
@@ -773,6 +1104,7 @@ class ShardedServePipeline(ServePipeline):
         self._pool_base = None if pool_total is None else torch.as_tensor(
             np.broadcast_to(gross / n, (n, N_RESOURCES)).copy()).to(
                 device=self.device, dtype=self.sharded.pool.dtype)
+        self._ratio_prev = np.ones(n)
         self.spill_info = {"rounds": 0, "spilled": 0, "spill_admitted": 0}
 
     # `state` and `res_cap` as the base constructor assigns them, then as
@@ -803,21 +1135,73 @@ class ShardedServePipeline(ServePipeline):
         queued since the last batch step in its home round."""
         cfg = self.config
         kw = {}
-        if self._pending_caps:
+        fused = bool(self._pending_caps)
+        if fused:
+            n_windows = len(self._pending_caps)
             kw = dict(emer=self._emergency, caps=self._sharded_caps(),
                       ecfg=self.emergency_cfg)
             self._pending_caps = []
+        if self.obs is not None:
+            kw["registry"] = self.obs.registry
         out = sharding.place_group_sharded(
             self.sharded, cores, is_uf, p95_eff,
             np.arange(len(cores)) < n_valid, cfg.policy,
             self.cores_per_server, mem_gb=mem, **kw)
-        if kw:
+        if fused:
             self.sharded, servers, info, self._emergency, sweep = out
             self._alarms += int(sweep.alarms)
+            self._record_sweep(sweep, windows=n_windows)
         else:
             self.sharded, servers, info = out
         self.spill_info = {k: v + info[k] for k, v in self.spill_info.items()}
+        self._record_spill(info)
         return torch.as_tensor(servers)
+
+    def _record_spill(self, info: dict) -> None:
+        """Fold one sharded placement's spillover and token counters into
+        the registry (host-side, from the returned ``info``; the pool
+        gauges read the pools back)."""
+        if self.obs is None:
+            return
+        reg = self.obs.registry
+        reg.counter("serve_spill_rounds_total",
+                    help="spillover rounds run beyond the home round"
+                    ).inc(max(info["rounds"] - 1, 0))
+        reg.counter("serve_spilled_total",
+                    help="arrivals that entered a spillover round").inc(
+                        info["spilled"])
+        reg.counter("serve_spill_admits_total",
+                    help="arrivals admitted by a spillover round").inc(
+                        info["spill_admitted"])
+        if not self._has_pool:
+            return
+        reg.counter("serve_tokens_drawn_total",
+                    help="power tokens drawn from the pools, "
+                    "rho units").inc(max(0.0, info.get("tokens_drawn", 0.0)))
+        drawn = np.asarray(info.get(
+            "tokens_drawn_vec", np.zeros(N_RESOURCES)), np.float64)
+        pools = self.sharded.pool.cpu().numpy()
+        for r, name in enumerate(RESOURCES):
+            reg.counter("serve_tokens_drawn_res_total",
+                        help="tokens drawn from the pools, by "
+                        "resource axis",
+                        resource=name).inc(max(0.0, float(drawn[r])))
+        for i, row in enumerate(pools):
+            reg.gauge("serve_pool_tokens",
+                      help="remaining power tokens, by shard",
+                      shard=str(i)).set(float(row[0]))
+            for r, name in enumerate(RESOURCES):
+                if np.isfinite(row[r]):
+                    reg.gauge("serve_pool_resources",
+                              help="remaining tokens, by shard "
+                              "and resource axis",
+                              shard=str(i),
+                              resource=name).set(float(row[r]))
+
+    def _pool_tokens_left(self) -> float:
+        if not self._has_pool:
+            return float("inf")
+        return float(self.sharded.pool[:, 0].cpu().numpy().sum())
 
     def _sharded_caps(self):
         """The queued unique-chassis windows as stacked (N, W, C/N)
@@ -831,8 +1215,19 @@ class ShardedServePipeline(ServePipeline):
                           mem_gb=None) -> None:
         """Each departure leaves its owner shard and credits its (R,)
         demand to that shard's pool (`sharding.remove_sharded`). Queued
-        cap windows apply first: they read the aggregates before it."""
+        cap windows apply first: they read the aggregates before it. The
+        obs plane counts the rho credited back
+        (``serve_tokens_credited_total``)."""
         self._flush_caps()
+        if self.obs is not None and self._has_pool:
+            srv = np.asarray(servers)
+            live = srv >= 0
+            credit = (np.asarray(p95_eff, np.float64)[live]
+                      * np.asarray(cores, np.float64)[live]).sum()
+            self.obs.registry.counter(
+                "serve_tokens_credited_total",
+                help="power tokens credited back by departures, "
+                "rho units").inc(float(credit))
         self.sharded = sharding.remove_sharded(
             self.sharded, servers, cores, p95_eff, is_uf, mem_gb=mem_gb)
 
@@ -862,6 +1257,7 @@ class ShardedServePipeline(ServePipeline):
 
     def _adaptive_scan(self, chassis, power_w) -> None:
         """Step every shard's controller on one unique-chassis window."""
+        self._count_dispatch("adaptive_sharded")
         self._adaptive, out = sharding.apply_adaptive_sharded(
             self.adaptive_cfg, self.sharded, self._adaptive, chassis,
             power_w)
@@ -892,16 +1288,58 @@ class ShardedServePipeline(ServePipeline):
         self.sharded = self.sharded._replace(
             res_cap=self._sharded_cap_base * mult[:, None, :], pool=pool)
 
+    def _record_adaptive(self, out) -> None:
+        """Per-shard export of one controller decision: a shard-labelled
+        ratio gauge, the summed step counters and one reason row per
+        shard."""
+        if self.obs is None:
+            return
+        reg = self.obs.registry
+        ratios = out.ratio.cpu().numpy()
+        ratchets = out.ratchet.cpu().numpy()
+        backoffs = out.backoff.cpu().numpy()
+        for i, r in enumerate(ratios):
+            reg.gauge("adaptive_ratio",
+                      help="oversubscription ratio of the adaptive "
+                      "controller", shard=str(i)).set(float(r))
+        reg.counter("adaptive_ratchet_total",
+                    help="adaptive-controller up-steps taken").inc(
+                        int(ratchets.sum()))
+        reg.counter("adaptive_backoff_total",
+                    help="adaptive-controller down-steps taken").inc(
+                        int(backoffs.sum()))
+        if self.obs.adaptive is not None:
+            now = time.time()
+            n_known = out.n_known.cpu().numpy()
+            n_stable = out.n_stable.cpu().numpy()
+            frac = out.stable_frac.cpu().numpy()
+            hot = out.hot.cpu().numpy()
+            for i in range(len(ratios)):
+                self.obs.adaptive.record(
+                    t=now, shard=i, ratio=float(ratios[i]),
+                    stable_frac=float(frac[i]), n_known=int(n_known[i]),
+                    n_stable=int(n_stable[i]),
+                    action=1 if ratchets[i] else
+                    (-1 if backoffs[i] else 0),
+                    reason=adaptive.decision_reason(
+                        float(self._ratio_prev[i]), float(ratios[i]),
+                        int(n_known[i]), bool(ratchets[i]),
+                        bool(backoffs[i]), bool(hot[i])))
+        self._ratio_prev = ratios
+
     def _cap_window(self, chassis, power_w, t):
         """One unique-chassis window on every shard at once, through the
         balloon step first when the rung is attached."""
         if self._balloon is not None:
+            self._count_dispatch("balloon_caps_sharded")
             (self._emergency, self._balloon, out,
-             _) = sharding.apply_caps_ballooned_sharded(
+             bout) = sharding.apply_caps_ballooned_sharded(
                 self.emergency_cfg, self.config.planes.ballooning,
                 self.sharded, self._emergency, self._balloon, chassis,
                 power_w, t)
+            self._record_balloon(bout)
             return out
+        self._count_dispatch("caps_sharded")
         self._emergency, out = sharding.apply_caps_sharded(
             self.emergency_cfg, self.sharded, self._emergency, chassis,
             power_w, t)

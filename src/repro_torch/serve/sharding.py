@@ -234,7 +234,8 @@ def _rebalance(pool: torch.Tensor) -> torch.Tensor:
 
 def place_group_sharded(sharded: ShardedState, cores, is_uf, p95_eff, valid,
                         policy: SchedulerPolicy, cores_per_server: int, *,
-                        mem_gb=None, emer=None, caps=None, ecfg=None):
+                        mem_gb=None, emer=None, caps=None, ecfg=None,
+                        registry=None):
     """Place one arrival batch through the whole sharded protocol.
 
     cores/is_uf/p95_eff/mem_gb: (B,) host arrays or tensors, with B
@@ -264,7 +265,14 @@ def place_group_sharded(sharded: ShardedState, cores, is_uf, p95_eff, valid,
     "tokens_drawn", "tokens_drawn_vec"}`` (the draw per axis over every
     round, 0 on +inf axes; `tokens_drawn` is its watts axis). With `emer`
     it returns ``(sharded_state, servers, info, emergency_state,
-    sweep)``, the `SweepCounters` summed over shards on the host."""
+    sweep)``, the `SweepCounters` summed over shards on the host.
+
+    `registry`, a `repro_torch.obs.MetricsRegistry`, counts each round
+    into ``serve_dispatch_total{kind=sharded_round|sharded_round_caps}``,
+    the reference's kinds: one count for every round this function runs
+    (a home round, and each spillover round it walks over the pending
+    slots only), so a round counts as one dispatch though on the card it
+    is many launches."""
     n = sharded.n_shards
     valid = np.asarray(valid, bool)
     b = len(valid)
@@ -312,6 +320,10 @@ def place_group_sharded(sharded: ShardedState, cores, is_uf, p95_eff, valid,
             emer, sw = _apply_cap_windows(ecfg, shards, emer, pw, mask, ts)
             sweep = SweepCounters(*(x.cpu().numpy().sum(axis=0)
                                     for x in sw))
+        if registry is not None:
+            registry.counter("serve_dispatch_total",
+                             kind="sharded_round_caps" if rnd == 0 and fused
+                             else "sharded_round").inc()
         # an infinite pool draws nothing: the walk skips the compares
         shards, srv, left = _walk(shards, c, uf_d[idx_d], p, att_d, m,
                                   sharded.res_cap,

@@ -27,12 +27,16 @@ power-emergency plane (`_EmergencySim`) at every deployment event, with
 `SimSpec.ballooning` its ballooning rung; `SimSpec.adaptive` drives the
 adaptive-ratio controller (`_AdaptiveSim`), whose ratio scales the serve
 backend's watt ceiling. The `serve-sharded` backend places each group
-through the sharded reserve/commit protocol (`serve.sharding`). Not
-ported yet: the observability hooks (ROADMAP Queue 1 item 11) and the
-deprecated flat-keyword adapter of the reference's `simulate`.
+through the sharded reserve/commit protocol (`serve.sharding`). The
+``obs=`` keyword attaches the observability plane (`repro_torch.obs`):
+spans, dispatch counters, the windows, SLO and scorecard feeds, and the
+final `SimMetrics` exported into its registry, with the same decisions.
+The deprecated flat-keyword adapter of the reference's `simulate` is not
+ported.
 """
 from __future__ import annotations
 
+import contextlib
 import heapq
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -408,6 +412,9 @@ class _EmergencySim:
         self.migrations = 0
         self.balloon_events = 0
         self.balloon_reclaimed_gb = 0.0
+        # span factory of the observability plane; `simulate` rebinds it
+        # to `Observability.span` when tracing is on
+        self.span = lambda name: contextlib.nullcontext()
 
     def _rho_lv(self, state) -> np.ndarray:
         return _rho_levels(state, self.chassis_of, self.n_chassis)
@@ -489,23 +496,24 @@ class _EmergencySim:
             is_uf=np.array([r[3] for r in rows], bool),
             token=tokens,
             mem_gb=np.array([r[4] for r in rows], np.float64))
-        plan = mit.plan_migrations(
-            self.cfg, live, self.chassis_of, state.free_cores,
-            self._rho_lv(state), u, due,
-            mem_chassis=mem_chassis, gb_cap=gb_cap)
-        # paired depart/arrive moves; pairs touch disjoint VMs, so plan
-        # order is any merged event order
-        for m in range(len(plan)):
-            cores = float(plan.cores[m])
-            p95, uf = float(plan.p95_eff[m]), bool(plan.is_uf[m])
-            mem = float(plan.mem_gb[m])
-            src, dst = int(plan.src_server[m]), int(plan.dst_server[m])
-            state.remove(src, cores, p95, uf)
-            state.place(dst, cores, p95, uf)
-            if mem_chassis is not None:
-                mem_chassis[self.chassis_of[src]] -= mem
-                mem_chassis[self.chassis_of[dst]] += mem
-            vm_live[int(plan.token[m])] = (dst, cores, p95, uf, mem)
+        with self.span("migrate"):
+            plan = mit.plan_migrations(
+                self.cfg, live, self.chassis_of, state.free_cores,
+                self._rho_lv(state), u, due,
+                mem_chassis=mem_chassis, gb_cap=gb_cap)
+            # paired depart/arrive moves; pairs touch disjoint VMs, so
+            # plan order is any merged event order
+            for m in range(len(plan)):
+                cores = float(plan.cores[m])
+                p95, uf = float(plan.p95_eff[m]), bool(plan.is_uf[m])
+                mem = float(plan.mem_gb[m])
+                src, dst = int(plan.src_server[m]), int(plan.dst_server[m])
+                state.remove(src, cores, p95, uf)
+                state.place(dst, cores, p95, uf)
+                if mem_chassis is not None:
+                    mem_chassis[self.chassis_of[src]] -= mem
+                    mem_chassis[self.chassis_of[dst]] += mem
+                vm_live[int(plan.token[m])] = (dst, cores, p95, uf, mem)
         self.migrations += len(plan)
         self.st = emg.reset_dwell_np(self.st, due)
 
@@ -531,6 +539,7 @@ class _AdaptiveSim:
         self.device = device
         self.st = adaptive.init_adaptive_np(cfg, n_chassis,
                                             dtype=np.float64)
+        self.span = lambda name: contextlib.nullcontext()
 
     def _rho_lv(self, state) -> np.ndarray:
         return _rho_levels(state, self.chassis_of, self.n_chassis)
@@ -567,13 +576,6 @@ class _AdaptiveSim:
                 dev(rho_lv), dev(power), dev(mask))
             _check_twin(st2, twin, "adaptive")
         self.st = st2
-
-
-def _unported(spec: SimSpec, obs) -> None:
-    """Raise for the parts of later slices, naming their ROADMAP item."""
-    if obs is not None:
-        raise NotImplementedError(
-            "obs is not ported yet (ROADMAP Queue 1 item 11)")
 
 
 def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
@@ -629,10 +631,15 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
     way) after the emergency scan, and its ratio scales the watt ceiling
     of the group's placement (the `adaptive_*` fields).
 
-    `obs` raises `NotImplementedError`: it belongs to a later part of the
-    port."""
+    `obs`, a `repro_torch.obs.Observability`, turns on the observability
+    plane: placement, emergency, adaptive and migration stages run under
+    spans, the serve backends count their placement calls (and the
+    sharded one its rounds) into ``serve_dispatch_total``, every scored
+    prediction feeds the scorecard, each emergency scan's alarm and
+    throttle deltas feed the windows and the SLO monitor, and the final
+    `SimMetrics` is exported through `repro_torch.obs.record_sim_metrics`.
+    Decisions are bit-identical with `obs` on or off."""
     spec = spec if spec is not None else SimSpec()
-    _unported(spec, obs)
     sv = spec.serve
     backend_name = sv.backend
     if spec.adaptive is not None and backend_name == "event":
@@ -659,6 +666,8 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
                                                 resource_pool_from_budget,
                                                 shard_state)
     from repro_torch.core.features import p95_bucket
+    span = obs.span if obs is not None else \
+        (lambda name: contextlib.nullcontext())
     rng = np.random.default_rng(spec.seed)
     n_servers = RACKS * CHASSIS_PER_RACK * BLADES_PER_CHASSIS
     chassis_of = np.arange(n_servers) // BLADES_PER_CHASSIS
@@ -685,10 +694,14 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         emer = _EmergencySim(spec.emergency, state.n_chassis, chassis_of,
                              device=dev if serving else None,
                              bcfg=spec.ballooning)
+        if obs is not None:
+            emer.span = obs.span
     adp = None
     if spec.adaptive is not None:
         adp = _AdaptiveSim(spec.adaptive, state.n_chassis, chassis_of,
                            device=dev)
+        if obs is not None:
+            adp.span = obs.span
     departures: list = []        # heap of (time, vm_token)
     # token -> (server, cores, p95eff, uf_pred, mem_gb)
     vm_live: dict = {}
@@ -699,12 +712,15 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
     # randomness and feeds nothing back into placement
     crit_cm = np.zeros((2, 2), np.int64)
     p95_cm = np.zeros((4, 4), np.int64)
+    quality = None if obs is None else obs.quality
 
     def _score(true_uf, true_p95, uf_pred, p95_pred):
         tb = int(p95_bucket(true_p95 * 100.0))
         pb = int(p95_bucket(p95_pred * 100.0))
         crit_cm[int(true_uf), int(uf_pred)] += 1
         p95_cm[tb, pb] += 1
+        if quality is not None:
+            quality.record(int(true_uf), tb, int(uf_pred), pb)
 
     # warm start (identical for every backend: one rng prefix, the
     # event-path placement rule). A snapshot of a running fleet is
@@ -761,10 +777,43 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         if t >= horizon:
             break
         if emer is not None:
-            emer.scan(t, state, vm_live, mem_nuf=mem_nuf_chassis,
-                      mem_chassis=mem_chassis, gb_cap=gb_cap)
+            # the windows and the SLO monitor read the plane before and
+            # after the scan and take the deltas, never the emergency_*
+            # registry counters, which the end-of-run export owns
+            feeds = obs is not None and (obs.windows is not None
+                                         or obs.slo is not None)
+            if feeds:
+                pre_alarms = emer.alarms
+                pre_thr = np.asarray(
+                    emer.emg.throttled_by_level(emer.st), np.float64)
+            with span("emergency"):
+                emer.scan(t, state, vm_live, mem_nuf=mem_nuf_chassis,
+                          mem_chassis=mem_chassis, gb_cap=gb_cap)
+            if feeds:
+                t_s = t * 3600.0
+                d_alarms = emer.alarms - pre_alarms
+                d_thr = np.asarray(
+                    emer.emg.throttled_by_level(emer.st),
+                    np.float64) - pre_thr
+                if obs.windows is not None:
+                    if d_alarms:
+                        obs.windows.observe(t_s, "alarms",
+                                            n=int(d_alarms))
+                    if d_thr[1] > 0:
+                        obs.windows.observe(t_s, "uf_throttled_s",
+                                            float(d_thr[1]))
+                    obs.windows.advance(t_s)
+                if obs.slo is not None:
+                    obs.slo.ingest(t_s, "emergency_alarms_total",
+                                   float(d_alarms))
+                    for lvl, d in zip(("nuf", "uf"), d_thr):
+                        obs.slo.ingest(
+                            t_s, "emergency_throttled_seconds_total",
+                            float(d), level=lvl)
+                    obs.slo.evaluate(t_s)
         if adp is not None:
-            adp.scan(t, state)
+            with span("adaptive"):
+                adp.scan(t, state)
         # sample the whole deployment group first (placement consumes
         # no randomness, so both backends see the same stream), then
         # place per-VM (event) or via one batched call (serve)
@@ -799,51 +848,58 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
             rrat = trough_ratios(float(tel.diurnal_util(t))) \
                 if sv.diurnal_ratchet else np.ones(N_RESOURCES)
             cap_mult = np.asarray([ratio, rrat[1], rrat[2]], np.float32)
-            dstate = device_state(state, torch.float64, device=dev,
-                                  mem_gb=mem_chassis,
-                                  mem_nuf=mem_nuf_chassis)
-            if backend_name == "serve":
-                _, srvs = place_batch(
-                    dstate, cores_a, uf_a.astype(bool), p95_a, valid,
-                    serve_res_cap * cap_mult, policy, state.cores_per_server,
-                    mem_gb=mem_a)
-                chosen = [int(s) for s in srvs.cpu().numpy()[:n]]
-            else:
-                # the pool is the global allowance net of everything
-                # committed, per axis, so the budget holds over the whole
-                # run; the ratio retargets the allowance, never the
-                # committed side (`serve.adaptive.retarget_pool`)
-                committed_vec = np.array([
-                    float(state.rho_peak.sum()),
-                    n_servers * float(CORES_PER_BLADE)
-                    - float(state.free_cores.sum()),
-                    float(mem_chassis.sum())])
-                pool_mult = np.array([ratio, rrat[1], rrat[2]])
-                pool = None if not pool_finite.any() else np.where(
-                    pool_finite,
-                    np.maximum(serve_pool_total * pool_mult
-                               - committed_vec, 0.0), np.inf)
-                sharded = shard_state(dstate, sv.shards,
-                                      rho_cap=serve_res_cap * cap_mult,
-                                      pool_total=pool)
-                _, srvs, info = place_group_sharded(
-                    sharded, cores_a, uf_a.astype(bool), p95_a, valid,
-                    policy, state.cores_per_server, mem_gb=mem_a)
-                # token conservation on every group: each finite pool
-                # axis drew exactly the demand it admitted
-                if pool is not None:
-                    adm = (srvs >= 0) & valid
-                    admitted_vec = np.array([
-                        float((p95_a * cores_a)[adm].sum()),
-                        float(cores_a[adm].sum()),
-                        float(mem_a[adm].sum())])
-                    drawn = np.asarray(info["tokens_drawn_vec"])
-                    assert np.allclose(
-                        drawn[pool_finite], admitted_vec[pool_finite],
-                        rtol=1e-9, atol=1e-6), \
-                        "per-resource token conservation violated: " \
-                        f"drawn={drawn} admitted={admitted_vec}"
-                chosen = [int(s) for s in srvs[:n]]
+            with span("place"):
+                dstate = device_state(state, torch.float64, device=dev,
+                                      mem_gb=mem_chassis,
+                                      mem_nuf=mem_nuf_chassis)
+                if backend_name == "serve":
+                    if obs is not None:
+                        obs.registry.counter(
+                            "serve_dispatch_total",
+                            help="compiled kernel dispatches, "
+                            "by call site", kind="place_batch").inc()
+                    _, srvs = place_batch(
+                        dstate, cores_a, uf_a.astype(bool), p95_a, valid,
+                        serve_res_cap * cap_mult, policy,
+                        state.cores_per_server, mem_gb=mem_a)
+                    chosen = [int(s) for s in srvs.cpu().numpy()[:n]]
+                else:
+                    # the pool is the global allowance net of everything
+                    # committed, per axis, so the budget holds over the
+                    # whole run; the ratio retargets the allowance, never
+                    # the committed side (`serve.adaptive.retarget_pool`)
+                    committed_vec = np.array([
+                        float(state.rho_peak.sum()),
+                        n_servers * float(CORES_PER_BLADE)
+                        - float(state.free_cores.sum()),
+                        float(mem_chassis.sum())])
+                    pool_mult = np.array([ratio, rrat[1], rrat[2]])
+                    pool = None if not pool_finite.any() else np.where(
+                        pool_finite,
+                        np.maximum(serve_pool_total * pool_mult
+                                   - committed_vec, 0.0), np.inf)
+                    sharded = shard_state(dstate, sv.shards,
+                                          rho_cap=serve_res_cap * cap_mult,
+                                          pool_total=pool)
+                    _, srvs, info = place_group_sharded(
+                        sharded, cores_a, uf_a.astype(bool), p95_a, valid,
+                        policy, state.cores_per_server, mem_gb=mem_a,
+                        registry=None if obs is None else obs.registry)
+                    # token conservation on every group: each finite pool
+                    # axis drew exactly the demand it admitted
+                    if pool is not None:
+                        adm = (srvs >= 0) & valid
+                        admitted_vec = np.array([
+                            float((p95_a * cores_a)[adm].sum()),
+                            float(cores_a[adm].sum()),
+                            float(mem_a[adm].sum())])
+                        drawn = np.asarray(info["tokens_drawn_vec"])
+                        assert np.allclose(
+                            drawn[pool_finite], admitted_vec[pool_finite],
+                            rtol=1e-9, atol=1e-6), \
+                            "per-resource token conservation violated: " \
+                            f"drawn={drawn} admitted={admitted_vec}"
+                    chosen = [int(s) for s in srvs[:n]]
         for i, (cores, life_h, uf_pred, p95_eff) in enumerate(group):
             srv = chosen[i] if chosen is not None else \
                 policy.choose(state, cores, uf_pred)
@@ -869,7 +925,7 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
             sample_chassis=spec.power.chassis,
             duration_s=spec.power.duration_s, seed=spec.seed,
             backend=spec.power.backend, device=dev)
-    return SimMetrics(
+    metrics = SimMetrics(
         failure_rate=failures / max(placements, 1),
         empty_server_ratio=float(np.mean(empty_samples)),
         chassis_score_std=float(np.mean(chassis_stds)),
@@ -888,6 +944,10 @@ def simulate(policy: SchedulerPolicy, channel: PredictionChannel,
         adaptive_ratchets=0 if adp is None else adp.ratchets,
         adaptive_backoffs=0 if adp is None else adp.backoffs,
         crit_confusion=crit_cm, p95_confusion=p95_cm)
+    if obs is not None:
+        from repro_torch.obs import record_sim_metrics
+        record_sim_metrics(obs.registry, metrics)
+    return metrics
 
 
 def fig7_sweep(alphas=(0.0, 0.2, 0.4, 0.6, 0.8, 1.0), days: float = 30.0,

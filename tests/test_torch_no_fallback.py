@@ -250,3 +250,41 @@ def test_no_source_imports_jax_or_repro():
     assert len(files) > 10
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert not bad
+
+
+def test_obs_and_monitor_import_without_jax_or_repro():
+    code = ("import sys, repro_torch.obs, repro_torch.obs.audit, "
+            "repro_torch.obs.quality, repro_torch.obs.recorder, "
+            "repro_torch.obs.registry, repro_torch.obs.slo, "
+            "repro_torch.obs.tracing, repro_torch.obs.windows, "
+            "repro_torch.launch.monitor; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(SRC)})
+
+
+def test_torch_profile_raises_instead_of_carrying_on(tmp_path):
+    """The profiler ships with torch: a trace that cannot be written, or a
+    region that fails, raises out of `SpanTracer.torch_profile`."""
+    from repro_torch.obs import MetricsRegistry, SpanTracer
+    tr = SpanTracer(MetricsRegistry())
+    blocker = tmp_path / "not_a_dir"
+    blocker.write_text("")
+    with pytest.raises(OSError):
+        with tr.torch_profile(str(blocker), device="cpu"):
+            pass
+    with pytest.raises(ZeroDivisionError):
+        with tr.torch_profile(str(tmp_path / "ok"), device="cpu"):
+            1 / 0
+    assert tr.last_profile is None
+    with tr.torch_profile(str(tmp_path / "ok"), device="cpu"):
+        pass
+    assert Path(tr.last_profile).is_file()
+
+
+def test_monitor_defaults_to_the_card(no_cuda):
+    from repro_torch.launch import monitor
+    with pytest.raises(RuntimeError, match="CUDA"):
+        monitor.main(["--sim", "--days", "0.01"])

@@ -51,11 +51,12 @@ def _assert_metrics_equal(got, want):
         (want.nuf_throttled_s, want.uf_throttled_s)
 
 
-def _run(mod, policy_kw, channel, trace=None, device=None, **spec):
+def _run(mod, policy_kw, channel, trace=None, device=None, obs=None,
+         **spec):
     pol = (RPolicy if mod is RS else SchedulerPolicy)(**policy_kw)
     kw = {} if mod is RS else {"device": device}
     return mod.simulate(pol, mod.PredictionChannel(channel),
-                        mod.SimSpec(**spec), trace=trace, **kw)
+                        mod.SimSpec(**spec), trace=trace, obs=obs, **kw)
 
 
 EVENT_CASES = [
@@ -160,12 +161,31 @@ def test_power_evaluation_matches_reference():
     assert np.abs(got.alert_frac - want.alert_frac).max() <= 0.01
 
 
-@pytest.mark.parametrize("plane", ["obs"])
-def test_unported_planes_raise(plane):
-    """The parts of later slices raise, naming their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        S.simulate(SchedulerPolicy(), S.PredictionChannel(),
-                   S.SimSpec(days=0.1), obs=object(), device="cpu")
+@pytest.mark.parametrize("backend", ["event", "serve"])
+def test_obs_is_accepted_and_decision_neutral(backend):
+    """`simulate(..., obs=)` gives the trace and every `SimMetrics` field
+    of the run without it, and exports those metrics into its
+    registry."""
+    from repro_torch.obs import Observability
+    from repro_torch.serve.emergency import EmergencyConfig
+    obs = Observability.full()
+    kw = dict(emergency=EmergencyConfig.from_model(BUDGET_TIGHT,
+                                                   dwell_s=3600.0),
+              serve=S.ServeBackendSpec(backend=backend), **EMERGENCY_KW)
+    tr_on, tr_off = [], []
+    on = _run(S, dict(alpha=0.8), "ml", tr_on, device="cpu", obs=obs, **kw)
+    off = _run(S, dict(alpha=0.8), "ml", tr_off, device="cpu", **kw)
+    assert tr_on == tr_off
+    _assert_metrics_equal(on, off)
+    v = obs.registry.value
+    assert v("sim_placements_total") == on.placements
+    assert v("emergency_alarms_total") == on.alarms > 0
+    assert obs.quality.n_scored == on.crit_confusion.sum()
+    spans = {"emergency"} | ({"place"} if backend == "serve" else set())
+    assert spans <= set(obs.tracer.totals())
+
+
+def test_plane_misconfigurations_raise():
     with pytest.raises(ValueError, match="ballooning requires"):
         S.SimSpec(ballooning=object())
     with pytest.raises(ValueError, match="diurnal_ratchet"):

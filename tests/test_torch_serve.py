@@ -164,10 +164,32 @@ def test_hot_swap_and_observe(world, rserve):
     assert pipe.serve(batch).server.shape == (40,)
 
 
-@pytest.mark.parametrize("plane", ["obs"])
-def test_unported_planes_raise(plane):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PlaneBundle(**{plane: object()})
+@pytest.mark.parametrize("budget", [None, BUDGET_W])
+def test_obs_plane_is_accepted_and_decision_neutral(world, budget):
+    """`PlaneBundle(obs=Observability.full())` serves the slice's batches
+    as a pipeline without it does, decision for decision, and its
+    counters add up to those decisions."""
+    from repro_torch.obs import Observability
+    svc = convert.service_from_numpy(service_dict(world["svc"]))
+    obs = Observability.full()
+    pipes = [ServePipeline.from_history(
+        svc, world["hist"], world["labels"], n_servers=36,
+        cores_per_server=40, blades_per_chassis=12,
+        table_capacity=world["cap"], device="cpu", config=ServeConfig(
+            planes=PlaneBundle(obs=o, chassis_budget=None if budget is None
+                               else ResourceVector(watts=budget))))
+        for o in (obs, None)]
+    batch = arrival_batch(generate_population(300, seed=7))
+    got, want = (p.serve(batch) for p in pipes)
+    _assert_results_equal(got, want)
+    for a, b in zip(pipes[0].state, pipes[1].state):
+        assert torch.equal(a, b)
+    v = obs.registry.value
+    assert v("serve_arrivals_total") == 300 == obs.quality.n_scored
+    assert v("serve_admits_total") == got.n_admitted
+    assert v("serve_rejects_total", reason="power") == got.n_power_rejected
+    assert v("serve_conservative_total") == got.n_conservative
+    assert obs.audit.total_recorded == 300
 
 
 # --- the streamed loop with the power-emergency plane ---------------------
