@@ -26,6 +26,23 @@ rows; flash and SSD in bf16), and drives the port's two paths:
   generated tokens through the cache path. It checks the launch counts
   (9 flash, 54 SSD per prefill), finite logits, prefill against the
   cache path, and the kernel forward against the plain forward;
+- LM serving of the moe, audio and vlm families (`lm_families`), one
+  model at a time at full width with seeded bf16 weights: mixtral-8x22b
+  cut to 8 layers (prefill 8 x 512, under its expert capacity),
+  whisper-tiny whole (8 x 64 decoder tokens over 1,500 frames),
+  qwen2-vl-72b cut to 4 layers (8 x 512 with 256 patch embeddings) and
+  arctic-480b cut to 1 layer (128 experts, 4 x 64). Each prefill runs
+  through the flash kernel (a launch a self-attention layer, and a
+  cross-attention layer for whisper, whose encoder runs 'chunked' as the
+  reference's), is timed beside the plain prefill and held against the
+  plain forward; `serve_batch`'s prompt logits are held against a prefill
+  of the same prompts (mixtral's at 4 x 512, dropless). For MoE both
+  comparisons go layer by layer on shared inputs, expert choices first:
+  a token whose choice flips must be a near tie, and is exempt at that
+  layer (over a whole forward a flip's new state reaches later tokens
+  through attention). It prints the dropped share, decode tokens/s and a
+  decode step's profile, and times the flash kernel at mixtral's head
+  shape beside SDPA;
 - the evaluation path, which runs no hand-written kernel: the fleet
   engine on the Fig 4-5 server and the Fig 6 chassis against its numpy
   oracle at the reference's bars (`fleet_parity`), at 1, 64 and 1,024
@@ -495,10 +512,12 @@ def flash_ops(b, h, lq, lk, d) -> float:
     return 4 * d * pairs * b * h
 
 
-def flash_bound_ms(b, h, lq, lk, d, itemsize) -> tuple[float, str]:
-    """q, k, v read once and o written once, against `flash_ops` on the
-    bf16 tensor cores."""
-    return bound(b * h * (2 * lq + 2 * lk) * d * itemsize,
+def flash_bound_ms(b, h, lq, lk, d, itemsize,
+                   hkv=None) -> tuple[float, str]:
+    """q, k, v read once and o written once (k and v at `hkv` heads, h by
+    default), against `flash_ops` on the bf16 tensor cores."""
+    hkv = h if hkv is None else hkv
+    return bound(b * (2 * h * lq + 2 * hkv * lk) * d * itemsize,
                  flash_ops(b, h, lq, lk, d), BF16_OPS_PER_S)
 
 
@@ -628,15 +647,22 @@ def ssd_phase(b: int, l: int, seed: int, dev, exact: bool) -> dict:
 #: Edge shapes of the bf16 tensor-core kernels that the prefill shape
 #: never reaches. Flash: (B, Hq, Hkv, Lq, Lk, D, causal, window) — ragged
 #: Lq, Lk > Lq, a window, GQA rep 2, D 16, 40 (not a multiple of 16) and
-#: 128, non-causal. SSD: (B, L, H, P, N) — ragged L, N 128, P 16, and P,
-#: N the wrapper pads to multiples of 8.
+#: 128, non-causal; then the families' shapes: mixtral's heads (GQA rep
+#: 6, its window of 4,096 not biting at 512), that window biting over
+#: 5,000 keys, whisper's cross-attention over 1,500 frames, and a
+#: non-causal Lk < Lq. SSD: (B, L, H, P, N) — ragged L, N 128, P 16, and
+#: P, N the wrapper pads to multiples of 8.
 FLASH_EDGES = [(2, 4, 2, 300, 300, 80, True, None),
                (2, 4, 2, 300, 700, 80, True, None),
                (2, 4, 2, 512, 512, 80, True, 128),
                (2, 4, 2, 300, 300, 16, True, None),
                (2, 4, 2, 300, 300, 40, True, None),
                (2, 4, 2, 300, 700, 128, True, 200),
-               (2, 4, 2, 300, 700, 128, False, None)]
+               (2, 4, 2, 300, 700, 128, False, None),
+               (2, 48, 8, 512, 512, 128, True, 4096),
+               (1, 48, 8, 300, 5000, 128, True, 4096),
+               (2, 6, 6, 64, 1500, 64, False, None),
+               (2, 6, 6, 700, 300, 64, False, None)]
 SSD_EDGES = [(2, 200, 80, 64, 64), (2, 200, 4, 64, 128),
              (2, 200, 4, 16, 64), (2, 300, 3, 40, 20)]
 
@@ -875,6 +901,354 @@ def lm_path(seed: int, dev) -> dict:
     out["prefill_profile"] = device_profile(
         lambda: prefill(params, batch),
         kernels=("flash_kernel_bf16", "ssd_kernel_bf16"))
+    return out
+
+
+#: lm_families: the moe, audio and vlm families at full width, one model
+#: at a time, each freed before the next. (arch, layers kept (None:
+#: whole), prefill (B, L), serve (B, L, generated)). Depth is cut to fit
+#: one 80 GB card: mixtral-8x22b 8 of 56 layers (~40.9 GB of bf16
+#: weights), qwen2-vl-72b 4 of 80 (~12 GB), arctic-480b 1 of 35 (128
+#: experts and the dense residual, ~28 GB); whisper-tiny whole (4 + 4
+#: layers, 1,500 frames). The prefill is counted, timed and held against
+#: the plain forward; serve_batch's prompt logits are held against a
+#: kernel prefill of the same prompts (no frames but the zero frames
+#: serve_batch primes from, no patches), for MoE layer by layer
+#: (`moe_layerwise`). Mixtral's prefill (8 x 512: 8,192
+#: assignments) runs under the capacity and can drop; its serve prompts
+#: (4 x 512: 4,096) are dropless in the prefill as in the cache path,
+#: which always is.
+FAMILY_RUNS = (("mixtral-8x22b", 8, (8, 512), (4, 512, 32)),
+               ("whisper-tiny", None, (8, 64), (8, 64, 32)),
+               ("qwen2-vl-72b", 4, (8, 512), (8, 512, 32)),
+               ("arctic-480b", 1, (4, 64), (4, 64, 16)))
+#: The vision stub's patch embeddings per prompt (the reference's
+#: N_PATCHES, src/repro/launch/steps.py:26).
+N_PATCHES = 256
+
+
+class RoutingProbe:
+    """While entered, records every MoE call of the port's transformer:
+    the router's float32 logits (T, E), the expert ids (T, k) and which
+    assignments were kept (T, k), by wrapping `transformer.moe_apply`
+    (one call holds all its tokens: every call here is under the dispatch
+    chunk). It adds a router pass a call, so no counted or timed run is
+    probed."""
+
+    def __init__(self):
+        self.records = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as T
+        self._orig = orig = T.moe_apply
+
+        def recording(p, x, cfg, capacity_factor=1.25,
+                      dispatch_chunk=moe.DISPATCH_CHUNK):
+            r = moe.route(p, x.reshape(-1, x.shape[-1]), cfg,
+                          capacity_factor)
+            self.records.append((r.logits, r.expert_ids,
+                                 r.keep.view(r.expert_ids.shape)))
+            return orig(p, x, cfg, capacity_factor, dispatch_chunk)
+        T.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as T
+        T.moe_apply = self._orig
+
+
+def routing_flips(test, base, n_experts: int, what: str):
+    """Tokens whose routing differs between two runs of the same layers
+    (`RoutingProbe` records, call for call): `flipped`, the top-k expert
+    set differs; `displaced`, the set is equal but another assignment was
+    dropped (a flip earlier in the flat order moved the capacity). A flip
+    must be a near tie: the token's k-th minus (k+1)-th logit of `base`
+    at most twice the largest gap between its two rows of logits (the
+    check fails otherwise). Returns the two (T,) masks and per-layer
+    counts."""
+    import torch
+    flipped = displaced = None
+    layers = []
+    for (lt, it, kt), (lb, ib, kb) in zip(test, base):
+        k = it.shape[1]
+        diff = (it.sort(-1).values != ib.sort(-1).values).any(-1)
+        top = lb.topk(k + 1, -1).values
+        margin = top[:, k - 1] - top[:, k]
+        gap = (lt - lb).abs().amax(-1)
+        loose = diff & (margin > 2 * gap)
+        check(not bool(loose.any()), f"{what}: every routing flip is a near "
+              f"tie (k-th minus (k+1)-th logit <= twice the row's logit "
+              f"gap); {int(loose.sum())} are not")
+        code_t = torch.where(kt, it, it + n_experts).sort(-1).values
+        code_b = torch.where(kb, ib, ib + n_experts).sort(-1).values
+        disp = ~diff & (code_t != code_b).any(-1)
+        flipped = diff if flipped is None else flipped | diff
+        displaced = disp if displaced is None else displaced | disp
+        layers.append({"flipped": int(diff.sum()), "displaced": int(
+            disp.sum()), "dropped_share": 1.0 - kb.float().mean().item(),
+            "max_logit_gap": gap.max().item()})
+    return flipped, displaced, layers
+
+
+def held_gap(got, want, held, what: str) -> float:
+    """Rows of `got` and `want` ((rows, n) once flattened) that `held`
+    keeps, within the LM bar; returns the largest gap over them."""
+    import torch
+    g = got.float().reshape(held.shape[0], -1)[held]
+    w = want.float().reshape(held.shape[0], -1)[held]
+    gap = (g - w).abs()
+    check(bool(torch.isfinite(g).all()), f"{what}: finite")
+    check(bool((gap <= LM_ATOL + LM_RTOL * w.abs()).all()),
+          f"{what} within atol {LM_ATOL} rtol {LM_RTOL} on the {len(g)} "
+          f"rows held: max {gap.max().item()}")
+    return gap.max().item()
+
+
+def moe_layerwise(cfg, params, tokens, against: str) -> list:
+    """An MoE model held layer by layer on shared inputs: each layer takes
+    the base path's hidden state through the base block and the block
+    under test. `against` 'plain': the kernel block (impl 'cuda') against
+    the plain block ('chunked'); 'cache': the cache path's block
+    (`_block_decode`, one token at a time against a fresh cache of the
+    layer) against the kernel block. A token whose expert choice flips
+    there (a near tie, `routing_flips`) takes another expert's output and
+    is exempt at that layer, the rest are held to the LM bar, and at
+    least 9 tokens in 10 are held. Over a whole forward a flipped token's
+    new state reaches the later tokens through attention in later
+    layers, and their gaps then grow with every flip before them."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    b, l = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    positions = torch.arange(l, device=x.device)[None].expand(b, l)
+    cache = T.init_cache(cfg, b, l, device=x.device)
+    base_impl = "chunked" if against == "plain" else "cuda"
+    out = []
+    for li in range(cfg.n_layers):
+        lp = T.layer(params["layers"], li)
+        with RoutingProbe() as pt:
+            if against == "plain":
+                y = T._block_apply(lp, x, cfg, positions, "cuda")
+            else:
+                kv = T.layer(cache["kv"], li)
+                y = torch.cat([T._block_decode(lp, x[:, i:i + 1], cfg, kv,
+                                               i)[0] for i in range(l)], 1)
+        with RoutingProbe() as pb:
+            x = T._block_apply(lp, x, cfg, positions, base_impl)
+        test = pt.records
+        if against == "cache":      # token-major (L, B, .) -> (B*L, .)
+            test = [tuple(torch.stack(a).transpose(0, 1).reshape(b * l, -1)
+                          for a in zip(*test))]
+        what = f"{cfg.name} layer {li}, {against} against {base_impl}"
+        flipped, displaced, stats = routing_flips(test, pb.records,
+                                                  cfg.n_experts, what)
+        held = ~(flipped | displaced)
+        check(held.float().mean().item() >= 0.9,
+              f"{what}: at least 9 tokens in 10 held")
+        out.append({**stats[0], "held_max_gap": held_gap(y, x, held, what)})
+    return out
+
+
+def family_run(arch: str, layers, prefill_shape, serve_shape, seed: int,
+               dev) -> dict:
+    """One model of `lm_families`: the counted kernel prefill, its time
+    beside the plain prefill's, the kernel forward against the plain
+    forward (routing first for MoE), serve_batch with its prompt logits
+    against a kernel prefill of the same prompts, and one decode step's
+    profile."""
+    import dataclasses
+
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    moe = cfg.n_experts > 0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "reduced": None if layers is None else
+           f"n_layers {get_config(arch).n_layers} -> {layers}",
+           "params": sum(t.numel() for t in _tensors(params)),
+           "weights_gb": sum(t.numel() * t.element_size()
+                             for t in _tensors(params)) / 1e9,
+           "init_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(seed)
+    b, l = prefill_shape
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (b, l)), device=dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((b, cfg.encoder_frames, cfg.d_model),
+                                      generator=gen, device=dev).bfloat16()
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = (torch.randn(
+            (b, N_PATCHES, cfg.d_model), generator=gen, device=dev)
+            * 0.02).bfloat16()
+    prefill = make_prefill_step(cfg, impl="cuda")
+    plain = make_prefill_step(cfg, impl="chunked")
+    prefill(params, batch)                     # cuBLAS and allocator warm-up
+    torch.cuda.synchronize()
+
+    # the counted prefill: self-attention a layer, and cross-attention a
+    # decoder layer for whisper (its encoder runs 'chunked')
+    reset_launches()
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    out["prefill_launches"] = dict(KERNEL_LAUNCHES)
+    want = cfg.n_layers * (2 if cfg.family == "audio" else 1)
+    check(out["prefill_launches"]["flash_attention"] == want,
+          f"{arch}: flash launches {out['prefill_launches']} == {want} per "
+          "prefill")
+    out["prefill_shape"] = [b, l]
+    out["prefill_ms"] = cuda_ms(lambda: prefill(params, batch), runs=5)
+    out["plain_prefill_ms"] = cuda_ms(lambda: plain(params, batch), runs=5)
+    out["prefill_profile"] = device_profile(
+        lambda: prefill(params, batch), kernels=("flash_kernel_bf16",))
+
+    # the kernel forward against the plain forward: for MoE, routing
+    # first, then layer by layer on shared inputs (`moe_layerwise`)
+    with RoutingProbe() as pk:
+        h_cuda = T.forward(cfg, params, batch, impl="cuda")
+    with RoutingProbe() as pp:
+        h_plain = T.forward(cfg, params, batch, impl="chunked")
+    if moe:
+        flipped, displaced, per_layer = routing_flips(
+            pk.records, pp.records, cfg.n_experts, f"{arch} kernel forward")
+        held = ~(flipped | displaced)
+        gap = (h_cuda.float() - h_plain.float()).abs().reshape(b * l, -1)
+        within = (gap <= LM_ATOL + LM_RTOL * h_plain.float().abs().reshape(
+            b * l, -1)).all(-1)
+        out["forward_routing"] = {
+            "flipped": int(flipped.sum()), "displaced": int(displaced.sum()),
+            "held_share": held.float().mean().item(),
+            "held_within_bar_share": within[held].float().mean().item(),
+            "held_max_gap": gap[held].max().item(), "layers": per_layer}
+        kept = torch.stack([k for _, _, k in pk.records]).float()
+        out["dropped_share"] = 1.0 - kept.mean().item()
+        out["layerwise"] = moe_layerwise(cfg, params, batch["tokens"],
+                                         "plain")
+    else:
+        out["forward_vs_plain_max_gap"] = held_gap(
+            h_cuda, h_plain, torch.ones(b * l, dtype=torch.bool, device=dev),
+            f"{arch} kernel forward against the plain forward")
+    del h_cuda, h_plain, pk, pp
+
+    # serve_batch; its prompt logits against a kernel prefill of the same
+    # prompts (for MoE the bar is held layer by layer, `moe_layerwise`)
+    sb, sl, sg = serve_shape
+    prompts = rng.integers(0, cfg.vocab_size, (sb, sl))
+    pc_batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    if cfg.family == "audio":
+        pc_batch["frames"] = torch.zeros((sb, cfg.encoder_frames,
+                                          cfg.d_model), dtype=torch.bfloat16,
+                                         device=dev)
+    logits = prefill(params, pc_batch).float()
+    reset_launches()
+    trace = {}
+    tokens = serve_batch(cfg, params, prompts, sg, trace=trace)
+    out["serve_launches"] = dict(KERNEL_LAUNCHES)
+    out["serve_shape"] = [sb, sl, sg]
+    check(tokens.shape == (sb, sg), f"{arch}: serve_batch token shape")
+    pl = trace["prompt_logits"].float()
+    gap = (logits - pl).abs()
+    if moe:
+        out["prefill_vs_cache_max_gap"] = gap.max().item()
+        out["prefill_vs_cache_within_bar_share"] = (
+            gap <= LM_ATOL + LM_RTOL * pl.abs()).float().mean().item()
+        out["cache_layerwise"] = moe_layerwise(cfg, params,
+                                               pc_batch["tokens"], "cache")
+    else:
+        out["prefill_vs_cache_max_gap"] = held_gap(
+            logits, pl, torch.ones(sb, dtype=torch.bool, device=dev),
+            f"{arch} prefill against the cache path after the last prompt "
+            "token")
+    top2 = logits.topk(2, -1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    decided = margin > 2 * gap.amax(-1).cpu().numpy()
+    agree = tokens[:, 0] == logits.argmax(-1).cpu().numpy()
+    check(bool(agree[decided].all()), f"{arch}: the first generated token "
+          "equals the prefill argmax wherever the margin exceeds twice the "
+          "gap")
+    out.update(rows_decided=int(decided.sum()), first_token_agrees=
+               agree.tolist(), prompt_decode_s=trace["prompt_s"],
+               gen_s=trace["gen_s"],
+               decode_tokens_per_s=sb * sg / trace["gen_s"])
+
+    # one decode step at the end of the serve length
+    cache = T.init_cache(cfg, sb, sl + sg, device=dev)
+    if cfg.family == "audio":
+        cache["cross"] = T.prime_cross_cache(cfg, params, pc_batch)
+    step = make_serve_step(cfg)
+    cur = {"tokens": torch.as_tensor(tokens[:, -1:], device=dev),
+           "cache_index": sl + sg - 1}
+    out["decode_step_profile"] = device_profile(
+        lambda: step(params, cache, cur))
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, cache, batch, pc_batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixtral_flash(seed: int, dev) -> dict:
+    """The flash kernel at mixtral-8x22b's prefill head shape (8 x 48
+    query heads over 8 kv heads x 512, D 128, causal; its window of 4,096
+    does not bite) beside its plain version and SDPA with enable_gqa."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, hq, hkv, l, d = 8, 48, 8, 512, 128
+    q = torch.randn((b, hq, l, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, hkv, l, d), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    rep = hq // hkv
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    got = ops.flash_attention(q, k, v, causal=True, window=4096)
+    want = ref.attention_ref(q, kr, vr, causal=True, window=4096)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= FLASH_ATOL["bfloat16"], f"flash at mixtral's shape within "
+          f"{FLASH_ATOL['bfloat16']} of its plain version: {err}")
+    out = {"shape": [b, hq, hkv, l, l, d], "causal": True, "window": 4096,
+           "max_abs_err": err}
+    out["ms"] = cuda_ms(lambda: ops.flash_attention(q, k, v, window=4096))
+    out["device_ms"] = device_ms(
+        lambda: ops.flash_attention(q, k, v, window=4096))
+    out["plain_ms"] = cuda_ms(
+        lambda: ref.attention_ref(q, kr, vr, window=4096))
+    out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    out["library_device_ms"] = device_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True))
+    out["bound_ms"], out["bound_by"] = flash_bound_ms(b, hq, l, l, d, 2,
+                                                      hkv=hkv)
+    out["bound_peaks"] = BF16_PEAKS
+    rates(out, flash_ops(b, hq, l, l, d))
+    return out
+
+
+def lm_families(seed: int, dev) -> dict:
+    """The moe, audio and vlm families (FAMILY_RUNS), one model at a
+    time, each run's launch counts read from 0 inside; then the flash
+    kernel at mixtral's head shape."""
+    out = {}
+    for i, (arch, layers, pre, srv) in enumerate(FAMILY_RUNS):
+        out[arch] = family_run(arch, layers, pre, srv, seed + i, dev)
+        emit(f"lm_family_{arch}", **out[arch])
+    check(any(r["rows_decided"] for r in out.values()),
+          "some row's margin exceeds twice its logit gap")
+    out["flash_mixtral"] = mixtral_flash(seed, dev)
     return out
 
 
@@ -2930,6 +3304,11 @@ def main(argv=None) -> int:
     # through the cache path, each read from counts at 0
     lm = lm_path(args.seed, dev)
     emit("lm_serve", **lm)
+    # the moe, audio and vlm families, one model at a time (each line
+    # emitted inside, its counts read from 0), and the flash kernel at
+    # mixtral's head shape
+    families = lm_families(args.seed, dev)
+    emit("flash_attention_mixtral", **families["flash_mixtral"])
 
     # the evaluation path: the fleet engine (Figs 4-6, Table IV) and the
     # Fig 7 scheduler simulation, read from counts at 0 (it runs no
@@ -3043,11 +3422,14 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:73",
          "launches": lm["prefill_launches"]["flash_attention"],
+         "launches_lm_families": {
+             arch: families[arch]["prefill_launches"]["flash_attention"]
+             for arch, *_ in FAMILY_RUNS},
          **{k: flash["prefill"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape", "tflops", "bound_share", "device_ms",
              "library_device_ms")},
-         "long": flash["long"]},
+         "long": flash["long"], "mixtral": families["flash_mixtral"]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:77",

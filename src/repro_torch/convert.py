@@ -46,8 +46,11 @@ def table_from_numpy(d: dict, device=None) -> SubscriptionTable:
         for f in SubscriptionTable._fields))
 
 
-#: Parameters the reference keeps in float32 whatever the model dtype.
+#: Leaves the reference keeps in float32 whatever the model dtype, by
+#: leaf name, and subtrees it keeps in float32 whole, by key on the path
+#: (the MoE router's weight is named `w`, like every dense weight).
 F32_LEAVES = ("a_log", "dt_bias", "d_skip")
+F32_SUBTREES = ("router",)
 
 
 def lm_params_from_numpy(cfg, tree: dict, dtype=torch.bfloat16,
@@ -57,18 +60,18 @@ def lm_params_from_numpy(cfg, tree: dict, dtype=torch.bfloat16,
     dicts with stacked per-layer leaves. Leaves go through float32, which
     holds a bf16 value exactly (`np.asarray` of a JAX bf16 array is an
     `ml_dtypes.bfloat16` array, which `torch.from_numpy` rejects), then to
-    `dtype`, or to float32 for `F32_LEAVES`."""
+    `dtype`, or to float32 for `F32_LEAVES` and under `F32_SUBTREES`."""
     check_family(cfg)
     dev = resolve_device(device)
 
-    def leaf(name, a):
+    def leaf(path, a):
+        f32 = path[-1] in F32_LEAVES or any(k in F32_SUBTREES for k in path)
         t = torch.from_numpy(np.asarray(a, np.float32).copy())
-        return t.to(device=dev,
-                    dtype=torch.float32 if name in F32_LEAVES else dtype)
+        return t.to(device=dev, dtype=torch.float32 if f32 else dtype)
 
-    def walk(d):
-        return {k: walk(v) if isinstance(v, dict) else leaf(k, v)
-                for k, v in d.items()}
+    def walk(d, path=()):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                else leaf(path + (k,), v) for k, v in d.items()}
     return walk(tree)
 
 

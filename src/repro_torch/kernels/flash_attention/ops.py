@@ -18,9 +18,11 @@ from repro_torch.kernels.flash_attention import ref
 MAX_D = 128
 
 
-def _check(q, k, v) -> int:
-    """Shapes (B, Hq, Lq, D), (B, Hkv, Lk, D) x 2 with Hq % Hkv == 0;
-    returns rep = Hq // Hkv."""
+def _check(q, k, v, causal: bool, window: int | None) -> int:
+    """Shapes (B, Hq, Lq, D), (B, Hkv, Lk, D) x 2 with Hq % Hkv == 0, and
+    Lk >= Lq wherever a mask reads the query positions (causal or a
+    window: end-aligned queries would sit before the first key); returns
+    rep = Hq // Hkv."""
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
             or k.shape[1] == 0 or q.shape[1] % k.shape[1]:
@@ -28,6 +30,12 @@ def _check(q, k, v) -> int:
             f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)} are not (B, Hq, Lq, D), (B, Hkv, Lk, D) "
             "with Hq a multiple of Hkv")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if k.shape[2] < q.shape[2] and (causal or window is not None):
+        raise ValueError(
+            f"Lk {k.shape[2]} < Lq {q.shape[2]}: a causal or windowed mask "
+            "aligns the queries to the end of the keys")
     return q.shape[1] // k.shape[1]
 
 
@@ -35,11 +43,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
     """q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D), Hq % Hkv == 0. Queries
-    align to the end of the keys (q_offset = Lk - Lq). Returns
+    align to the end of the keys (q_offset = Lk - Lq); with neither a
+    causal mask nor a window nothing reads that offset, and Lk < Lq is
+    taken (cross-attention of a long decoder sequence). Returns
     (B, Hq, Lq, D) in q's dtype."""
-    rep = _check(q, k, v)
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
+    rep = _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         if rep > 1:
             k = k.repeat_interleave(rep, 1)
@@ -58,9 +66,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 8 or d > MAX_D:
         raise ValueError(f"head dim {d}: the kernel takes a multiple of 8 "
                          f"up to {MAX_D}")
-    if lk < lq:
-        raise ValueError(f"Lk {lk} < Lq {lq}: queries align to the end of "
-                         "the keys")
     q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:

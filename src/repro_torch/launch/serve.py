@@ -1,6 +1,7 @@
-"""Serving launcher: batched greedy decoding with KV and SSM caches, as
-`repro.launch.serve` has it — the user-facing job that per-VM capping
-protects.
+"""Serving launcher: batched greedy decoding with KV and SSM caches (and
+whisper's primed cross-attention cache), as `repro.launch.serve` has it —
+the user-facing job that per-VM capping protects. Any of the ten
+configurations.
 
 Usage (on the card unless --device says otherwise):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
@@ -39,6 +40,11 @@ def serve_batch(cfg, params, prompts: np.ndarray, gen_tokens: int,
     dev = params["embed"]["w"].device
     b, prompt_len = prompts.shape
     cache = T.init_cache(cfg, b, prompt_len + gen_tokens, device=dev)
+    if cfg.family == "audio":
+        # the reference's stand-in audio: zero frames through the encoder
+        frames = torch.zeros((b, cfg.encoder_frames, cfg.d_model),
+                             dtype=torch.bfloat16, device=dev)
+        cache["cross"] = T.prime_cross_cache(cfg, params, {"frames": frames})
     step = make_serve_step(cfg, impl=impl)
     toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                            device=dev)

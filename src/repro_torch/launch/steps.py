@@ -14,7 +14,9 @@ from repro_torch.models import transformer as T
 
 
 def make_prefill_step(cfg, impl: str = "chunked"):
-    """(params, batch) -> last-token logits (B, vocab)."""
+    """(params, batch) -> last-token logits (B, vocab). The batch goes to
+    `forward` whole: "tokens", and "frames" (audio) or "patch_embeds"
+    (vlm) where the family reads them."""
     def prefill_step(params, batch):
         hidden = T.forward(cfg, params, batch, impl=impl)
         return T.logits_from_hidden(cfg, params, hidden[:, -1:])[:, 0]

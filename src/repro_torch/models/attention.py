@@ -1,6 +1,7 @@
-"""GQA attention with RoPE / M-RoPE, optional QKV bias, sliding window
-and a KV-cache decode branch, as `repro.models.attention` has it, with
-three prefill implementations:
+"""GQA attention with RoPE / M-RoPE, optional QKV bias, sliding window,
+cross-attention (keys and values from another sequence) and a KV-cache
+decode branch, as `repro.models.attention` has it, with three prefill
+implementations:
 
   * 'naive'   — full (Lq, Lk) score matrix;
   * 'chunked' — flash-style online softmax over Q and KV blocks in plain
@@ -165,22 +166,25 @@ def _decode_attention(q, k, v, cfg, kv_cache, cache_index: int):
 
 
 def attention_apply(params, x, cfg, positions, causal=True, impl="chunked",
-                    kv_cache=None, cache_index=None):
-    """Self-attention over x: (B, L, d) at `positions` (B, L). With
+                    kv_cache=None, cache_index=None, x_kv=None):
+    """Attention over x: (B, L, d) at `positions` (B, L). With
     `kv_cache` (decode), x is the single new token (L = 1) and
     `cache_index` (an int) its position; the cache dict (k, v:
-    (B, Hkv, S, hd)[, pos: (S,)]) is updated in place. Returns
-    (out, kv_cache or None). (The reference's cross-attention input
-    `x_kv` serves only the audio family, which is not ported.)"""
+    (B, Hkv, S, hd)[, pos: (S,)]) is updated in place. With `x_kv`
+    (B, Lk, d) it is cross-attention (the whisper decoder): keys and
+    values come from x_kv, with no rotary; the caller passes
+    causal=False. Returns (out, kv_cache or None)."""
     check_impl(impl)
     hd = cfg.head_dim
+    src = x if x_kv is None else x_kv
     q = _split_heads(dense(params["wq"], x), cfg.n_heads, hd)
-    k = _split_heads(dense(params["wk"], x), cfg.n_kv_heads, hd)
-    v = _split_heads(dense(params["wv"], x), cfg.n_kv_heads, hd)
-    if kv_cache is not None:
-        positions = torch.full((x.shape[0], 1), cache_index,
-                               dtype=torch.int32, device=x.device)
-    q, k = _apply_positions(q, k, cfg, positions)
+    k = _split_heads(dense(params["wk"], src), cfg.n_kv_heads, hd)
+    v = _split_heads(dense(params["wv"], src), cfg.n_kv_heads, hd)
+    if x_kv is None:
+        if kv_cache is not None:
+            positions = torch.full((x.shape[0], 1), cache_index,
+                                   dtype=torch.int32, device=x.device)
+        q, k = _apply_positions(q, k, cfg, positions)
 
     if kv_cache is not None:
         out = _decode_attention(q, k, v, cfg, kv_cache, cache_index)

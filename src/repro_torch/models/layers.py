@@ -1,5 +1,6 @@
 """Shared neural building blocks: norms, RoPE / M-RoPE, MLP variants,
-embeddings, as `repro.models.layers` has them. Parameters are plain
+embeddings, the sinusoidal position table, as `repro.models.layers` has
+them. Parameters are plain
 dicts of tensors; math that needs range (normalization statistics,
 rotary) runs in float32, and results come back in the input's dtype.
 
@@ -140,6 +141,18 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.bfloat16,
 
 def embed(params, tokens):
     return params["w"][tokens]
+
+
+def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed (length, d) float32 position table: sin on the even
+    columns, cos on the odd ones."""
+    pos = np.arange(length)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    angle = pos / np.power(10000.0, dim / d)
+    out = np.zeros((length, d), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return torch.from_numpy(out).to(device)
 
 
 def softplus(x):

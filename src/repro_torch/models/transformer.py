@@ -1,18 +1,20 @@
-"""Model assembly for the families the port runs: `dense`, `ssm` and
-`hybrid` (Zamba2: groups of `attn_every` Mamba2 layers, each followed by
-one weight-shared attention block), as `repro.models.transformer` has
-them.
+"""Model assembly for the ten configurations, as
+`repro.models.transformer` has them: the `dense`, `moe` and `vlm`
+families (qwen2-vl's vision frontend a stub: precomputed patch
+embeddings overwrite the first positions), `ssm`, `hybrid` (Zamba2:
+groups of `attn_every` Mamba2 layers, each followed by one weight-shared
+attention block) and `audio` (whisper: an encoder over precomputed
+frames, a decoder with self- and cross-attention).
 
   * init_params(cfg, gen, dtype, device) — seeded random weights;
   * forward(cfg, params, batch, impl)   — teacher-forced hidden states;
   * logits_from_hidden                  — the LM head;
-  * init_cache / decode_step            — one-token serving with caches,
+  * init_cache / prime_cross_cache / decode_step
+                                        — one-token serving with caches,
                                           updated in place.
 
 Parameters are the reference's pytree as plain dicts of tensors, with
-per-layer weights stacked on a leading layer axis. `moe`, `audio` and
-`vlm` (with its vision stub) are not ported yet and raise
-NotImplementedError when a model is built.
+per-layer weights stacked on a leading layer axis.
 """
 from __future__ import annotations
 
@@ -22,16 +24,16 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (attention_apply, attention_init,
                                           check_impl)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import init_ssm_state, ssm_apply, ssm_init
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_family(cfg) -> None:
-    if cfg.family not in FAMILIES or cfg.n_experts > 0 or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"runs {FAMILIES} without experts or frontends")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}, not "
+                         f"one of {FAMILIES}")
 
 
 def layer(tree, i: int):
@@ -51,10 +53,21 @@ def _block_init(gen, cfg, dtype, device, lead):
     if cfg.family in ("ssm", "hybrid"):     # hybrid: SSM backbone layers
         return {"norm": ninit(cfg.d_model, **kw),
                 "ssm": ssm_init(gen, cfg, **kw)}
-    return {"norm1": ninit(cfg.d_model, **kw),
-            "attn": attention_init(gen, cfg, **kw),
-            "norm2": ninit(cfg.d_model, **kw),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp, **kw)}
+    p = {"norm1": ninit(cfg.d_model, **kw),
+         "attn": attention_init(gen, cfg, **kw),
+         "norm2": ninit(cfg.d_model, **kw)}
+    if cfg.n_experts > 0:
+        p["moe"] = moe_init(gen, cfg, **kw)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp, **kw)
+    return p
+
+
+def _ffn(params, x, cfg, capacity_factor):
+    """The block's feed-forward half on the normed input x."""
+    if cfg.n_experts > 0:
+        return moe_apply(params["moe"], x, cfg, capacity_factor)
+    return L.mlp_apply(params["mlp"], x, cfg.mlp)
 
 
 def _block_apply(params, x, cfg, positions, impl, causal=True):
@@ -66,7 +79,7 @@ def _block_apply(params, x, cfg, positions, impl, causal=True):
     a, _ = attention_apply(params["attn"], norm(params["norm1"], x), cfg,
                            positions, causal=causal, impl=impl)
     x = x + a
-    return x + L.mlp_apply(params["mlp"], norm(params["norm2"], x), cfg.mlp)
+    return x + _ffn(params, norm(params["norm2"], x), cfg, 1.25)
 
 
 def _block_decode(params, x, cfg, cache, index):
@@ -79,8 +92,8 @@ def _block_decode(params, x, cfg, cache, index):
         params["attn"], norm(params["norm1"], x), cfg, None,
         kv_cache=cache, cache_index=index)
     x = x + a
-    x = x + L.mlp_apply(params["mlp"], norm(params["norm2"], x), cfg.mlp)
-    return x, new_cache
+    # dropless MoE in decode: serving logits must be exact
+    return x + _ffn(params, norm(params["norm2"], x), cfg, None), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -106,6 +119,14 @@ def init_params(cfg, gen=0, dtype=torch.bfloat16, device=None):
     if cfg.family == "hybrid":
         params["shared_attn"] = attention_init(gen, cfg, dtype, dev)
         params["shared_norm"] = ninit(cfg.d_model, dtype, dev)
+    if cfg.family == "audio":
+        params["enc_layers"] = _block_init(gen, cfg.encoder_cfg(), dtype, dev,
+                                           (cfg.encoder_layers,))
+        params["enc_norm"] = ninit(cfg.d_model, dtype, dev)
+        lead = (cfg.n_layers,)
+        params["cross_layers"] = {
+            "norm": ninit(cfg.d_model, dtype, dev, lead),
+            "attn": attention_init(gen, cfg, dtype, dev, lead)}
     return params
 
 
@@ -114,14 +135,22 @@ def init_params(cfg, gen=0, dtype=torch.bfloat16, device=None):
 # --------------------------------------------------------------------------
 
 def forward(cfg, params, batch, impl="chunked"):
-    """batch["tokens"]: (B, S) integer tensor on the parameters' device.
-    Returns the final hidden states (B, S, d_model)."""
+    """batch["tokens"]: (B, S) integer tensor on the parameters' device;
+    for `vlm` optionally batch["patch_embeds"] (B, P, d), which overwrite
+    the first P positions; for `audio` batch["frames"] (B, F, d), the
+    encoder's input. Returns the final hidden states (B, S, d_model)."""
     check_family(cfg)
     check_impl(impl)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = L.embed(params["embed"], tokens)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"]
+        x[:, :pe.shape[1]] = pe.to(x.dtype)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    if cfg.family == "audio":
+        enc = _encode(cfg, params, batch)
+        return _decode_stack_ed(cfg, params, x, positions, enc, impl)
     _, norm = L.make_norm(cfg.norm)
     per_group = cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
     for li in range(cfg.n_layers):
@@ -132,6 +161,40 @@ def forward(cfg, params, batch, impl="chunked"):
                 params["shared_attn"], norm(params["shared_norm"], x), cfg,
                 positions, causal=True, impl=impl)
             x = x + a
+    return norm(params["final_norm"], x)
+
+
+def _encode(cfg, params, batch):
+    """Whisper's encoder over precomputed conv-frontend frames (B, F, d).
+    Its attention is non-causal and always 'chunked', whatever the
+    decoder's impl: the reference hard-codes its plain path here."""
+    frames = batch["frames"]
+    b, f, _ = frames.shape
+    pos_tab = L.sinusoidal_positions(f, cfg.d_model, frames.device)
+    x = frames + pos_tab[None].to(frames.dtype)
+    enc_cfg = cfg.encoder_cfg()
+    positions = torch.arange(f, device=x.device)[None].expand(b, f)
+    for li in range(cfg.encoder_layers):
+        x = _block_apply(layer(params["enc_layers"], li), x, enc_cfg,
+                         positions, "chunked", causal=False)
+    _, norm = L.make_norm(cfg.norm)
+    return norm(params["enc_norm"], x)
+
+
+def _decode_stack_ed(cfg, params, x, positions, enc, impl):
+    """Whisper's decoder: self-attention, cross-attention over `enc`,
+    MLP."""
+    _, norm = L.make_norm(cfg.norm)
+    for li in range(cfg.n_layers):
+        blk = layer(params["layers"], li)
+        cross = layer(params["cross_layers"], li)
+        a, _ = attention_apply(blk["attn"], norm(blk["norm1"], x), cfg,
+                               positions, causal=True, impl=impl)
+        x = x + a
+        c, _ = attention_apply(cross["attn"], norm(cross["norm"], x), cfg,
+                               None, causal=False, impl=impl, x_kv=enc)
+        x = x + c
+        x = x + L.mlp_apply(blk["mlp"], norm(blk["norm2"], x), cfg.mlp)
     return norm(params["final_norm"], x)
 
 
@@ -168,11 +231,29 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
         groups = cfg.n_layers // cfg.attn_every
         cache["ssm"] = init_ssm_state(cfg, batch, cfg.n_layers, device=dev)
         cache["shared_kv"] = kv(groups, max_len, cfg.n_kv_heads)
+    elif cfg.family == "audio":
+        cache["kv"] = kv(cfg.n_layers, max_len, cfg.n_kv_heads)
+        cache["cross"] = None        # filled by prime_cross_cache
     else:
         length = max_len if cfg.sliding_window is None else \
             min(max_len, cfg.sliding_window)
         cache["kv"] = kv(cfg.n_layers, length, cfg.n_kv_heads)
     return cache
+
+
+def prime_cross_cache(cfg, params, batch_inputs):
+    """Whisper: run the encoder once over batch_inputs["frames"] and
+    return each decoder layer's cross keys and values, {"k", "v"} of
+    (n_layers, B, Hkv, F, hd), for `cache["cross"]`."""
+    enc = _encode(cfg, params, batch_inputs)        # (B, F, d)
+    b, f, _ = enc.shape
+    out = {"k": [], "v": []}
+    for li in range(cfg.n_layers):
+        attn = layer(params["cross_layers"], li)["attn"]
+        for name, w in (("k", "wk"), ("v", "wv")):
+            out[name].append(L.dense(attn[w], enc).reshape(
+                b, f, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2))
+    return {name: torch.stack(ts) for name, ts in out.items()}
 
 
 def decode_step(cfg, params, cache, tokens, index: int, impl="naive"):
@@ -199,9 +280,38 @@ def decode_step(cfg, params, cache, tokens, index: int, impl="naive"):
                     cfg, None, kv_cache=layer(cache["shared_kv"], g),
                     cache_index=index)
                 x = x + a
+    elif cfg.family == "audio":
+        for li in range(cfg.n_layers):
+            lp = layer(params["layers"], li)
+            cross = layer(params["cross_layers"], li)
+            a, _ = attention_apply(lp["attn"], norm(lp["norm1"], x), cfg,
+                                   None, kv_cache=layer(cache["kv"], li),
+                                   cache_index=index)
+            x = x + a
+            # cross-attention over the primed encoder K/V (never updated)
+            x = x + _cross_decode(cfg, cross, norm(cross["norm"], x),
+                                  layer(cache["cross"], li))
+            x = x + L.mlp_apply(lp["mlp"], norm(lp["norm2"], x), cfg.mlp)
     else:
         for li in range(cfg.n_layers):
             x, _ = _block_decode(layer(params["layers"], li), x, cfg,
                                  layer(cache["kv"], li), index)
     x = norm(params["final_norm"], x)
     return logits_from_hidden(cfg, params, x)[:, 0], cache
+
+
+def _cross_decode(cfg, cross_lp, x, cross_kv):
+    """Single-query cross-attention of x: (B, 1, d) against the fixed
+    encoder keys and values of one layer ((B, Hkv, F, hd) each)."""
+    hd = cfg.head_dim
+    b = x.shape[0]
+    q = L.dense(cross_lp["attn"]["wq"], x).reshape(
+        b, 1, cfg.n_heads, hd).transpose(1, 2)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    k = cross_kv["k"].repeat_interleave(rep, 1)
+    v = cross_kv["v"].repeat_interleave(rep, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * hd ** -0.5
+    p = torch.softmax(s, -1).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v)
+    o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * hd)
+    return L.dense(cross_lp["attn"]["wo"], o)

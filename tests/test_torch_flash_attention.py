@@ -101,6 +101,26 @@ def test_bad_shapes_raise():
 
 
 
+def test_flash_takes_lk_below_lq_without_a_mask():
+    """Non-causal with no window, nothing reads the queries' end
+    alignment, and the wrapper takes Lk < Lq as the reference does (a
+    long teacher-forced decoder attending whisper's encoder): at the
+    card's edge case (2, 6, 6, 700, 300, 64) against the float32 oracle,
+    at a smaller one against the Pallas kernel. A causal mask or a window
+    still needs Lk >= Lq."""
+    (q, k, v), (tq, tk, tv) = _inputs(6, 2, 6, 6, 700, 300, 64, "f32")
+    got = ops.flash_attention(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_np(got), _np(j_ref(q, k, v, causal=False)),
+                               atol=2e-5)
+    (q, k, v), (tq, tk, tv) = _inputs(7, 1, 2, 2, 70, 30, 64, "f32")
+    np.testing.assert_allclose(
+        _np(ops.flash_attention(tq, tk, tv, causal=False)),
+        _np(j_flash(q, k, v, causal=False, bq=32, bk=32)), atol=2e-5)
+    for causal, window in ((True, None), (False, 16)):
+        with pytest.raises(ValueError, match="Lk 30 < Lq 70"):
+            ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+
+
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
                                            (False, None)])
 def test_flash_bf16_rounding_design(causal, window):

@@ -58,7 +58,7 @@ def _normal(rng, *shape):
     (64, 192, None, 128, True), (64, 96, None, 16, False),
     (256, 256, 64, 80, True), (300, 300, None, 40, True),
     (300, 700, 128, 80, True), (300, 700, None, 128, False),
-    (300, 300, 100, 16, True)])
+    (300, 300, 100, 16, True), (700, 300, None, 64, False)])
 def test_flash_kernel_matches_plain_version(cuda, dtype, lq, lk, window, d,
                                             causal):
     rng = np.random.default_rng(lq + lk + d)
@@ -413,3 +413,44 @@ def test_sharded_streamed_planes_match_cpu(cuda):
             assert torch.equal(a, b)
     rho = float(card.global_state().rho_peak.double().sum())
     assert rho <= rho_pool_from_budget(48 * 112.0 + 1500.0, 48) + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "arctic-480b",
+                                  "whisper-tiny", "qwen2-vl-72b"])
+def test_lm_family_kernel_forward_matches_plain(cuda, arch):
+    """Reduced moe, audio and vlm models in float32 on the card: the
+    forward through the flash kernel (a launch a self-attention layer,
+    and a cross-attention layer for whisper) equals the plain forward
+    within the float32 LM bar, 1e-4 (tests/test_torch_lm.py), and serves
+    the same tokens on the card as on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).reduced()
+    params = T.init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    on_card = _to(params, cuda)
+    rng = np.random.default_rng(7)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (2, 40)), device=cuda)}
+    if cfg.family == "audio":
+        batch["frames"] = _normal(rng, 2, cfg.encoder_frames,
+                                  cfg.d_model).to(cuda)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = _normal(rng, 2, 8, cfg.d_model).to(cuda)
+    reset_launches()
+    got = T.forward(cfg, on_card, batch, impl="cuda")
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["flash_attention"] == cfg.n_layers * (
+        2 if cfg.family == "audio" else 1)
+    want = T.forward(cfg, on_card, batch, impl="chunked")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    if cfg.family != "audio":       # zero bf16 frames need a bf16 model
+        prompts = rng.integers(0, cfg.vocab_size, (2, 6))
+        np.testing.assert_array_equal(serve_batch(cfg, on_card, prompts, 4),
+                                      serve_batch(cfg, params, prompts, 4))
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}

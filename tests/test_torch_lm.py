@@ -2,9 +2,10 @@
 the same numpy inputs and the same weights (the JAX `init_params` tree
 carried across by `repro_torch.convert.lm_params_from_numpy`): layers,
 `attention_apply` (prefill and decode, with the rolling cache of reduced
-mixtral-8x22b's window), `ssm_apply` (prefill and decode), `forward`
-and `decode_step` on reduced llama3-8b, mamba2-2.7b and zamba2-2.7b,
-and the slice as a whole (reduced Zamba2 `serve_batch` and
+mixtral-8x22b's window, and whisper's cross-attention), `ssm_apply`
+(prefill and decode), `forward` and `decode_step` on reduced llama3-8b,
+mamba2-2.7b, zamba2-2.7b, mixtral-8x22b, arctic-480b, whisper-tiny and
+qwen2-vl-72b, and the slice as a whole (`serve_batch`, the CLI and
 `make_prefill_step`).
 
 Tolerances. In float32 the two packages differ only by the order of
@@ -14,7 +15,9 @@ float32 parameters (as the reference does), and a 1e-7 difference can
 round a cached value to the next bf16 (2^-8 relative), so decode outputs
 are held at 2e-3. In bf16 both round at other places; the reference's
 own prefill/decode bar holds: atol 0.15, rtol 0.1
-(tests/test_models_smoke.py).
+(tests/test_models_smoke.py). A bf16 MoE token whose top-k experts
+differ between the packages (a near tie of its router logits) takes
+another expert's output and is exempt from that bar (`routing_flips`).
 """
 import dataclasses
 
@@ -42,6 +45,7 @@ from repro_torch.launch.steps import (_sharded_greedy,  # noqa: E402
                                       make_prefill_step, make_serve_step)
 from repro_torch.models import attention as PA  # noqa: E402
 from repro_torch.models import layers as PL  # noqa: E402
+from repro_torch.models import moe as PM  # noqa: E402
 from repro_torch.models import ssm as PSM  # noqa: E402
 from repro_torch.models import transformer as PT  # noqa: E402
 
@@ -50,7 +54,10 @@ F32_DECODE = dict(atol=2e-3, rtol=2e-3)
 BF16 = dict(atol=0.15, rtol=0.1)
 DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16,
                                                     torch.bfloat16)}
-ARCHS = ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"]
+#: The moe, audio and vlm families (reduced: 4 experts top-2, whisper's
+#: 2 + 2 layers over 32 frames, qwen2-vl's M-RoPE with patch embeddings).
+FAMILIES = ["mixtral-8x22b", "arctic-480b", "whisper-tiny", "qwen2-vl-72b"]
+ARCHS = ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"] + FAMILIES
 
 
 def _np(x):
@@ -280,18 +287,91 @@ def _leaves(tree):
             yield v
 
 
+def _inputs(cfg, toks, dtype, seed=30, patches=8):
+    """The same batch for both packages: the tokens, and whisper's frames
+    (B, F, d) or qwen2-vl's `patches` patch embeddings (B, P, d), drawn
+    from a seed in the working dtype."""
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.as_tensor(toks)}
+    b = toks.shape[0]
+    if cfg.family == "audio":
+        jb["frames"], tb["frames"] = _pair(
+            seed, (b, cfg.encoder_frames, cfg.d_model), dtype)
+    if cfg.frontend == "vision" and patches:
+        jb["patch_embeds"], tb["patch_embeds"] = _pair(
+            seed + 1, (b, patches, cfg.d_model), dtype)
+    return jb, tb
+
+
+def _routed_forward(monkeypatch, cfg, jcfg, jp, tp, jb, tb, impl, jimpl):
+    """Both forwards' hidden states, with each MoE layer's float32 router
+    logits (T, E) recorded on both sides. The reference runs eagerly
+    (`jax.disable_jit`, no remat), so that its logits are concrete."""
+    jrec, prec = [], []
+    j_moe, p_moe = JT.moe_apply, PT.moe_apply
+
+    def j_record(p, x, c, capacity_factor=1.25, **kw):
+        jrec.append(np.asarray(x.reshape(-1, x.shape[-1]).astype(
+            jnp.float32) @ p["router"]["w"]))
+        return j_moe(p, x, c, capacity_factor=capacity_factor, **kw)
+
+    def p_record(p, x, c, capacity_factor=1.25, **kw):
+        prec.append(PM.route(p, x.reshape(-1, x.shape[-1]), c,
+                             capacity_factor).logits.numpy())
+        return p_moe(p, x, c, capacity_factor, **kw)
+    monkeypatch.setattr(JT, "moe_apply", j_record)
+    monkeypatch.setattr(PT, "moe_apply", p_record)
+    with jax.disable_jit():
+        want = JT.forward(dataclasses.replace(jcfg, remat=False), jp, jb,
+                          jimpl)
+    got = PT.forward(cfg, tp, tb, impl)
+    monkeypatch.undo()
+    return got, want, jrec, prec
+
+
+def routing_flips(jrec, prec, k: int) -> set:
+    """Tokens whose top-k expert set differs between the two packages at
+    some layer. Each must be a near tie: its k-th minus (k+1)-th reference
+    logit at most twice the largest gap between its two rows of logits
+    (bf16 rounding moves the router's input); a flip past that fails."""
+    flips = set()
+    for lj, lp in zip(jrec, prec):
+        set_j = np.sort(np.argsort(-lj, -1)[:, :k], -1)
+        set_p = np.sort(np.argsort(-lp, -1)[:, :k], -1)
+        rows = np.where((set_j != set_p).any(-1))[0]
+        srt = -np.sort(-lj, -1)
+        margin = srt[rows, k - 1] - srt[rows, k]
+        gap = np.abs(lj - lp).max(-1)[rows]
+        assert (margin <= 2 * gap).all(), (rows, margin, gap)
+        flips |= set(rows.tolist())
+    return flips
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_forward_matches_reference(models, arch, dtype):
+def test_forward_matches_reference(models, monkeypatch, arch, dtype):
+    """MoE models are compared routing first: a token whose expert set
+    differs (a near tie, `routing_flips`) takes another expert's output
+    and is exempt from the bar, at most one token in ten."""
     cfg, jcfg, jp, tp = models(arch, dtype)
     toks = np.random.default_rng(16).integers(0, cfg.vocab_size, (2, 24))
     tol = F32 if dtype == "f32" else BF16
+    jb, tb = _inputs(cfg, toks, dtype)
     for impl, jimpl in (("naive", "naive"), ("chunked", "xla_chunked")):
-        got = PT.forward(cfg, tp, {"tokens": torch.as_tensor(toks)}, impl)
-        want = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)}, jimpl)
+        held = np.ones(2 * 24, bool)
+        if cfg.n_experts:
+            got, want, jrec, prec = _routed_forward(
+                monkeypatch, cfg, jcfg, jp, tp, jb, tb, impl, jimpl)
+            assert len(jrec) == len(prec) == cfg.n_layers
+            flips = routing_flips(jrec, prec, cfg.experts_per_token)
+            assert len(flips) <= len(held) // 10, flips
+            held[sorted(flips)] = False
+        else:
+            got = PT.forward(cfg, tp, tb, impl)
+            want = JT.forward(jcfg, jp, jb, jimpl)
         assert got.shape == (2, 24, cfg.d_model)
-        _close(PT.logits_from_hidden(cfg, tp, got),
-               JT.logits_from_hidden(jcfg, jp, want), tol)
+        _close(PT.logits_from_hidden(cfg, tp, got).reshape(48, -1)[held],
+               JT.logits_from_hidden(jcfg, jp, want).reshape(48, -1)[held],
+               tol)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -301,8 +381,13 @@ def test_decode_step_matches_reference(models, arch, dtype):
     toks = np.random.default_rng(17).integers(0, cfg.vocab_size, (2, 8))
     jc = JT.init_cache(jcfg, 2, 8)
     tc = PT.init_cache(cfg, 2, 8, device="cpu")
-    step = jax.jit(lambda p, c, t, i: JT.decode_step(jcfg, p, c, t, i))
     tol = F32_DECODE if dtype == "f32" else BF16
+    if cfg.family == "audio":          # cross K/V primed from random frames
+        jb, tb = _inputs(cfg, toks, dtype)
+        jc["cross"] = JT.prime_cross_cache(jcfg, jp, jb)
+        tc["cross"] = PT.prime_cross_cache(cfg, tp, tb)
+        _close(tc["cross"]["k"], jc["cross"]["k"], tol)
+    step = jax.jit(lambda p, c, t, i: JT.decode_step(jcfg, p, c, t, i))
     for i in range(8):
         want, jc = step(jp, jc, jnp.asarray(toks[:, i:i + 1], jnp.int32),
                         jnp.asarray(i, jnp.int32))
@@ -314,7 +399,7 @@ def test_decode_step_matches_reference(models, arch, dtype):
 def test_rolling_cache_decode_matches_full_forward():
     """A dense model with a window smaller than the sequence: the rolling
     cache (capacity = window) wraps, and decode still matches the
-    windowed forward (on llama's dense family, since MoE is not ported).
+    windowed forward (on llama's dense family).
     The cache is float32 here, so the bar is the float32 one."""
     cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
                               sliding_window=8)
@@ -391,13 +476,117 @@ def test_serve_cli_on_cpu(capsys):
     assert "zamba2-2.7b on cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-tiny",
-                                  "qwen2-vl-72b", "arctic-480b"])
-def test_unported_families_raise_at_build(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PT.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm_params_from_numpy(cfg, {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PT.init_cache(cfg, 1, 4, device="cpu")
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              family="diffusion")
+    for build in (lambda: PT.init_params(cfg, 0, device="cpu"),
+                  lambda: lm_params_from_numpy(cfg, {}, device="cpu"),
+                  lambda: PT.init_cache(cfg, 1, 4, device="cpu")):
+        with pytest.raises(ValueError, match="unknown family"):
+            build()
+
+
+# --- the moe, audio and vlm families ------------------------------------------
+
+@pytest.mark.parametrize("length,d", [(32, 64), (1500, 384)])
+def test_sinusoidal_positions(length, d):
+    """Whisper's position table (reduced and full), bit for bit."""
+    got = PL.sinusoidal_positions(length, d)
+    assert got.dtype == torch.float32 and got.shape == (length, d)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        JL.sinusoidal_positions(length, d)))
+
+
+@pytest.mark.parametrize("lq", [12, 40])
+@pytest.mark.parametrize("impl", ["naive", "chunked"])
+def test_cross_attention_matches_reference(impl, lq):
+    """Whisper's decoder-to-encoder attention: keys and values from x_kv
+    (32 frames), no rotary, no mask; 40 queries is Lq > Lk."""
+    cfg, jp, tp = _attn("whisper-tiny", "f32")
+    jx, tx = _pair(22, (2, lq, cfg.d_model))
+    jkv, tkv = _pair(23, (2, cfg.encoder_frames, cfg.d_model))
+    got, cache = PA.attention_apply(tp, tx, cfg, None, causal=False,
+                                    impl=impl, x_kv=tkv)
+    want, _ = JA.attention_apply(
+        jp, jx, cfg, None, causal=False, x_kv=jkv,
+        impl="naive" if impl == "naive" else "xla_chunked")
+    assert cache is None and got.shape == (2, lq, cfg.d_model)
+    _close(got, want, F32)
+    with pytest.raises(ValueError, match="CUDA"):
+        PA.attention_apply(tp, tx, cfg, None, causal=False, impl="cuda",
+                           x_kv=tkv)
+
+
+def test_whisper_cross_decode_matches_reference(models):
+    """`prime_cross_cache` over random frames, then `_cross_decode` of one
+    token against one layer's primed keys and values."""
+    cfg, jcfg, jp, tp = models("whisper-tiny", "f32")
+    jf, tf = _pair(24, (2, cfg.encoder_frames, cfg.d_model))
+    jkv = JT.prime_cross_cache(jcfg, jp, {"frames": jf})
+    tkv = PT.prime_cross_cache(cfg, tp, {"frames": tf})
+    assert tkv["k"].shape == (cfg.n_layers, 2, cfg.n_kv_heads,
+                              cfg.encoder_frames, cfg.head_dim)
+    _close(tkv["v"], jkv["v"], F32)
+    jx, tx = _pair(25, (2, 1, cfg.d_model))
+    got = PT._cross_decode(cfg, PT.layer(tp["cross_layers"], 1), tx,
+                           PT.layer(tkv, 1))
+    want = JT._cross_decode(cfg, jax.tree.map(lambda a: a[1],
+                                              jp["cross_layers"]), jx,
+                            jax.tree.map(lambda a: a[1], jkv))
+    _close(got, want, F32)
+
+
+def test_vlm_patch_embeds_overwrite_first_positions(models):
+    """qwen2-vl's stub frontend: 8 patch embeddings take the first 8
+    positions, whatever tokens stood there."""
+    cfg, jcfg, jp, tp = models("qwen2-vl-72b", "f32")
+    toks = np.random.default_rng(26).integers(0, cfg.vocab_size, (2, 24))
+    jb, tb = _inputs(cfg, toks, "f32")
+    got = PT.forward(cfg, tp, tb, "chunked")
+    _close(got, JT.forward(jcfg, jp, jb, "xla_chunked"), F32)
+    other = toks.copy()
+    other[:, :8] = (other[:, :8] + 1) % cfg.vocab_size
+    again = PT.forward(cfg, tp, {**tb, "tokens": torch.as_tensor(other)},
+                       "chunked")
+    assert torch.equal(again, got)
+    plain = PT.forward(cfg, tp, {"tokens": tb["tokens"]}, "chunked")
+    assert not torch.equal(plain, got)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_batch_families_match_reference(models, arch):
+    """Reduced mixtral, arctic and qwen2-vl in float32, whisper in bf16
+    (both packages prime its cross cache from zero bf16 frames, which a
+    float32 model refuses): the port's `serve_batch` gives the JAX
+    `serve_batch`'s tokens, token for token."""
+    cfg, jcfg, jp, tp = models(arch, "bf16" if arch == "whisper-tiny"
+                               else "f32")
+    prompts = np.random.default_rng(27).integers(0, cfg.vocab_size, (2, 6))
+    want = j_serve_batch(jcfg, jp, prompts, 5)
+    got = PS.serve_batch(cfg, tp, prompts, 5)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
+def test_prefill_step_passes_frames_and_patches(models, arch):
+    """`make_prefill_step` hands frames (whisper) and patch embeddings
+    (qwen2-vl) to `forward`, against the JAX prefill through its Pallas
+    flash kernel (interpret mode; whisper's encoder stays xla_chunked)."""
+    cfg, jcfg, jp, tp = models(arch, "f32")
+    toks = np.random.default_rng(28).integers(0, cfg.vocab_size, (2, 16))
+    jb, tb = _inputs(cfg, toks, "f32")
+    want = jax.jit(j_prefill(jcfg, impl="pallas"))(jp, jb)
+    got = make_prefill_step(cfg)(tp, tb)
+    _close(got, want, F32)
+    # other frames, or no patches, give other logits: the batch is read
+    other = {k: torch.zeros_like(v) if k == "frames" else v
+             for k, v in tb.items() if k != "patch_embeds"}
+    assert not torch.equal(make_prefill_step(cfg)(tp, other), got)
+
+
+def test_serve_cli_whisper_on_cpu(capsys):
+    tokens = PS.main(["--arch", "whisper-tiny", "--reduced", "--requests",
+                      "2", "--prompt-len", "4", "--gen", "3", "--device",
+                      "cpu"])
+    assert tokens.shape == (2, 3)
+    assert "whisper-tiny on cpu" in capsys.readouterr().out
