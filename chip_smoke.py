@@ -72,9 +72,12 @@ rows; flash and SSD in bf16), and drives the port's two paths:
   whose torch twin is held bit-equal to the numpy oracle on every scan:
   equal traces and `SimMetrics`, aware critical throttled-seconds below
   blind, beside the reference's record in BENCH_serve_emergency.json;
-- the two example twins on the card (`examples`): the quickstart through
+- the example twins on the card (`examples`): the quickstart through
   the template and forest kernels, the datacenter scenario through the
-  template kernel and the torch fleet engine, their numbers printed;
+  template kernel and the torch fleet engine, their numbers printed; the
+  training twins `train_lm` (its loss must fall) and `serve_capped` (the
+  serving job at full frequency, the training job throttled), which
+  launch no hand-written kernel;
 - the streamed cell with the ballooning rung and the adaptive controller
   (`streamed_planes`): the rung alone at the streamed cell's own sweeps
   beside that cell, then both planes with a sweep after every micro-batch at a
@@ -115,7 +118,19 @@ rows; flash and SSD in bf16), and drives the port's two paths:
   as off, tokens drawn minus credited is the pools' change, the spill
   counters the pipeline's); and `repro_torch.launch.monitor --sim` at 4
   shards on the card (its snapshot, Prometheus text and alerts written
-  under build/obs_monitor/ and read back).
+  under build/obs_monitor/ and read back);
+- LM training (`lm_train`): reduced phi4-mini in float32 on the card
+  against the CPU (loss, grad norm, every gradient leaf, TF32 off); two
+  train steps from one state bit for bit (reduced phi4-mini, mixtral and
+  zamba2 at 8 x 512 tokens); phi4-mini-3.8b at full width and depth
+  through `launch.train` (AdamW, 8 x 512 tokens, TRAIN_STEPS steps: ms a
+  step, tokens/s, model TFLOP/s, peak memory, the host snapshot's
+  seconds, one profiled step; the four kernels launch 0 times, as the
+  reference trains outside its kernels); 8 of its layers with remat on
+  and off and with 2 micro-batches; qwen2-vl-72b cut to 2 layers with its
+  Adafactor and 256 patch embeddings; and the train_lm twin's demo-20m
+  with injected failures, which must end in the failure-free run's state,
+  its checkpoint from the card restored on the CPU.
 
 It also builds the serving cell's history table twice and serves the
 arrivals twice, and checks the tables bit-equal and the decisions equal
@@ -203,6 +218,22 @@ SIM_DAYS = 1.0
 #: of the script, 0.1 days ~22 s.
 SIM_PROFILE_DAYS = 0.1
 TIGHT_BUDGET_W = 12 * 112.0 + 60.0
+
+#: LM training (`lm_train`): phi4-mini-3.8b at full width through
+#: `launch.train` (8 x 512 tokens a step, TRAIN_STEPS steps, the median
+#: of steps 2 on), 8 of its layers for the remat and micro-batch
+#: comparisons, qwen2-vl-72b cut to 2 of 80 layers with its Adafactor and
+#: 256 patch embeddings, and the train_lm twin's demo-20m under injected
+#: failures. The card against the CPU: reduced phi4-mini in float32 (TF32
+#: off), loss rtol 1e-5, grad norm rtol 1e-4, every gradient leaf within
+#: 1e-5 of its largest |g|.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "phi4-mini-3.8b", 8, 512, 6
+TRAIN_CMP_LAYERS, VLM_TRAIN_LAYERS = 8, 2
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_REL_ATOL = 1e-5, 1e-4, 1e-5
+#: Micro-batches 1 against 2 (and remat on against off): grad norm
+#: within this relative gap of each other.
+TRAIN_MICRO_GNORM_RTOL = 1e-5
+FT_STEPS, FT_RATE, FT_EVERY = 40, 0.2, 5
 
 
 _T0 = time.perf_counter()
@@ -2159,14 +2190,43 @@ def streamed_planes(run, hist, arrivals, labels, budget_w: float, seed: int,
 
 
 def examples_phase(dev) -> dict:
-    """Both example twins on the card, each read from counts at 0, their
-    printed lines captured, and the quickstart once more on the CPU."""
+    """The example twins on the card, each read from counts at 0, their
+    printed lines captured, and the quickstart once more on the CPU; the
+    training twins (`train_lm`: its loss must fall; `serve_capped`: the
+    serving job at full frequency, the training job throttled) launch no
+    hand-written kernel."""
     import contextlib
     import io
+    import shutil
+
     import torch
     from repro_torch import KERNEL_LAUNCHES, reset_launches
-    from repro_torch.examples import datacenter_sim, quickstart
+    from repro_torch.examples import (datacenter_sim, quickstart,
+                                      serve_capped, train_lm)
     out = {}
+    ckpt = Path(__file__).resolve().parent / "build" / "examples_train_lm"
+    for name, run in (
+            ("train_lm", lambda: train_lm.main(
+                ["--device", str(dev), "--ckpt-dir", str(ckpt)])),
+            ("serve_capped", lambda: serve_capped.main(device=dev))):
+        printed = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            nums = run()       # each twin raises unless its claim holds
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": dict(KERNEL_LAUNCHES),
+                     "printed": printed.getvalue().splitlines(),
+                     "numbers": {"first_loss": nums[0],
+                                 "last_20_mean_loss": float(
+                                     np.mean(nums[-20:]))}
+                     if name == "train_lm" else
+                     {k: v for k, v in nums.items() if k != "losses"}}
+        check(sum(out[name]["launches"].values()) == 0,
+              f"{name} launches no hand-written kernel: "
+              f"{out[name]['launches']}")
+    shutil.rmtree(ckpt, ignore_errors=True)
     for name, mod in (("quickstart", quickstart),
                       ("datacenter_sim", datacenter_sim)):
         printed = io.StringIO()
@@ -3113,6 +3173,353 @@ def monitor_phase(dev) -> dict:
             "prom_lines": len(prom.splitlines()), "launches": launches}
 
 
+def train_flops(cfg, b: int, s: int) -> float:
+    """Model FLOPs of one train step with remat and the naive attention:
+    6 N T for the matmul weights (N: the parameters less the embedding
+    table), the remat's second forward of the blocks (2 N_blocks T), the
+    CE chunks' recomputed head (2 d V T), and the attention products
+    (QK^T and PV, 4 B H S^2 hd a layer forward over the full square),
+    four times over (forward, recompute, and the backward's four)."""
+    t = b * s
+    n_mm = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    head = cfg.d_model * cfg.vocab_size
+    attn = 4 * b * cfg.n_heads * s * s * cfg.head_dim * cfg.n_layers
+    return 6 * n_mm * t + 2 * (n_mm - head) * t + 2 * head * t + 4 * attn
+
+
+def _free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _token_batch(cfg, b: int, s: int, seed: int, dev) -> dict:
+    import torch
+    rng = np.random.default_rng(seed)
+    return {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                               device=dev) for k in ("tokens", "labels")}
+
+
+def train_card_vs_cpu(seed: int, dev) -> dict:
+    """Reduced phi4-mini in float32, the same weights and batch: the
+    gradients and one `make_train_step` on the card against the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import get_optimizer
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(TRAIN_ARCH).reduced()
+    cpu = torch.device("cpu")
+    params = T.init_params(cfg, seed, dtype=torch.float32, device=cpu)
+    state = get_optimizer(cfg.optimizer).init(params)
+    batch = _token_batch(cfg, 4, 64, seed, cpu)
+    on_dev = lambda tree: tree_map(lambda t: t.to(dev), tree)  # noqa: E731
+    l_cpu, g_cpu = loss_and_grads(cfg, params, batch)
+    l_dev, g_dev = loss_and_grads(cfg, on_dev(params), on_dev(batch))
+    grad_gap = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                   for a, b in zip(leaves(g_dev), leaves(g_cpu)))
+    _, _, m_cpu = make_train_step(cfg)(params, state, batch)
+    _, _, m_dev = make_train_step(cfg)(on_dev(params), on_dev(state),
+                                       on_dev(batch))
+    out = {"config": f"{cfg.name} reduced, float32, batch 4 x 64",
+           "loss_card": float(l_dev), "loss_cpu": float(l_cpu),
+           "loss_rel_gap": abs(float(l_dev) / float(l_cpu) - 1),
+           "step_loss_rel_gap": abs(float(m_dev["loss"])
+                                    / float(m_cpu["loss"]) - 1),
+           "grad_norm_rel_gap": abs(float(m_dev["grad_norm"])
+                                    / float(m_cpu["grad_norm"]) - 1),
+           "max_grad_gap_over_leaf_max": grad_gap}
+    check(out["loss_rel_gap"] <= TRAIN_LOSS_RTOL
+          and out["step_loss_rel_gap"] <= TRAIN_LOSS_RTOL,
+          f"train loss on the card within {TRAIN_LOSS_RTOL} of the CPU: {out}")
+    check(out["grad_norm_rel_gap"] <= TRAIN_GNORM_RTOL,
+          f"grad norm on the card within {TRAIN_GNORM_RTOL} of the CPU: {out}")
+    check(grad_gap <= TRAIN_GRAD_REL_ATOL,
+          f"every gradient leaf on the card within {TRAIN_GRAD_REL_ATOL} of "
+          f"its largest |g| on the CPU: {grad_gap}")
+    return out
+
+
+def train_determinism(seed: int, dev) -> dict:
+    """Two train steps from one state on the card, bit for bit: reduced
+    phi4-mini (8 x 512 tokens: the embedding's sorted backward), mixtral
+    (8,192 assignments: the capacity drops some) and zamba2 (the SSD's
+    chunked scan), bf16, impl 'naive' as `launch.train` runs. Then once
+    more under `torch.use_deterministic_algorithms(True, warn_only=True)`,
+    recording what PyTorch flags (nothing is checked on that)."""
+    import warnings
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import get_optimizer
+    from repro_torch.tree import leaves
+    out, runs = {}, []
+    for arch in (TRAIN_ARCH, "mixtral-8x22b", "zamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        params = T.init_params(cfg, seed, device=dev)
+        state = get_optimizer(cfg.optimizer).init(params)
+        batch = _token_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, dev)
+        step = make_train_step(cfg, impl="naive")
+        a, b = (leaves(step(params, state, batch)) for _ in range(2))
+        diff = max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(a, b))
+        out[arch] = {"bit_equal": all(torch.equal(x, y)
+                                      for x, y in zip(a, b)),
+                     "max_abs_diff": diff}
+        runs.append((step, params, state, batch))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for step, params, state, batch in runs:
+                step(params, state, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    out["flagged_by_torch"] = sorted({str(w.message).splitlines()[0][:200]
+                                      for w in caught})
+    check(all(out[a]["bit_equal"] for a in out if a != "flagged_by_torch"),
+          f"two train steps from one state are bit-equal on the card: {out}")
+    return out
+
+
+def train_full_width(seed: int, dev, ckpt_dir: Path) -> dict:
+    """`launch.train.main` on phi4-mini-3.8b at full width, AdamW, 8 x 512
+    tokens, TRAIN_STEPS steps (no checkpoint): ms a step, tokens/s, model
+    TFLOP/s, peak memory, the host snapshot, and one profiled step. The
+    hand-written kernels must not launch: training runs the plain paths,
+    as the reference's does."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    cfg = get_config(TRAIN_ARCH)
+    trace, printed = {}, io.StringIO()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        losses = train.main(
+            ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+             str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--ckpt-every",
+             str(10 * TRAIN_STEPS), "--ckpt-dir", str(ckpt_dir), "--seed",
+             str(seed), "--device", str(dev)], trace=trace)
+    wall = time.perf_counter() - t0
+    launches = dict(KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    loop, hist = trace["loop"], trace["history"]
+    step_ms = [t * 1e3 for t in loop.state.step_times]
+    ms = statistics.median(step_ms[1:])
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "reduced": None,
+           "params": cfg.param_count(), "optimizer": cfg.optimizer,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": len(losses),
+           "wall_s": wall, "step_ms": step_ms, "ms_per_step": ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+           "model_tflop_per_step": flops / 1e12,
+           "model_tflops": flops / ms / 1e9,
+           "model_flops_share_of_bf16_peak": flops / ms * 1e3
+           / BF16_OPS_PER_S,
+           "peak_memory_gb": peak / 1e9,
+           "snapshot_s": loop.state.snapshot_s,
+           "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+           "kernel_launches": launches,
+           "printed": printed.getvalue().splitlines()}
+    check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
+          f"full-width losses and grad norms finite: {out['losses']}")
+    check(sum(launches.values()) == 0,
+          f"training launches no hand-written kernel: {launches}")
+    state, step_fn = [trace.pop("state")], trace["step_fn"]
+    batch = (TRAIN_STEPS, trace["source"].batch_at(TRAIN_STEPS))
+
+    def one_step():
+        state[0], _ = step_fn(state[0], batch)
+    out["step_profile"] = device_profile(one_step)
+    del state, trace, step_fn
+    _free()
+    return out
+
+
+def train_variants(seed: int, dev) -> dict:
+    """phi4-mini at TRAIN_CMP_LAYERS layers, 8 x 512, bf16, three steps
+    each from one seeded state: remat on (the default), remat off, and 2
+    micro-batches with remat; ms (median of steps 2 and 3), peak memory,
+    the metrics of every step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import get_optimizer
+    base = dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=TRAIN_CMP_LAYERS)
+    batch = _token_batch(base, TRAIN_BATCH, TRAIN_SEQ, seed, dev)
+    out = {"reduced": f"n_layers {get_config(TRAIN_ARCH).n_layers} -> "
+                      f"{TRAIN_CMP_LAYERS}"}
+    for name, cfg, micro in (
+            ("remat", base, 1),
+            ("no_remat", dataclasses.replace(base, remat=False), 1),
+            ("micro_2", base, 2)):
+        params = T.init_params(cfg, seed, device=dev)
+        state = get_optimizer(cfg.optimizer).init(params)
+        step = make_train_step(cfg, impl="naive", microbatches=micro,
+                               donate=True)
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"ms": statistics.median(times[1:]), "step_ms": times,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated()
+                     / 1e9, "metrics": metrics}
+        del params, state
+        _free()
+    r, n, m2 = out["remat"], out["no_remat"], out["micro_2"]
+    out["remat_bit_equal_metrics"] = r["metrics"] == n["metrics"]
+    out["micro_2_loss_rel_gap"] = abs(m2["metrics"][0]["loss"]
+                                      / r["metrics"][0]["loss"] - 1)
+    out["micro_2_grad_norm_rel_gap"] = abs(
+        m2["metrics"][0]["grad_norm"] / r["metrics"][0]["grad_norm"] - 1)
+    check(out["remat_bit_equal_metrics"],
+          f"remat on and off give the same losses and grad norms: {out}")
+    check(out["micro_2_grad_norm_rel_gap"] <= TRAIN_MICRO_GNORM_RTOL,
+          f"2 micro-batches' grad norm within {TRAIN_MICRO_GNORM_RTOL} of "
+          f"1's: {out['micro_2_grad_norm_rel_gap']}")
+    return out
+
+
+def train_vlm(seed: int, dev) -> dict:
+    """qwen2-vl-72b cut to VLM_TRAIN_LAYERS layers with its Adafactor, 8 x
+    512 tokens of which the first N_PATCHES positions take seeded patch
+    embeddings: three steps, ms (median of steps 2 and 3), peak memory,
+    losses finite."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import get_optimizer
+    full = get_config("qwen2-vl-72b")
+    cfg = dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, seed, device=dev)
+    state = get_optimizer(cfg.optimizer).init(params)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = _token_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, dev)
+    batch["patch_embeds"] = (torch.randn(
+        (TRAIN_BATCH, N_PATCHES, cfg.d_model), generator=gen, device=dev)
+        * 0.02).bfloat16()
+    step = make_train_step(cfg, impl="naive", donate=True)
+    times, metrics = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "reduced": f"n_layers {full.n_layers} -> {VLM_TRAIN_LAYERS}",
+           "params": sum(t.numel() for t in _tensors(params)),
+           "optimizer": cfg.optimizer, "patches": N_PATCHES,
+           "ms": statistics.median(times[1:]), "step_ms": times,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "metrics": metrics}
+    check(all(math.isfinite(v) for m in metrics for v in m.values()),
+          f"qwen2-vl train metrics finite: {metrics}")
+    del params, state, batch
+    _free()
+    return out
+
+
+def train_fault_tolerance(dev, root: Path) -> dict:
+    """The train_lm twin's demo-20m for FT_STEPS steps on the card, with
+    failures injected at FT_RATE and checkpoints every FT_EVERY steps,
+    against the same run without failures: at least one restart and the
+    same final state; and its newest checkpoint, written from the card,
+    restored on the CPU equals that state."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.examples import train_lm
+    from repro_torch.tree import leaves, tree_map
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--steps", str(FT_STEPS), "--ckpt-every", str(FT_EVERY),
+            "--device", str(dev)]
+    clean, failed = {}, {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_lm.main(args + ["--ckpt-dir", str(root / "clean")],
+                      trace=clean)
+        t_clean = time.perf_counter() - t0
+        losses = train_lm.main(args + ["--ckpt-dir", str(root / "failed"),
+                                       "--inject-failures", str(FT_RATE)],
+                               trace=failed)
+    a, b = leaves(clean["state"]), leaves(failed["state"])
+    ck = Checkpointer(str(root / "failed"))
+    cpu_like = tree_map(lambda t: t.cpu(), failed["state"])
+    restored, step = ck.restore(cpu_like)
+    out = {"config": "demo-20m", "steps": FT_STEPS, "rate": FT_RATE,
+           "ckpt_every": FT_EVERY,
+           "restarts": failed["loop"].state.restarts,
+           "steps_taken": len(losses), "clean_s": t_clean,
+           "failed_s": time.perf_counter() - t0 - t_clean,
+           "final_state_bit_equal": all(torch.equal(x, y)
+                                        for x, y in zip(a, b)),
+           "max_abs_diff": max(float((x.float() - y.float()).abs().max())
+                               for x, y in zip(a, b)),
+           "checkpoint_step": step,
+           "checkpoint_restores_on_cpu": all(
+               x.device.type == "cpu" and torch.equal(x, y)
+               for x, y in zip(leaves(restored), leaves(cpu_like)))}
+    check(out["restarts"] >= 1, f"failures were injected: {out}")
+    check(out["final_state_bit_equal"],
+          f"the run with failures ends in the clean run's state: {out}")
+    check(step == FT_STEPS and out["checkpoint_restores_on_cpu"],
+          f"the card's checkpoint restores on the CPU: {out}")
+    del clean, failed, restored, cpu_like
+    shutil.rmtree(root, ignore_errors=True)
+    _free()
+    return out
+
+
+def lm_train(seed: int, dev) -> dict:
+    """The LM training path on the card, each part's line emitted as it
+    ends: the card against the CPU, determinism, phi4-mini at full width
+    through `launch.train`, the remat and micro-batch variants, qwen2-vl
+    with Adafactor, and the fault-tolerant replay."""
+    root = Path(__file__).resolve().parent / "build" / "lm_train"
+    out = {}
+    for name, fn in (
+            ("card_vs_cpu", lambda: train_card_vs_cpu(seed, dev)),
+            ("determinism", lambda: train_determinism(seed, dev)),
+            ("full_width", lambda: train_full_width(seed, dev,
+                                                    root / "full_width")),
+            ("variants", lambda: train_variants(seed, dev)),
+            ("vlm_adafactor", lambda: train_vlm(seed, dev)),
+            ("fault_tolerance", lambda: train_fault_tolerance(
+                dev, root / "fault_tolerance"))):
+        out[name] = fn()
+        emit(f"lm_train_{name}", **out[name])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3374,6 +3781,13 @@ def main(argv=None) -> int:
     emit("obs_sharded", **o_shard)
     o_mon = monitor_phase(dev)
     emit("monitor", **o_mon)
+
+    # LM training: the card against the CPU, determinism, phi4-mini at
+    # full width through launch.train (its counts read from 0 inside, all
+    # four must stay 0), the remat and micro-batch variants, qwen2-vl with
+    # Adafactor and the fault-tolerant replay, each line emitted inside
+    train = lm_train(args.seed, dev)
+    train_launches = train["full_width"]["kernel_launches"]
     obs_launches = {name: {k: r["launches"][k]
                            for k in ("forest", "template")}
                     for name, r in (("obs_serve", o_serve),
@@ -3395,6 +3809,7 @@ def main(argv=None) -> int:
              if isinstance(v, dict) and "launches" in v},
          "launches_sharded_planes": shard_planes["launches"]["forest"],
          "launches_obs": {k: v["forest"] for k, v in obs_launches.items()},
+         "launches_lm_train": train_launches["forest"],
          **{k: forest["micro_batch"][k] for k in TIMES},
          "library_ms": None, "shape": forest["micro_batch"]["shape"],
          "blocks": forest["micro_batch"]["blocks"],
@@ -3412,6 +3827,7 @@ def main(argv=None) -> int:
              k: examples[k]["launches"]["template"]
              for k in ("quickstart", "datacenter_sim")},
          "launches_obs": {k: v["template"] for k, v in obs_launches.items()},
+         "launches_lm_train": train_launches["template"],
          **{k: res_hist[k] for k in TIMES},
          "library_ms": None, "shape": res_hist["shape"],
          "edge_shapes": [r["shape"] for r in edges["template"]],
@@ -3425,6 +3841,7 @@ def main(argv=None) -> int:
          "launches_lm_families": {
              arch: families[arch]["prefill_launches"]["flash_attention"]
              for arch, *_ in FAMILY_RUNS},
+         "launches_lm_train": train_launches["flash_attention"],
          **{k: flash["prefill"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape", "tflops", "bound_share", "device_ms",
@@ -3434,6 +3851,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:77",
          "launches": lm["prefill_launches"]["ssd"],
+         "launches_lm_train": train_launches["ssd"],
          **{k: ssd["prefill"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "shape", "tflops", "bound_share", "device_ms")},

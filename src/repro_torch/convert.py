@@ -2,9 +2,9 @@
 
 The port never imports `repro`; a caller holding objects of the JAX
 package (a trained `PredictionService`, a `SubscriptionTable`, a
-`ClusterState`, LM parameters) hands their arrays over as dicts of numpy
-arrays, so both packages compute from the same forests, aggregates and
-weights.
+`ClusterState`, LM parameters, an optimizer state) hands their arrays
+over as dicts of numpy arrays, so both packages compute from the same
+forests, aggregates, weights and moments.
 """
 from __future__ import annotations
 
@@ -72,6 +72,27 @@ def lm_params_from_numpy(cfg, tree: dict, dtype=torch.bfloat16,
     def walk(d, path=()):
         return {k: walk(v, path + (k,)) if isinstance(v, dict)
                 else leaf(path + (k,), v) for k, v in d.items()}
+    return walk(tree)
+
+
+def opt_state_from_numpy(tree: dict, device=None) -> dict:
+    """An optimizer state of the JAX package — `adamw`'s {"m", "v",
+    "count"} or `adafactor`'s {"stats", "count"} — leaves as numpy
+    arrays, as the port's: the same nested dicts, each leaf in its own
+    dtype (a bf16 leaf through float32, which holds it exactly), so both
+    packages start an update from one state."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=dev, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def walk(d):
+        return {k: walk(v) if isinstance(v, dict) else leaf(v)
+                for k, v in d.items()}
     return walk(tree)
 
 

@@ -2,9 +2,11 @@
 
 Queries on the CPU take the plain version (`ref.py`, with the kv heads
 repeated for GQA); queries on the card launch the kernel or raise — it
-never falls back. The kernel reads kv head h // rep for query head h, so
-the wrapper passes k and v unrepeated, and it masks the ragged edges
-itself, so nothing is padded.
+never falls back. The kernel reads kv head h // rep for query head h,
+so the wrapper passes k and v unrepeated, and it masks the ragged edges
+itself, so nothing is padded. The kernel has no backward, as the
+reference's Pallas kernel has none: on the card an input that requires
+grad raises, where the output would otherwise carry no gradient.
 """
 from __future__ import annotations
 
@@ -57,6 +59,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"no kernel for device {q.device}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k and v must share a device")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("the kernel has no backward: an input requires "
+                         "grad (train through impl 'naive' or 'chunked', "
+                         "as the reference trains outside its kernels)")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k, v must all be float32 or all bfloat16, got "

@@ -4,7 +4,8 @@ As `repro.kernels.ssd.ops`, it pads L to a multiple of the chunk
 min(128, max(L, 8)) with dt = 0 steps, which are exact no-ops, and cuts
 the result back to L. Tensors on the CPU take the plain chunked dual form
 (`ref.ssd_chunked`) at that chunk; tensors on the card launch the kernel
-or raise — it never falls back.
+or raise — it never falls back. The kernel has no backward, as the
+reference's has none: on the card an input that requires grad raises.
 """
 from __future__ import annotations
 
@@ -46,6 +47,10 @@ def ssd(x, dt, a, b, c, d=None, chunk: int = CHUNK):
         raise ValueError(f"no kernel for device {x.device}")
     if any(t.device != x.device for t in (dt, a, b, c, d)):
         raise ValueError("SSD operands must share x's device")
+    if any(t.requires_grad for t in (x, dt, a, b, c, d)):
+        raise ValueError("the kernel has no backward: an input requires "
+                         "grad (train through impl 'chunked', as the "
+                         "reference trains outside its kernel)")
     if x.dtype not in (torch.float32, torch.bfloat16) \
             or b.dtype != x.dtype or c.dtype != x.dtype:
         raise ValueError("x, b, c must all be float32 or all bfloat16, got "

@@ -1,16 +1,105 @@
-"""Serving step builders, as `repro.launch.steps` has them: the batch
-prefill step (a forward over whole prompts, which runs the kernels with
-impl='cuda') and the one-token decode step (which runs the cache path).
+"""The steps, made as `repro.launch.steps` makes them: the train step
+(gradients of the chunked CE through the plain attention and SSD paths,
+with micro-batch accumulation and the configured optimizer), the eval
+step, the batch prefill step (a forward over whole prompts, which runs
+the kernels with impl='cuda') and the one-token decode step (which runs
+the cache path).
 
 PyTorch runs eagerly, so a step is a plain function; nothing is jitted.
-The training and evaluation steps and the input, parameter and cache
-specs of the dry-run wait for the training slice.
+The input, parameter and cache specs of the dry-run belong to the mesh
+layer, which is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models.loss import chunked_ce
+from repro_torch.optim import get_optimizer
+from repro_torch.optim.grad_compress import compress_decompress
+from repro_torch.tree import leaves, tree_map, unflatten
+
+
+def default_microbatches(cfg, shape, n_data: int,
+                         budget_bytes: float = 6e9) -> int:
+    """Gradient-accumulation factor sized so the remat-saved per-layer
+    residuals (n_layers x B_dev x S x d x 2 bytes) fit the activation
+    budget; MoE keeps 0.6 of it for its dispatch transients."""
+    b_dev = max(shape.global_batch // n_data, 1)
+    resid = cfg.n_layers * b_dev * shape.seq_len * cfg.d_model * 2
+    if cfg.n_experts > 0:
+        budget_bytes *= 0.6
+    micro = 1
+    while resid / micro > budget_bytes and micro < b_dev:
+        micro *= 2
+    return micro
+
+
+def loss_and_grads(cfg, params, batch, impl: str = "chunked"):
+    """(loss, grads): the chunked CE of `forward` on `batch` and its
+    gradient with respect to every parameter, a tree like `params` in
+    the parameters' dtypes. The parameters themselves are left as they
+    were."""
+    flat = leaves(params)
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in flat]
+        p = unflatten(params, xs)
+        hidden = T.forward(cfg, p, batch, impl=impl)
+        loss = chunked_ce(hidden, p["lm_head"]["w"], batch["labels"])
+        grads = torch.autograd.grad(loss, xs)
+    return loss.detach(), unflatten(params, grads)
+
+
+def make_train_step(cfg, impl: str = "chunked", lr: float = 3e-4,
+                    grad_compression: bool = False, microbatches: int = 1,
+                    donate: bool = False):
+    """(params, opt_state, batch) -> (params, opt_state, metrics), with
+    metrics {"loss", "grad_norm"} as float32 tensors.
+
+    microbatches > 1 splits the batch's dim 0 into that many contiguous
+    slices, accumulates their gradients in `cfg.grad_accum_dtype` in slice
+    order and divides by the count. `donate=True` lets the optimizer
+    write the new parameters and state into the old tensors (the
+    reference's launchers jit the step with `donate_argnums`); the default
+    returns new tensors and leaves the inputs as they were."""
+    opt = get_optimizer(cfg.optimizer)
+    acc_dtype = getattr(torch, cfg.grad_accum_dtype)
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, grads = loss_and_grads(cfg, params, batch, impl)
+        else:
+            n = next(iter(batch.values())).shape[0] // microbatches
+            count = torch.full((), microbatches, dtype=acc_dtype,
+                               device=leaves(params)[0].device)
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
+                                                  device=p.device), params)
+            lsum = torch.zeros((), dtype=torch.float32, device=count.device)
+            for i in range(microbatches):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                loss, g = loss_and_grads(cfg, params, mb, impl)
+                gsum = tree_map(lambda a, b: a + b.to(acc_dtype), gsum, g)
+                lsum = lsum + loss
+                del g
+            grads = tree_map(lambda g: g / count, gsum)
+            loss = lsum / count.float()
+            del gsum
+        if grad_compression:
+            grads = compress_decompress(grads)
+        params, opt_state, gnorm = opt.update(grads, opt_state, params, lr,
+                                              donate=donate)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+def make_eval_step(cfg, impl: str = "chunked"):
+    """(params, batch) -> the chunked CE of the batch, float32."""
+    @torch.no_grad()
+    def eval_step(params, batch):
+        hidden = T.forward(cfg, params, batch, impl=impl)
+        return chunked_ce(hidden, params["lm_head"]["w"], batch["labels"])
+    return eval_step
 
 
 def make_prefill_step(cfg, impl: str = "chunked"):

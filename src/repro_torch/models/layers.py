@@ -140,7 +140,10 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.bfloat16,
 
 
 def embed(params, tokens):
-    return params["w"][tokens]
+    """Rows of the table: `F.embedding`, whose backward on the card sums
+    a repeated token's rows over sorted indices in a fixed order (an
+    indexing gather's would add them with `index_put_` atomics)."""
+    return F.embedding(tokens, params["w"])
 
 
 def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:

@@ -12,8 +12,11 @@ buffer is written by assignment, not by a sum (kept slots are unique;
 dropped assignments land in a spare row that is cut off, and read back
 a spare row of zeros), and each token's k expert outputs are added in
 slot order, so nothing here depends on the order in which the card's
-atomics land. The reference's
-sharding constraints are the identity without a mesh and are dropped.
+atomics land. Every step is differentiable, and the backward keeps that
+rule: a token's k copies are summed by a reshape, and the only rows
+read more than once are the spare row's, whose gradient is dropped. The
+reference's sharding constraints are the identity without a mesh and
+are dropped.
 """
 from __future__ import annotations
 
@@ -119,15 +122,16 @@ def _moe_dispatch(params, x, cfg, capacity_factor):
     c = r.capacity
     # row e*c is the spare row the dropped assignments go to
     rows = torch.where(r.keep, r.expert_ids.reshape(-1) * c + r.pos, e * c)
-    tok_ids = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = x.new_zeros((e * c + 1, d))
-    buf[rows] = xf[tok_ids]
+    # each token k times in (token, slot) order: its backward sums the k
+    # rows by a reshape, in a fixed order, not by an index_add
+    buf[rows] = xf[:, None].expand(t, k, d).reshape(t * k, d)
     buf = buf[:e * c].view(e, c, d)
 
     h = F.silu(torch.bmm(buf, params["gate"])) * torch.bmm(buf, params["up"])
-    out = x.new_empty((e * c + 1, d))
-    out[e * c] = 0                               # what a dropped one gets
-    torch.bmm(h, params["down"], out=out[:e * c].view(e, c, d))
+    # the spare row of zeros is what a dropped assignment reads back
+    out = torch.cat([torch.bmm(h, params["down"]).view(e * c, d),
+                     x.new_zeros((1, d))])
     w = r.gates.reshape(-1, 1).to(x.dtype)
     parts = (out[rows] * w).reshape(t, k, d)
     y = parts[:, 0]

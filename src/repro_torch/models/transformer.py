@@ -7,7 +7,11 @@ attention block) and `audio` (whisper: an encoder over precomputed
 frames, a decoder with self- and cross-attention).
 
   * init_params(cfg, gen, dtype, device) — seeded random weights;
-  * forward(cfg, params, batch, impl)   — teacher-forced hidden states;
+  * forward(cfg, params, batch, impl)   — teacher-forced hidden states,
+                                          each block under activation
+                                          checkpointing when `cfg.remat`
+                                          is set and its parameters
+                                          require grad (training);
   * logits_from_hidden                  — the LM head;
   * init_cache / prime_cross_cache / decode_step
                                         — one-token serving with caches,
@@ -19,6 +23,7 @@ per-layer weights stacked on a leading layer axis.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -26,6 +31,7 @@ from repro_torch.models.attention import (attention_apply, attention_init,
                                           check_impl)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import init_ssm_state, ssm_apply, ssm_init
+from repro_torch.tree import leaves
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -41,6 +47,28 @@ def layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack(tree, n: int) -> list:
+    """The n layers' parameters out of a stacked tree, one `unbind` a
+    leaf: its backward stacks the layers' gradients once, where taking a
+    layer at a time would add a zero-filled gradient the size of the
+    whole stack for every layer."""
+    if isinstance(tree, dict):
+        kids = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in kids.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _remat(cfg, fn, x, lp):
+    """fn(x), under activation checkpointing (the reference's
+    `jax.checkpoint` of each scanned layer) when `cfg.remat` is set and
+    the layer's parameters `lp` require grad: the backward recomputes the
+    layer from x. Serving's parameters never require grad."""
+    if cfg.remat and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in leaves(lp)):
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
 
 
 # --------------------------------------------------------------------------
@@ -153,9 +181,9 @@ def forward(cfg, params, batch, impl="chunked"):
         return _decode_stack_ed(cfg, params, x, positions, enc, impl)
     _, norm = L.make_norm(cfg.norm)
     per_group = cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
-    for li in range(cfg.n_layers):
-        x = _block_apply(layer(params["layers"], li), x, cfg, positions,
-                         impl)
+    for li, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        x = _remat(cfg, lambda h, lp=lp: _block_apply(lp, h, cfg, positions,
+                                                      impl), x, lp)
         if cfg.family == "hybrid" and (li + 1) % per_group == 0:
             a, _ = attention_apply(
                 params["shared_attn"], norm(params["shared_norm"], x), cfg,
@@ -174,9 +202,9 @@ def _encode(cfg, params, batch):
     x = frames + pos_tab[None].to(frames.dtype)
     enc_cfg = cfg.encoder_cfg()
     positions = torch.arange(f, device=x.device)[None].expand(b, f)
-    for li in range(cfg.encoder_layers):
-        x = _block_apply(layer(params["enc_layers"], li), x, enc_cfg,
-                         positions, "chunked", causal=False)
+    for lp in unstack(params["enc_layers"], cfg.encoder_layers):
+        x = _remat(cfg, lambda h, lp=lp: _block_apply(
+            lp, h, enc_cfg, positions, "chunked", causal=False), x, lp)
     _, norm = L.make_norm(cfg.norm)
     return norm(params["enc_norm"], x)
 
@@ -185,16 +213,20 @@ def _decode_stack_ed(cfg, params, x, positions, enc, impl):
     """Whisper's decoder: self-attention, cross-attention over `enc`,
     MLP."""
     _, norm = L.make_norm(cfg.norm)
-    for li in range(cfg.n_layers):
-        blk = layer(params["layers"], li)
-        cross = layer(params["cross_layers"], li)
-        a, _ = attention_apply(blk["attn"], norm(blk["norm1"], x), cfg,
+
+    def dec_layer(h, blk, cross):
+        a, _ = attention_apply(blk["attn"], norm(blk["norm1"], h), cfg,
                                positions, causal=True, impl=impl)
-        x = x + a
-        c, _ = attention_apply(cross["attn"], norm(cross["norm"], x), cfg,
+        h = h + a
+        c, _ = attention_apply(cross["attn"], norm(cross["norm"], h), cfg,
                                None, causal=False, impl=impl, x_kv=enc)
-        x = x + c
-        x = x + L.mlp_apply(blk["mlp"], norm(blk["norm2"], x), cfg.mlp)
+        h = h + c
+        return h + L.mlp_apply(blk["mlp"], norm(blk["norm2"], h), cfg.mlp)
+
+    for blk, cross in zip(unstack(params["layers"], cfg.n_layers),
+                          unstack(params["cross_layers"], cfg.n_layers)):
+        x = _remat(cfg, lambda h, b=blk, c=cross: dec_layer(h, b, c), x,
+                   (blk, cross))
     return norm(params["final_norm"], x)
 
 

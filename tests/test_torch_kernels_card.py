@@ -22,6 +22,11 @@ be bit-equal to the first (departures sum in a fixed order). The same holds
 with the ballooning rung and the adaptive controller on as well, where the
 rung must fire and the controller ratchet and back off.
 
+The training path runs none of the kernels: on the card the flash and
+SSD wrappers raise on an input that requires grad, and the MoE dispatch,
+the embedding gather and a remat'd block keep their serving numbers bit
+for bit, their gradients bit-equal across two runs.
+
 Bars: forest leaf indices exact, sums within 1e-5 per tree of the plain
 version and bit-equal to its emulated summation order; template scores
 within rtol 5e-3 / atol 5e-4; flash atol 2e-5 in float32 and 2e-2 in
@@ -454,3 +459,38 @@ def test_lm_family_kernel_forward_matches_plain(cuda, arch):
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
+    """The kernels have no backward (nor has the reference's Pallas):
+    on the card an input that requires grad raises, where the output
+    would otherwise carry no gradient; the same inputs without grad
+    launch."""
+    rng = np.random.default_rng(0)
+    q = _normal(rng, 1, 2, 64, 32).to(cuda)
+    k, v = (_normal(rng, 1, 2, 64, 32).to(cuda) for _ in range(2))
+    with pytest.raises(ValueError, match="backward"):
+        flash_ops.flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(ValueError, match="backward"):
+        flash_ops.flash_attention(q.detach(), k, v.requires_grad_())
+    x = _normal(rng, 1, 64, 2, 16).to(cuda)
+    dt = torch.rand(1, 64, 2, device=cuda) * 0.1
+    a, d = -torch.rand(2, device=cuda), torch.ones(2, device=cuda)
+    b, c = (_normal(rng, 1, 64, 8).to(cuda) for _ in range(2))
+    with pytest.raises(ValueError, match="backward"):
+        ssd_ops.ssd(x.requires_grad_(), dt, a, b, c, d)
+    reset_launches()
+    flash_ops.flash_attention(q.detach(), k, v.detach())
+    ssd_ops.ssd(x.detach(), dt, a, b, c, d)
+    assert KERNEL_LAUNCHES["flash_attention"] == 1
+    assert KERNEL_LAUNCHES["ssd"] == 1
+
+
+@pytest.mark.cuda
+def test_training_forms_keep_serving_numbers_and_repeat(cuda):
+    """On the card: the differentiable MoE dispatch and `F.embedding` give
+    the serving forms' outputs bit for bit, a remat'd forward is the
+    forward, and two backward passes give bit-equal gradients."""
+    from _torch_parity import check_training_forms
+    check_training_forms(cuda)

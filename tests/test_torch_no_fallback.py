@@ -288,3 +288,33 @@ def test_monitor_defaults_to_the_card(no_cuda):
     from repro_torch.launch import monitor
     with pytest.raises(RuntimeError, match="CUDA"):
         monitor.main(["--sim", "--days", "0.01"])
+
+
+def test_train_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """The training launcher and both training twins run on the card
+    unless asked for the CPU."""
+    from repro_torch.examples import serve_capped, train_lm
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "phi4-mini-3.8b", "--reduced", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_lm.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_capped.main()
+    assert not list(tmp_path.iterdir())
+
+
+def test_training_modules_import_without_jax():
+    code = ("import sys, repro_torch.models.loss, repro_torch.optim, "
+            "repro_torch.optim.adamw, repro_torch.optim.adafactor, "
+            "repro_torch.optim.schedule, repro_torch.optim.grad_compress, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint, "
+            "repro_torch.runtime.fault_tolerance, repro_torch.launch.train, "
+            "repro_torch.examples.train_lm, "
+            "repro_torch.examples.serve_capped; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   env={**os.environ, "PYTHONPATH": str(SRC)})
