@@ -212,6 +212,238 @@ T4_LOADS, T4_FLOORS = (1.0, 0.9, 0.8), (0.5, 0.6, 0.75)
 #: The Fig 7 run's length, cut from the reference test's 4 days to keep
 #: the whole script near 500 s.
 SIM_DAYS = 1.0
+def mesh_step(seed: int, dev) -> dict:
+    """(a): one fsdp2d train step on a one-rank NCCL DeviceMesh (1, 1)
+    against the plain step from the same state, bit for bit where it is
+    (else each differing leaf is named and held at the training bars),
+    with both steps' ms and the kernel launches (the training path
+    launches none). On one rank a shard is the whole tensor, so the
+    state is placed with `DTensor.from_local` at the strategy's
+    placements, without a copy; the plain step's results wait on the
+    host."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import MeshSpec, build_mesh
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import get_optimizer
+    from repro_torch.tree import leaves_with_path, tree_map
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CMP_LAYERS)
+    _free()
+    params = T.init_params(cfg, seed, device=dev)
+    state = get_optimizer(cfg.optimizer).init(params)
+    batch = _token_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, dev)
+    step = make_train_step(cfg, impl="naive")
+    host = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+
+    def timed(fn, runs=3):
+        out, ms = None, []
+        for _ in range(runs):
+            out = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(ms[1:])
+
+    reset_launches()
+    (p1, s1, m1), plain_ms = timed(lambda: step(params, state, batch))
+    p1, s1, m1 = host(p1), host(s1), host(m1)
+    g1 = host(loss_and_grads(cfg, params, batch, "naive")[1])
+    _free()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = build_mesh(MeshSpec((1, 1), ("data", "model")), dev)
+            strat = shd.make_strategy("fsdp2d", mesh)
+            names = ("params", "opt_state", "batch")
+            placed = [tree_map(lambda t, s: DTensor.from_local(
+                t, mesh, s.placements, run_check=False), a, sh)
+                for a, sh in zip((params, state, batch), shd.arg_shardings(
+                    strat, mesh, names, (params, state, batch)))]
+            with shd.use_strategy(strat, mesh):
+                (p2, s2, m2), sharded_ms = timed(lambda: step(*placed))
+                p2, s2, m2 = (host(shd.gather(t)) for t in (p2, s2, m2))
+                g2 = host(shd.gather(loss_and_grads(
+                    cfg, placed[0], placed[2], "naive")[1]))
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    launches = dict(KERNEL_LAUNCHES)
+    del placed, params, state
+    _free()
+    differ = {}
+    for tag, a, b in (("param", p1, p2), ("opt_state", s1, s2),
+                      ("grad", g1, g2)):
+        other = dict(leaves_with_path(b))
+        for path, t in leaves_with_path(a):
+            if not torch.equal(t, other[path]):
+                gap = (t.float() - other[path].float()).abs().max()
+                differ[f"{tag}/{'/'.join(map(str, path))}"] = float(
+                    gap / t.float().abs().max().clamp(min=1e-30))
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "cut": f"{TRAIN_CMP_LAYERS} of 32 layers: the plain and the "
+                  "sharded step's states side by side do not fit at full "
+                  "depth",
+           "mesh": [1, 1], "backend": "nccl", "strategy": "fsdp2d",
+           "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "loss": [float(m1["loss"]), float(m2["loss"])],
+           "grad_norm": [float(m1["grad_norm"]), float(m2["grad_norm"])],
+           "bit_equal": not differ and torch.equal(m1["loss"], m2["loss"])
+           and torch.equal(m1["grad_norm"], m2["grad_norm"]),
+           "differing_leaves": differ,
+           "plain_ms_per_step": plain_ms, "sharded_ms_per_step": sharded_ms,
+           "kernel_launches": launches}
+    del p1, s1, p2, s2, g1, g2
+    check(sum(launches.values()) == 0,
+          f"the train steps launch no hand-written kernel: {launches}")
+    if not out["bit_equal"]:
+        loss_gap = abs(out["loss"][1] / out["loss"][0] - 1)
+        gnorm_gap = abs(out["grad_norm"][1] / out["grad_norm"][0] - 1)
+        grad_gap = max([v for k, v in differ.items()
+                        if k.startswith("grad/")] or [0.0])
+        check(loss_gap <= TRAIN_LOSS_RTOL and gnorm_gap <= TRAIN_GNORM_RTOL
+              and grad_gap <= TRAIN_GRAD_REL_ATOL,
+              f"the sharded step within the training bars of the plain "
+              f"one: {out}")
+    return out
+
+
+def mesh_dryrun(jobs: int | None = None) -> dict:
+    """(b): the dry-run of MESH_DRYRUN_CELLS under fsdp2d on both
+    production meshes through the CLI (a process a cell, fake groups, no
+    card), each with its argument GB a device against the card's 80 GB,
+    FLOPs and collective bytes a device, the roofline terms at the H100's
+    peaks and its seconds."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import roofline
+    art = Path(__file__).resolve().parent / "build" / "dryrun_torch"
+    jobs = jobs or MESH_DRYRUN_JOBS
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(
+        Path(__file__).resolve().parent / "src"))
+    archs = sorted({a for a, _ in MESH_DRYRUN_CELLS})
+    shapes = sorted({s for _, s in MESH_DRYRUN_CELLS})
+    procs = []
+    for mp in (False, True):
+        for arch, shape in MESH_DRYRUN_CELLS:
+            procs.append(((arch, shape, mp), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--strategy", "fsdp2d",
+                 "--multi-pod" if mp else "--single-pod", "--force",
+                 "--in-process", "--artifact-dir", str(art)],
+                env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.DEVNULL)))
+            while sum(p.poll() is None for _, p in procs) >= jobs:
+                time.sleep(0.2)
+    for _, p in procs:
+        p.wait(timeout=900)
+    cells = {}
+    hbm_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for (arch, shape, mp), p in procs:
+        name = f"{arch}__{shape}__pod{2 if mp else 1}__fsdp2d"
+        with open(art / f"{name}.json") as f:
+            rec = json.load(f)
+        row = {"status": rec["status"], "exit": p.returncode,
+               "seconds": rec.get("run_s")}
+        if rec["status"] == "ok":
+            terms = roofline.roofline_row(rec, ARCHS[arch], SHAPES[shape],
+                                          chips=512 if mp else 256)
+            row.update(
+                argument_gb_per_device=rec["memory"]["argument_bytes"] / 1e9,
+                card_gb=hbm_gb,
+                flops_per_device=rec["cost"]["flops"],
+                collective_bytes_per_device=rec["collectives"]["total_bytes"],
+                collectives=rec["collectives"],
+                **{k: terms[k] for k in ("t_compute_s", "t_memory_s",
+                                         "t_collective_s", "dominant",
+                                         "roofline_overlapped")})
+        else:
+            row["error"] = rec.get("error")
+        cells[name] = row
+    out = {"strategy": "fsdp2d", "meshes": [[16, 16], [2, 16, 16]],
+           "archs": archs, "shapes": shapes, "cells": cells,
+           "seconds": time.perf_counter() - t0, "jobs": jobs}
+    check(all(c["status"] == "ok" and c["exit"] == 0
+              for c in cells.values()),
+          f"every dry-run cell ok: { {k: c.get('error') or c['status'] for k, c in cells.items() if c['status'] != 'ok'} }")
+    return out
+
+
+def mesh_multi_card() -> dict:
+    """(c): with two cards or more, the sharded step on 2 NCCL ranks of a
+    (1, 2) mesh against the plain step (reduced llama3-8b, float32, two
+    steps) at the training bars."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        return {"run": False, "cards": n,
+                "why": f"{n} card(s) on this machine: the multi-rank NCCL "
+                       "step needs two or more"}
+    from repro_torch.tree import leaves_with_path
+    out_file = Path(__file__).resolve().parent / "build" / "mesh_2cards.pt"
+    env = dict(os.environ, PYTHONPATH=str(
+        Path(__file__).resolve().parent / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.sharded", "--arch",
+         "llama3-8b", "--reduced", "--mesh", "1,2", "--steps", "2",
+         "--out", str(out_file)], env=env, capture_output=True, text=True,
+        timeout=600)
+    check(proc.returncode == 0, f"2-card sharded step: {proc.stderr[-2000:]}")
+    rec = torch.load(out_file, weights_only=False)
+    plain, sharded = rec["plain"], rec["sharded"]
+    grad_gap = 0.0
+    for gp, gs in zip(plain["grads"], sharded["grads"]):
+        other = dict(leaves_with_path(gs))
+        for path, t in leaves_with_path(gp):
+            grad_gap = max(grad_gap, float(
+                (t - other[path]).abs().max() / t.abs().max().clamp(
+                    min=1e-30)))
+    out = {"run": True, "cards": n, "mesh": [1, 2], "arch": "llama3-8b "
+           "reduced, float32, 2 steps", "loss": [plain["loss"],
+                                                 sharded["loss"]],
+           "grad_norm": [plain["grad_norm"], sharded["grad_norm"]],
+           "max_grad_gap_over_leaf_max": grad_gap,
+           "shard_errors": sharded["shard_errors"]}
+    check(np.allclose(sharded["loss"], plain["loss"], rtol=TRAIN_LOSS_RTOL,
+                      atol=0)
+          and np.allclose(sharded["grad_norm"], plain["grad_norm"],
+                          rtol=TRAIN_GNORM_RTOL, atol=0)
+          and grad_gap <= TRAIN_GRAD_REL_ATOL
+          and not any(sharded["shard_errors"]),
+          f"the 2-card sharded step within the training bars: {out}")
+    return out
+
+
+def mesh_phase(seed: int, dev) -> dict:
+    """The mesh layer on the card: (a) `mesh_step`, (b) `mesh_dryrun`,
+    (c) `mesh_multi_card`, each line emitted as it ends. The mesh layer
+    adds no kernel and its path launches none."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, fn in (("step", lambda: mesh_step(seed, dev)),
+                     ("dryrun", mesh_dryrun),
+                     ("multi_card", mesh_multi_card)):
+        out[name] = fn()
+        emit(f"mesh_{name}", **out[name])
+    out["seconds"] = time.perf_counter() - t0
+    emit("mesh", seconds=out["seconds"],
+         kernels="the mesh layer adds no kernel; its path launches none")
+    return out
+
+
 #: The profiled serve-backend run of the Fig 7 phase. Its launches per
 #: arrival move with the run's length (~900 over 0.1 days, ~690 over
 #: 0.25), and the profiler costs ~0.7 ms a launch: 0.25 days took 145 s
@@ -234,6 +466,29 @@ TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_REL_ATOL = 1e-5, 1e-4, 1e-5
 #: within this relative gap of each other.
 TRAIN_MICRO_GNORM_RTOL = 1e-5
 FT_STEPS, FT_RATE, FT_EVERY = 40, 0.2, 5
+
+#: The mesh phase (`mesh_phase`). (a) The fsdp2d train step on a one-rank
+#: NCCL DeviceMesh (1, 1) against the plain step from the same state:
+#: phi4-mini-3.8b at full width cut to TRAIN_CMP_LAYERS layers (both
+#: steps' states side by side do not fit at full depth), TRAIN_BATCH x
+#: TRAIN_SEQ tokens, impl 'naive' as `launch.train` runs. (b) The dry-run
+#: (`launch.dryrun`, fake process groups of 256 and 512 ranks, meta
+#: shards) of the cells below under fsdp2d on (16, 16) and (2, 16, 16),
+#: MESH_DRYRUN_JOBS at a time: every family's decode cell, the prefill of
+#: the dense, moe, vlm and audio families and the train cell of the dense
+#: and audio ones. The SSM and hybrid prefill and train cells (2-6 min a
+#: cell on the card's host) and the moe and vlm train cells (2-4 min) are
+#: left to the whole grid, which `python -m repro_torch.launch.dryrun
+#: --jobs 8` runs in ~9 min a strategy. (c) More than one card: the sharded step on
+#: 2 NCCL ranks against 1 (`launch.sharded`).
+MESH_DRYRUN_CELLS = (
+    ("phi4-mini-3.8b", "train_4k"), ("phi4-mini-3.8b", "prefill_32k"),
+    ("phi4-mini-3.8b", "decode_32k"), ("mixtral-8x22b", "prefill_32k"),
+    ("mixtral-8x22b", "decode_32k"), ("mamba2-2.7b", "decode_32k"),
+    ("zamba2-2.7b", "decode_32k"), ("qwen2-vl-72b", "prefill_32k"),
+    ("qwen2-vl-72b", "decode_32k"), ("whisper-tiny", "train_4k"),
+    ("whisper-tiny", "prefill_32k"), ("whisper-tiny", "decode_32k"))
+MESH_DRYRUN_JOBS = 8
 
 
 _T0 = time.perf_counter()
@@ -3788,6 +4043,11 @@ def main(argv=None) -> int:
     # Adafactor and the fault-tolerant replay, each line emitted inside
     train = lm_train(args.seed, dev)
     train_launches = train["full_width"]["kernel_launches"]
+
+    # the mesh layer: the fsdp2d step on a one-rank NCCL mesh against the
+    # plain step, the dry-run's cells on the production meshes, and the
+    # multi-card step where there is more than one card
+    mesh = mesh_phase(args.seed, dev)
     obs_launches = {name: {k: r["launches"][k]
                            for k in ("forest", "template")}
                     for name, r in (("obs_serve", o_serve),
@@ -3810,6 +4070,7 @@ def main(argv=None) -> int:
          "launches_sharded_planes": shard_planes["launches"]["forest"],
          "launches_obs": {k: v["forest"] for k, v in obs_launches.items()},
          "launches_lm_train": train_launches["forest"],
+         "launches_mesh": mesh["step"]["kernel_launches"]["forest"],
          **{k: forest["micro_batch"][k] for k in TIMES},
          "library_ms": None, "shape": forest["micro_batch"]["shape"],
          "blocks": forest["micro_batch"]["blocks"],
@@ -3828,6 +4089,7 @@ def main(argv=None) -> int:
              for k in ("quickstart", "datacenter_sim")},
          "launches_obs": {k: v["template"] for k, v in obs_launches.items()},
          "launches_lm_train": train_launches["template"],
+         "launches_mesh": mesh["step"]["kernel_launches"]["template"],
          **{k: res_hist[k] for k in TIMES},
          "library_ms": None, "shape": res_hist["shape"],
          "edge_shapes": [r["shape"] for r in edges["template"]],
@@ -3842,6 +4104,7 @@ def main(argv=None) -> int:
              arch: families[arch]["prefill_launches"]["flash_attention"]
              for arch, *_ in FAMILY_RUNS},
          "launches_lm_train": train_launches["flash_attention"],
+         "launches_mesh": mesh["step"]["kernel_launches"]["flash_attention"],
          **{k: flash["prefill"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape", "tflops", "bound_share", "device_ms",
@@ -3852,6 +4115,7 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/ssd/ssd.py:77",
          "launches": lm["prefill_launches"]["ssd"],
          "launches_lm_train": train_launches["ssd"],
+         "launches_mesh": mesh["step"]["kernel_launches"]["ssd"],
          **{k: ssd["prefill"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "shape", "tflops", "bound_share", "device_ms")},

@@ -14,7 +14,8 @@ A flat key joins the tree path's dict keys and sequence indices with
 step_<N>.tmp and renames it, so a partial write never hides the newest
 committed step; restore() takes the newest committed step unless told
 one; keep_last rotates old steps out. Arrays are whole per key, so a
-restore may place them anywhere.
+restore may place them anywhere: `restore(..., shardings=)` puts each on
+a mesh (`runtime.elastic`).
 """
 from __future__ import annotations
 
@@ -98,9 +99,12 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, step: int | None = None):
+    def restore(self, tree_like, step: int | None = None, shardings=None):
         """(tree, step): the structure of `tree_like`, each leaf the saved
-        array in its saved dtype on the device of `tree_like`'s leaf."""
+        array in its saved dtype on the device of `tree_like`'s leaf. With
+        `shardings` (a tree like it of `launch.sharding.NamedSharding`)
+        each leaf is placed on its sharding's mesh as a DTensor instead:
+        the arrays are whole, so any mesh takes them."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -115,4 +119,8 @@ class Checkpointer:
                                meta["keys"][key]["dtype"],
                                torch.as_tensor(leaf).device)
                    for key, leaf in like.items()]
-        return unflatten(tree_like, out), step
+        tree = unflatten(tree_like, out)
+        if shardings is not None:
+            from repro_torch.launch.sharding import distribute
+            tree = distribute(tree, shardings)
+        return tree, step

@@ -11,7 +11,9 @@ implementations:
                 repeating the keys.
 
 'pallas' has no meaning here and raises. The reference's sharding
-constraints are the identity without a mesh and are dropped.
+constraints are kept (`launch.sharding.constrain`: the identity without
+a mesh); on a mesh the attention core runs on each rank's (batch, head)
+shards (`shd.local_map`).
 
 Decode attends the new token against the cache and writes its keys and
 values into the cache tensors in place (the reference returns new
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import sharding as shd
 from repro_torch.models.layers import apply_mrope, apply_rope, dense, dense_init
 
 NEG = -1e30
@@ -49,6 +52,7 @@ def attention_init(gen, cfg, dtype=torch.bfloat16, device=None, lead=()):
 
 def _split_heads(x, n_heads, hd):
     b, l, _ = x.shape
+    x = shd.splittable(x, -1, n_heads)
     return x.reshape(b, l, n_heads, hd).transpose(1, 2)
 
 
@@ -138,6 +142,8 @@ def _decode_attention(q, k, v, cfg, kv_cache, cache_index: int):
     ck, cv = kv_cache["k"], kv_cache["v"]
     ck[:, :, slot] = k[:, :, 0].to(ck.dtype)
     cv[:, :, slot] = v[:, :, 0].to(cv.dtype)
+    ck = shd.constrain(ck, "kv_cache")
+    cv = shd.constrain(cv, "kv_cache")
     dev = q.device
     if rolling:
         pos_buf = kv_cache["pos"]
@@ -150,6 +156,15 @@ def _decode_attention(q, k, v, cfg, kv_cache, cache_index: int):
         valid = kpos <= slot
         if cfg.sliding_window is not None:
             valid &= (slot - kpos) < cfg.sliding_window
+    # independent along the batch: on a mesh, each rank's batch shard
+    # against its cache rows, gathered whole along the heads and S
+    return shd.local_map(lambda q, ck, cv, valid: _decode_core(
+        q, ck, cv, valid, cfg), (q, ck, cv, valid),
+        [(0,), (0,), (0,), (None,)], (0,))
+
+
+def _decode_core(q, ck, cv, valid, cfg):
+    hd = cfg.head_dim
     rep = cfg.n_heads // cfg.n_kv_heads
     b, _, lq, _ = q.shape
     # the reference's einsums promote (a bf16 cache against float32
@@ -158,7 +173,7 @@ def _decode_attention(q, k, v, cfg, kv_cache, cache_index: int):
     qg = q.reshape(b, cfg.n_kv_heads, rep * lq, hd).to(work)
     s = torch.einsum("bgqd,bgkd->bgqk", qg, ck.to(work)).float() \
         * hd ** -0.5
-    s = torch.where(valid, s, _neg(dev))
+    s = torch.where(valid, s, _neg(q.device))
     p = torch.softmax(s, dim=-1).to(q.dtype)
     work = torch.promote_types(p.dtype, cv.dtype)
     out = torch.einsum("bgqk,bgkd->bgqd", p.to(work), cv.to(work))
@@ -180,6 +195,9 @@ def attention_apply(params, x, cfg, positions, causal=True, impl="chunked",
     q = _split_heads(dense(params["wq"], x), cfg.n_heads, hd)
     k = _split_heads(dense(params["wk"], src), cfg.n_kv_heads, hd)
     v = _split_heads(dense(params["wv"], src), cfg.n_kv_heads, hd)
+    q = shd.constrain(q, "attn_heads")
+    k = shd.constrain(k, "attn_kv_heads")
+    v = shd.constrain(v, "attn_kv_heads")
     if x_kv is None:
         if kv_cache is not None:
             positions = torch.full((x.shape[0], 1), cache_index,
@@ -201,11 +219,12 @@ def attention_apply(params, x, cfg, positions, causal=True, impl="chunked",
         if rep > 1:
             k = k.repeat_interleave(rep, 1)
             v = v.repeat_interleave(rep, 1)
-        if impl == "naive":
-            out = _naive_attention(q, k, v, causal, window)
-        else:
-            out = _chunked_attention(q, k, v, causal, window)
-    return dense(params["wo"], _merge_heads(out)), None
+        core = _naive_attention if impl == "naive" else _chunked_attention
+        # independent along (batch, head): on a mesh, each rank's shards
+        out = shd.local_map(lambda q, k, v: core(q, k, v, causal, window),
+                            (q, k, v), [(0, 1)] * 3, (0, 1))
+    out = shd.constrain(_merge_heads(out), "attn_out")
+    return dense(params["wo"], out), None
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, n_layers: int,

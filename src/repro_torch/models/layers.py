@@ -5,9 +5,10 @@ dicts of tensors; math that needs range (normalization statistics,
 rotary) runs in float32, and results come back in the input's dtype.
 
 Initializers draw from an explicit `torch.Generator` on the parameters'
-device. They give other numbers than `jax.random` from the same seed:
-tests carry the reference's weights across with
-`repro_torch.convert.lm_params_from_numpy` instead.
+device (on `meta` they allocate and draw nothing). They give other
+numbers than `jax.random` from the same seed: tests carry the
+reference's weights across with `repro_torch.convert.lm_params_from_numpy`
+instead.
 """
 from __future__ import annotations
 
@@ -15,10 +16,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding as shd
+
 
 def normal(gen: torch.Generator, shape, std: float, dtype,
            device) -> torch.Tensor:
-    """Normal(0, std) draws in float32, cast to `dtype`."""
+    """Normal(0, std) draws in float32, cast to `dtype`. On the `meta`
+    device (shapes only, for the dry-run) nothing is drawn and `gen` may
+    be None."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device)
     return (w * std).to(dtype)
@@ -131,6 +138,7 @@ def mlp_apply(params, x, kind: str):
         h = torch.square(F.relu(dense(params["up"], x)))
     else:                          # gelu (whisper): jax.nn.gelu's tanh form
         h = F.gelu(dense(params["up"], x), approximate="tanh")
+    h = shd.constrain(h, "ffn_hidden")
     return dense(params["down"], h)
 
 
@@ -142,8 +150,15 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.bfloat16,
 def embed(params, tokens):
     """Rows of the table: `F.embedding`, whose backward on the card sums
     a repeated token's rows over sorted indices in a fixed order (an
-    indexing gather's would add them with `index_put_` atomics)."""
-    return F.embedding(tokens, params["w"])
+    indexing gather's would add them with `index_put_` atomics). On a
+    vocab-sharded table (a DTensor) the width is gathered first, each
+    rank looks up its own rows, and the masked partial rows are summed at
+    once: DTensor's masked lookup holds only for a table split by rows,
+    and cannot be reduced into another layout later. The gradient coming
+    back is settled into the output's layout first, for the same reason
+    (a partial sum cannot become the masked one)."""
+    w = shd.replicate(params["w"], dims=(1,))
+    return shd.grad_like(shd.replicate(F.embedding(tokens, w), dims=()))
 
 
 def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:

@@ -12,16 +12,41 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import sharding as shd
+
 
 def _chunk_loss(h, head_w, y):
     """The chunk's summed CE over labels >= 0, and their count."""
-    logits = (h @ head_w).float()                 # (B, C, V)
-    lse = torch.logsumexp(logits, -1)
+    logits = shd.constrain(h @ shd.fsdp_weight(head_w), "logits").float()
+    lse = _logsumexp(logits)
     mask = y >= 0
-    # one index a row: the gather's backward adds one term a position
-    gold = logits.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
+    gold = _gold(logits, y.clamp(min=0).long())
     ce = torch.where(mask, lse - gold, torch.zeros_like(lse))
     return ce.sum(), mask.sum()
+
+
+def _logsumexp(logits):
+    """logsumexp over the vocab. Where the vocab is split over ranks it is
+    taken shard-locally around the max across shards, so only (B, C)
+    partial sums cross them (DTensor's own gathers the whole vocab)."""
+    if shd.split_ways(logits, -1) <= 1:
+        return torch.logsumexp(logits, -1)
+    m = shd.replicate(logits.amax(-1, keepdim=True).detach(), dims=())
+    return (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True)))[..., 0]
+
+
+def _gold(logits, y):
+    """logits[..., y]: a gather (one index a row, so its backward adds one
+    term a position). Where the vocab dim is sharded (a DTensor on a
+    mesh) it is the masked sum over the vocab instead, whose partial sums
+    one all-reduce settles: the same values, since each sum has one
+    non-zero term. (DTensor's own masked gather cannot be reduced for
+    these shapes.)"""
+    if not shd.split_ways(logits, -1):
+        return logits.gather(-1, y[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    hit = vocab == y[..., None]
+    return shd.replicate(torch.where(hit, logits, 0.0).sum(-1), dims=())
 
 
 def chunked_ce(hidden: torch.Tensor, head_w: torch.Tensor,

@@ -14,9 +14,13 @@ a spare row of zeros), and each token's k expert outputs are added in
 slot order, so nothing here depends on the order in which the card's
 atomics land. Every step is differentiable, and the backward keeps that
 rule: a token's k copies are summed by a reshape, and the only rows
-read more than once are the spare row's, whose gradient is dropped. The
-reference's sharding constraints are the identity without a mesh and
-are dropped.
+read more than once are the spare row's, whose gradient is dropped.
+
+On a mesh the reference's eight sharding constraints apply (the routing
+as its (T*k, E) transpose), and the buffer write and the gather back,
+which DTensor has no rule for, run on local tensors (`shd.local_map`):
+every rank writes the whole buffer from the gathered rows, and reads its
+own assignments' rows back.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding as shd
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, normal
 
 #: Token counts above this are dispatched in chunks along the length, and
@@ -46,6 +51,8 @@ def moe_init(gen, cfg, dtype=torch.bfloat16, device=None, lead=()):
 
     def experts(shape, std):
         w = torch.empty((*lead, e, *shape), dtype=dtype, device=device)
+        if w.is_meta:
+            return w
         for idx in np.ndindex(*lead, e):
             w[idx] = normal(gen, shape, std, dtype, device)
         return w
@@ -88,9 +95,12 @@ def route(params, xf, cfg, capacity_factor: float | None) -> Routing:
     else:
         capacity = max(-(-int(capacity_factor * k * t) // e), 1)
     flat_e = expert_ids.reshape(-1)
-    # one row an expert, so the running count scans the contiguous dim
+    # one row an expert, so the running count scans the contiguous dim;
+    # the reference's (T*k, E) layout is constrained as its transpose
     onehot = flat_e == torch.arange(e, device=xf.device)[:, None]  # (E, T*k)
-    pos = onehot.cumsum(1).gather(0, flat_e[None])[0] - 1
+    onehot = shd.constrain(onehot.mT, "moe_routing").mT
+    pos_in_e = shd.constrain(onehot.cumsum(1).mT, "moe_routing").mT
+    pos = pos_in_e.gather(0, flat_e[None])[0] - 1
     return Routing(logits, gates, expert_ids, pos, pos < capacity, capacity)
 
 
@@ -122,22 +132,44 @@ def _moe_dispatch(params, x, cfg, capacity_factor):
     c = r.capacity
     # row e*c is the spare row the dropped assignments go to
     rows = torch.where(r.keep, r.expert_ids.reshape(-1) * c + r.pos, e * c)
-    buf = x.new_zeros((e * c + 1, d))
     # each token k times in (token, slot) order: its backward sums the k
     # rows by a reshape, in a fixed order, not by an index_add
-    buf[rows] = xf[:, None].expand(t, k, d).reshape(t * k, d)
-    buf = buf[:e * c].view(e, c, d)
+    contrib = shd.constrain(xf[:, None].expand(t, k, d).reshape(t * k, d),
+                            "moe_tokens")
+    # the buffer write has no DTensor sharding rule: on a mesh every rank
+    # writes the whole buffer from the gathered rows
+    buf = shd.local_map(lambda src, rows: _write_rows(src, rows, e * c + 1),
+                        (contrib, rows), [(), ()], ())
+    buf = shd.constrain(buf[:e * c].view(e, c, d), "moe_buffer")
 
-    h = F.silu(torch.bmm(buf, params["gate"])) * torch.bmm(buf, params["up"])
-    # the spare row of zeros is what a dropped assignment reads back
-    out = torch.cat([torch.bmm(h, params["down"]).view(e * c, d),
+    gate, up, down = (shd.fsdp_weight(params[n]) for n in ("gate", "up",
+                                                           "down"))
+    h = F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
+    h = shd.constrain(h, "moe_hidden")
+    out_buf = shd.constrain(torch.bmm(h, down), "moe_buffer")
+    # the spare row of zeros is what a dropped assignment reads back; on
+    # a mesh the buffer is gathered whole (it is read whole below, and a
+    # capacity dim split over 'data' cannot be flattened into E*C)
+    out = torch.cat([shd.replicate(out_buf).view(e * c, d),
                      x.new_zeros((1, d))])
+    # each rank reads its own assignments' rows of the whole buffer
+    gathered = shd.local_map(lambda rows, out: out[rows], (rows, out),
+                             [(0,), (None,)], (0,))
+    gathered = shd.constrain(gathered, "moe_tokens")
     w = r.gates.reshape(-1, 1).to(x.dtype)
-    parts = (out[rows] * w).reshape(t, k, d)
+    parts = (gathered * w).reshape(t, k, d)
     y = parts[:, 0]
     for j in range(1, k):                        # the reference's adds
         y = y + parts[:, j]
-    return y.reshape(b, lc, d)
+    return shd.constrain(y, "moe_tokens").reshape(b, lc, d)
+
+
+def _write_rows(src, rows, n: int):
+    """A zero (n, d) buffer with src's rows written at `rows` (unique but
+    for the spare row, whose value is never read)."""
+    buf = src.new_zeros((n, src.shape[1]))
+    buf[rows] = src
+    return buf
 
 
 def aux_load_balance_loss(logits: torch.Tensor, expert_ids: torch.Tensor,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding as shd
 from repro_torch.models.attention import check_impl
 from repro_torch.models.layers import dense, dense_init, normal, softplus
 
@@ -94,11 +95,13 @@ def ssm_apply(params, x, cfg, impl="chunked", state=None):
         return out, {"conv": window[:, 1:], "ssm": s_new}
 
     check_impl(impl)
-    conv_out = F.silu(_causal_conv(conv_in, params["conv_w"],
-                                   params["conv_b"]))
+    # independent along the batch: on a mesh, each rank's batch shard
+    conv_out = F.silu(shd.local_map(
+        _causal_conv, (conv_in, params["conv_w"], params["conv_b"]),
+        [(0,), (None,), (None,)], (0,)))
     xs, bs, cs = torch.split(conv_out, [d_inner, n, n], dim=-1)
     bsz, l, _ = xs.shape
-    xh = xs.reshape(bsz, l, nheads, hd)
+    xh = shd.constrain(xs.reshape(bsz, l, nheads, hd), "ssm_heads")
     if impl == "cuda":
         from repro_torch.kernels.ssd.ops import ssd
         if not xh.is_cuda:
@@ -107,7 +110,12 @@ def ssm_apply(params, x, cfg, impl="chunked", state=None):
         y = ssd(xh, dt, a, bs, cs, params["d_skip"])
     else:
         from repro_torch.kernels.ssd.ref import ssd_chunked
-        y = ssd_chunked(xh, dt, a, bs, cs, params["d_skip"], chunk=128)
+        # independent along (batch, head): on a mesh, each rank's shards
+        y = shd.local_map(
+            lambda *t: ssd_chunked(*t, chunk=128),
+            (xh, dt, a, bs, cs, params["d_skip"]),
+            [(0, 2), (0, 2), (None, 0), (0, None), (0, None), (None, 0)],
+            (0, 2))
     y = y.reshape(bsz, l, d_inner) * F.silu(z)
     return dense(params["out_proj"], y.to(x.dtype)), None
 

@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (attention_apply, attention_init,
                                           check_impl)
@@ -53,11 +54,12 @@ def unstack(tree, n: int) -> list:
     """The n layers' parameters out of a stacked tree, one `unbind` a
     leaf: its backward stacks the layers' gradients once, where taking a
     layer at a time would add a zero-filled gradient the size of the
-    whole stack for every layer."""
+    whole stack for every layer. On a mesh each layer's gradient is laid
+    out as its parameter as soon as it is computed (`shd.grad_like`)."""
     if isinstance(tree, dict):
         kids = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in kids.items()} for i in range(n)]
-    return list(tree.unbind(0))
+    return [shd.grad_like(t) for t in tree.unbind(0)]
 
 
 def _remat(cfg, fn, x, lp):
@@ -107,7 +109,8 @@ def _block_apply(params, x, cfg, positions, impl, causal=True):
     a, _ = attention_apply(params["attn"], norm(params["norm1"], x), cfg,
                            positions, causal=causal, impl=impl)
     x = x + a
-    return x + _ffn(params, norm(params["norm2"], x), cfg, 1.25)
+    x = x + _ffn(params, norm(params["norm2"], x), cfg, 1.25)
+    return shd.constrain(x, "residual")
 
 
 def _block_decode(params, x, cfg, cache, index):
@@ -130,10 +133,13 @@ def _block_decode(params, x, cfg, cache, index):
 
 def init_params(cfg, gen=0, dtype=torch.bfloat16, device=None):
     """Random weights drawn from `gen`, a `torch.Generator` on `device`
-    or an int seed for one. `device=None` is the card."""
+    or an int seed for one. `device=None` is the card; on `meta` the
+    tree has the shapes and dtypes and nothing is allocated or drawn."""
     check_family(cfg)
     dev = resolve_device(device)
-    if not isinstance(gen, torch.Generator):
+    if dev.type == "meta":
+        gen = None
+    elif not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(gen))
     ninit, _ = L.make_norm(cfg.norm)
     params = {
@@ -174,7 +180,12 @@ def forward(cfg, params, batch, impl="chunked"):
     x = L.embed(params["embed"], tokens)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         pe = batch["patch_embeds"]
-        x[:, :pe.shape[1]] = pe.to(x.dtype)
+        if pe.shape[1] > s:
+            raise ValueError(f"{pe.shape[1]} patch embeddings for {s} "
+                             "positions")
+        # out of place, as the reference's dynamic_update_slice
+        x = torch.cat([pe.to(x.dtype), x[:, pe.shape[1]:]], dim=1)
+    x = shd.constrain(x, "residual")
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     if cfg.family == "audio":
         enc = _encode(cfg, params, batch)
@@ -231,7 +242,8 @@ def _decode_stack_ed(cfg, params, x, positions, enc, impl):
 
 
 def logits_from_hidden(cfg, params, hidden):
-    return hidden @ params["lm_head"]["w"]
+    return shd.constrain(hidden @ shd.fsdp_weight(params["lm_head"]["w"]),
+                         "logits")
 
 
 # --------------------------------------------------------------------------
@@ -337,8 +349,9 @@ def _cross_decode(cfg, cross_lp, x, cross_kv):
     encoder keys and values of one layer ((B, Hkv, F, hd) each)."""
     hd = cfg.head_dim
     b = x.shape[0]
-    q = L.dense(cross_lp["attn"]["wq"], x).reshape(
-        b, 1, cfg.n_heads, hd).transpose(1, 2)
+    q = shd.splittable(L.dense(cross_lp["attn"]["wq"], x), -1,
+                       cfg.n_heads).reshape(b, 1, cfg.n_heads, hd) \
+        .transpose(1, 2)
     rep = cfg.n_heads // cfg.n_kv_heads
     k = cross_kv["k"].repeat_interleave(rep, 1)
     v = cross_kv["v"].repeat_interleave(rep, 1)

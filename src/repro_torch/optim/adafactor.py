@@ -3,18 +3,23 @@ statistics (row and column means) for leaves of two or more dimensions,
 a full one for the others, no first moment, beta = 1 - count^-decay,
 the RMS update clip, updated leaf by leaf. arctic-480b and qwen2-vl-72b
 configure it. `update(..., donate=True)` writes into the old tensors, as
-`adamw`'s does."""
+`adamw`'s does. On a mesh (DTensor leaves) the row and column means and
+the update's RMS are cross-shard reductions, and each new statistic and
+parameter keeps its old layout."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import sharding as shd
 from repro_torch.optim.adamw import (Optimizer, clip_scale, clipped,
                                      global_norm)
 from repro_torch.tree import leaves, tree_map
 
 
 def store(old: torch.Tensor, new: torch.Tensor, donate: bool):
-    """`new` as `old`'s dtype: written into `old` when donated."""
+    """`new` as `old`'s dtype (and, on a mesh, in `old`'s layout):
+    written into `old` when donated."""
+    new = shd.like(new, old)
     return old.copy_(new) if donate else new.to(old.dtype)
 
 
@@ -43,7 +48,7 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
         clip_t = torch.full((), clip_threshold, device=gnorm.device)
 
         def upd(g, st, p):
-            g32 = clipped(g, scale)
+            g32 = clipped(shd.like(g, p), scale)
             g2 = g32 * g32 + eps
             if p.ndim >= 2:
                 vr = beta * st["vr"] + (1 - beta) * g2.mean(-1)

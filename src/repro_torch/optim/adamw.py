@@ -11,6 +11,10 @@ so a leaf is updated in slabs along its first dimension of at most
 SLAB_ELEMENTS elements: the float32 temporaries of a full-width stacked
 leaf (805 M elements for phi4-mini's MLP) would otherwise take 3 GB each.
 
+On a mesh (DTensor leaves) the norm's sum of squares is a cross-shard
+reduction, and each rank updates its own shards of the parameter and
+its moments, which share the parameter's layout.
+
 The maths follows the reference's expressions term by term; a divisor is
 a tensor, never a Python float (on the card a division by a Python
 scalar is a multiplication by its rounded reciprocal).
@@ -22,6 +26,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.launch import sharding as shd
 from repro_torch.tree import leaves, tree_map
 
 
@@ -91,17 +96,25 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         bc1 = 1.0 - b1 ** cf
         bc2 = 1.0 - b2 ** cf
 
+        sc, c1, c2 = (shd.local(t) for t in (scale, bc1, bc2))
+
         def upd(g, m, v, p):
+            # on a mesh: the gradient and moments in the parameter's
+            # layout, and each rank's shards updated in place (slicing a
+            # sharded dim of a DTensor would move it)
+            g, m, v = (shd.like(t, p) for t in (g, m, v))
             outs = (p, m, v) if donate else tuple(
                 torch.empty_like(t) for t in (p, m, v))
-            for sl in slabs(p.shape):
-                g32 = clipped(g[sl], scale)
-                m_new = b1 * m[sl].float() + (1 - b1) * g32
-                v_new = b2 * v[sl].float() + (1 - b2) * g32 * g32
-                step = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-                step = step + weight_decay * p[sl].float()
-                p_new = p[sl].float() - lr * step
-                for out, new in zip(outs, (p_new, m_new, v_new)):
+            gl, ml, vl, pl = (shd.local(t) for t in (g, m, v, p))
+            ol = [shd.local(t) for t in outs]
+            for sl in slabs(pl.shape):
+                g32 = clipped(gl[sl], sc)
+                m_new = b1 * ml[sl].float() + (1 - b1) * g32
+                v_new = b2 * vl[sl].float() + (1 - b2) * g32 * g32
+                step = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
+                step = step + weight_decay * pl[sl].float()
+                p_new = pl[sl].float() - lr * step
+                for out, new in zip(ol, (p_new, m_new, v_new)):
                     out[sl] = new
             return outs
 

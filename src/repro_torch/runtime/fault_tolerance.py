@@ -87,13 +87,14 @@ class FaultTolerantLoop:
         self._rng = np.random.default_rng(rng_seed)
         self.on_straggler = None          # callback(state) -> None
 
-    def resume_or_init(self, init_fn, tree_like=None):
-        """Returns (train_state, start_step)."""
+    def resume_or_init(self, init_fn, tree_like=None, shardings=None):
+        """Returns (train_state, start_step). A restored state is placed
+        by `shardings` when given (`Checkpointer.restore`)."""
         latest = self.ckpt.latest_step()
         if latest is None:
             return init_fn(), 0
         tree = tree_like if tree_like is not None else init_fn()
-        restored, step = self.ckpt.restore(tree)
+        restored, step = self.ckpt.restore(tree, shardings=shardings)
         return restored, step
 
     def run(self, train_state, step_fn, batch_fn, n_steps: int,
