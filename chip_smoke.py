@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--seed N]
 
 It builds the port's four CUDA kernels from `src/repro_torch/csrc`
-(printing ptxas's registers and spills, and the tensor-core instructions
-in each kernel's SASS: every bf16 flash and SSD instantiation must have
-HMMA/HGMMA), holds each kernel against its plain torch version on the
-card, at the paths' shapes and at each kernel's edge shapes (forest:
+(printing ptxas's registers and spills, and the tensor-core and TMA
+instructions in each kernel's SASS: every bf16 flash instantiation must
+have HGMMA and UTMALDG, every bf16 SSD instantiation HMMA/HGMMA), holds
+each kernel against its plain torch version on the card, at the paths'
+shapes and at each kernel's edge shapes (forest:
 one row, ragged batches, stacks over 48 KB of tables, depths 1, 8 and
 12, K 1, 4 and 10; template: T 48 to 1,008, constant, zero and tied
 rows; flash and SSD in bf16), and drives the port's two paths:
@@ -936,8 +937,13 @@ def ssd_phase(b: int, l: int, seed: int, dev, exact: bool) -> dict:
 #: 128, non-causal; then the families' shapes: mixtral's heads (GQA rep
 #: 6, its window of 4,096 not biting at 512), that window biting over
 #: 5,000 keys, whisper's cross-attention over 1,500 frames, and a
-#: non-causal Lk < Lq. SSD: (B, L, H, P, N) — ragged L, N 128, P 16, and
-#: P, N the wrapper pads to multiples of 8.
+#: non-causal Lk < Lq; then the edges of the Hopper kernel's tiling (128
+#: query rows a block, two warpgroups of 64, 128-key tiles): Lq 300, not
+#: a multiple of 128, at GQA rep 6 and D 128; a window of 64, narrower
+#: than a key tile, at L 512; D 40 and D 16 padded to wgmma's depth of
+#: 16 by the maps' zero fill; Lq 64 over Lk 1,500 non-causal, a block
+#: whose second warpgroup has no row. SSD: (B, L, H, P, N) — ragged L,
+#: N 128, P 16, and P, N the wrapper pads to multiples of 8.
 FLASH_EDGES = [(2, 4, 2, 300, 300, 80, True, None),
                (2, 4, 2, 300, 700, 80, True, None),
                (2, 4, 2, 512, 512, 80, True, 128),
@@ -948,7 +954,12 @@ FLASH_EDGES = [(2, 4, 2, 300, 300, 80, True, None),
                (2, 48, 8, 512, 512, 128, True, 4096),
                (1, 48, 8, 300, 5000, 128, True, 4096),
                (2, 6, 6, 64, 1500, 64, False, None),
-               (2, 6, 6, 700, 300, 64, False, None)]
+               (2, 6, 6, 700, 300, 64, False, None),
+               (1, 12, 2, 300, 300, 128, True, None),
+               (2, 4, 2, 512, 512, 80, True, 64),
+               (2, 4, 2, 300, 300, 40, False, None),
+               (2, 4, 2, 300, 700, 16, True, 100),
+               (2, 4, 4, 64, 1500, 80, False, None)]
 SSD_EDGES = [(2, 200, 80, 64, 64), (2, 200, 4, 64, 128),
              (2, 200, 4, 16, 64), (2, 300, 3, 40, 20)]
 
@@ -1068,9 +1079,14 @@ def placement_edge_sweep(pop, seed: int, dev) -> dict:
     return {"forest": forest, "template": template}
 
 
+#: SASS instructions counted in each kernel: Ampere-style tensor-core
+#: MMAs, Hopper's warpgroup MMAs, and TMA tile loads.
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+
+
 def sass_mma_counts(lib: str) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) in each kernel of the built
-    library's SASS, by `cuobjdump --dump-sass`."""
+    """The SASS_OPS instructions in each kernel of the built library's
+    SASS, by `cuobjdump --dump-sass`: {kernel: {op: count}}."""
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" \
         / "cuobjdump"
     sass = subprocess.run([str(tool), "--dump-sass", lib],
@@ -1081,9 +1097,11 @@ def sass_mma_counts(lib: str) -> dict:
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
-        elif fn and re.search(r"\bHG?MMA\b", ln):
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", ln):
+                    counts[fn][op] += 1
     return counts
 
 
@@ -3817,11 +3835,16 @@ def main(argv=None) -> int:
              if "registers" in ln or "Compiling entry" in ln
              or "spill" in ln]
     mma = sass_mma_counts(info["path"])
-    for kern in ("flash_kernel_bf16", "ssd_kernel_bf16"):
-        got = {k: v for k, v in mma.items() if kern in k}
-        check(got and all(v > 0 for v in got.values()),
-              f"every {kern} instantiation has HMMA/HGMMA instructions: "
-              f"{got}")
+    # flash runs on Hopper's own path: warpgroup MMAs fed by TMA
+    got = {k: v for k, v in mma.items() if "flash_kernel_bf16" in k}
+    check(got and all(v["HGMMA"] > 0 and v["UTMALDG"] > 0
+                      for v in got.values()),
+          f"every flash_kernel_bf16 instantiation has HGMMA and UTMALDG "
+          f"instructions: {got}")
+    got = {k: v for k, v in mma.items() if "ssd_kernel_bf16" in k}
+    check(got and all(v["HMMA"] + v["HGMMA"] > 0 for v in got.values()),
+          f"every ssd_kernel_bf16 instantiation has HMMA/HGMMA "
+          f"instructions: {got}")
     emit("build", seconds=info["seconds"], library=info["path"],
          ptxas=ptxas, sass_mma_counts=mma)
 

@@ -1,6 +1,7 @@
-// Tensor-core and async-copy building blocks shared by the bf16 kernels
-// (flash_attention.cu, ssd.cu): PTX for cp.async, ldmatrix and
-// mma.sync.m16n8k16 (bf16 in, float32 accumulate), sm_80 and later.
+// Tensor-core and async-copy building blocks of the bf16 kernels: PTX for
+// cp.async, ldmatrix and mma.sync.m16n8k16 (bf16 in, float32 accumulate),
+// sm_80 and later. ssd.cu runs on them; flash_attention.cu takes ldmatrix
+// (Q into wgmma's A fragments, the same layout) and the bf16 packing.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4), each
 // register holding two bf16 with the lower column index in its low half:

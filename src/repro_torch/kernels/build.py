@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("forest.cu", "template.cu", "flash_attention.cu", "ssd.cu")
 #: Headers the sources include: part of the library's hash.
-HEADERS = ("mma.cuh",)
+HEADERS = ("mma.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

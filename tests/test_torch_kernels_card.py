@@ -5,9 +5,14 @@ card. Every test here needs an NVIDIA card (marker
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_card.py
 
 The shapes include the edges of the bf16 tensor-core kernels: ragged
-lengths (300, 200), Lk > Lq, windows, GQA rep 2, head dims that are not
-a multiple of 16 (40) or are padded (16), P and N that the wrapper pads
-to multiples of 8 (P 40, N 24 and 4).
+lengths (300, 200), Lk > Lq, windows, GQA rep 2 and 6, head dims that
+are not a multiple of 16 (40) or are padded (16), P and N that the
+wrapper pads to multiples of 8 (P 40, N 24 and 4); and those of the
+Hopper flash kernel's tiling (128 query rows a block in two warpgroups
+of 64, 128-key tiles, TMA boxes with zero fill): Lq 300 at GQA rep 6
+and D 128, a window of 64 narrower than a key tile at L 512, D 40 and
+16 padded to wgmma's depth, Lq 64 over Lk 1,500 non-causal. The bf16
+flash kernel needs `sm_90a` (wgmma, TMA, setmaxnreg).
 
 The forest kernel runs one row, ragged batches, stacks over 48 KB of
 tables (T 100 and 256 at D 6), depths 1, 8 and 12 (two tree tiles), K 1,
@@ -63,7 +68,9 @@ def _normal(rng, *shape):
     (64, 192, None, 128, True), (64, 96, None, 16, False),
     (256, 256, 64, 80, True), (300, 300, None, 40, True),
     (300, 700, 128, 80, True), (300, 700, None, 128, False),
-    (300, 300, 100, 16, True), (700, 300, None, 64, False)])
+    (300, 300, 100, 16, True), (700, 300, None, 64, False),
+    (512, 512, 64, 80, True), (300, 300, None, 40, False),
+    (300, 700, 100, 16, True), (64, 1500, None, 80, False)])
 def test_flash_kernel_matches_plain_version(cuda, dtype, lq, lk, window, d,
                                             causal):
     rng = np.random.default_rng(lq + lk + d)
@@ -77,6 +84,32 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, lq, lk, window, d,
     want = flash_ref.attention_ref(q, k.repeat_interleave(2, 1),
                                    v.repeat_interleave(2, 1), causal=causal,
                                    window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,lq,d,causal", [
+    (1, 12, 2, 300, 128, True), (2, 48, 8, 300, 128, True),
+    (1, 12, 2, 300, 128, False)])
+def test_flash_kernel_gqa_rep6_ragged(cuda, dtype, b, hq, hkv, lq, d,
+                                      causal):
+    """GQA rep 6 (mixtral's, qwen2-vl's) at D 128 with Lq = Lk = 300, not
+    a multiple of the bf16 kernel's 128 query rows a block: the last
+    block's second warpgroup holds rows past Lq only."""
+    rng = np.random.default_rng(hq + lq + d)
+    q = _normal(rng, b, hq, lq, d).to(cuda, dtype)
+    k = _normal(rng, b, hkv, lq, d).to(cuda, dtype)
+    v = _normal(rng, b, hkv, lq, d).to(cuda, dtype)
+    rep = hq // hkv
+    reset_launches()
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["flash_attention"] == 1
+    want = flash_ref.attention_ref(q, k.repeat_interleave(rep, 1),
+                                   v.repeat_interleave(rep, 1), causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(),
                                atol=FLASH_ATOL[dtype], rtol=0)
