@@ -5,13 +5,15 @@
 
 It builds the port's four CUDA kernels from `src/repro_torch/csrc`
 (printing ptxas's registers and spills, and the tensor-core and TMA
-instructions in each kernel's SASS: every bf16 flash instantiation must
-have HGMMA and UTMALDG, every bf16 SSD instantiation HMMA/HGMMA), holds
+instructions in each kernel's SASS: every bf16 flash and SSD
+instantiation must have HGMMA and UTMALDG), holds
 each kernel against its plain torch version on the card, at the paths'
 shapes and at each kernel's edge shapes (forest:
 one row, ragged batches, stacks over 48 KB of tables, depths 1, 8 and
 12, K 1, 4 and 10; template: T 48 to 1,008, constant, zero and tied
-rows; flash and SSD in bf16), and drives the port's two paths:
+rows; flash and SSD in bf16; SSD also on the model's strided views of
+one conv buffer, which must give the contiguous call's output bit for
+bit, as must a repeated call), and drives the port's two paths:
 
 - the placement path at the full width of one real cluster: label an
   8,000-VM history with the template kernel, train the four forests on
@@ -921,8 +923,26 @@ def ssd_phase(b: int, l: int, seed: int, dev, exact: bool) -> dict:
           f"SSD kernel bf16 within {SSD_BF16_ATOL} + {SSD_BF16_RTOL} "
           "relative of its plain version")
     out["max_abs_err_bfloat16"] = out["max_abs_err"] = err.max().item()
+    # the model's operands: x, B and C as views of one conv output of
+    # rows H P + 2N, read in place; bit-equal to the contiguous call, and
+    # a repeated call bit-equal to the first
+    buf = torch.cat([xb.reshape(b, l, -1), bb, cb], -1)
+    xv, bv, cv = torch.split(buf, [xb.shape[2] * xb.shape[3], bb.shape[-1],
+                                   cb.shape[-1]], dim=-1)
+    xv = xv.reshape(xb.shape)
+    one = ops.ssd(xv, dt, a, bv, cv, d)
+    two = ops.ssd(xv, dt, a, bv, cv, d)
+    got = ops.ssd(xb, dt, a, bb, cb, d)
+    torch.cuda.synchronize()
+    check(torch.equal(one, got), "SSD kernel on strided views bit-equal "
+          "to the contiguous call")
+    check(torch.equal(one, two), "SSD kernel repeated call bit-equal")
+    out["strided_bit_equal"] = out["repeat_bit_equal"] = True
     out["ms"] = cuda_ms(lambda: ops.ssd(xb, dt, a, bb, cb, d))
     out["device_ms"] = device_ms(lambda: ops.ssd(xb, dt, a, bb, cb, d))
+    out["strided_ms"] = cuda_ms(lambda: ops.ssd(xv, dt, a, bv, cv, d))
+    out["strided_device_ms"] = device_ms(
+        lambda: ops.ssd(xv, dt, a, bv, cv, d))
     out["plain_ms"] = cuda_ms(
         lambda: ref.ssd_chunked(xb, dt, a, bb, cb, d, chunk=ch))
     out["bound_ms"], out["bound_by"] = ssd_bound_ms(b, l, 80, 64, 64, 2)
@@ -943,7 +963,11 @@ def ssd_phase(b: int, l: int, seed: int, dev, exact: bool) -> dict:
 #: than a key tile, at L 512; D 40 and D 16 padded to wgmma's depth of
 #: 16 by the maps' zero fill; Lq 64 over Lk 1,500 non-causal, a block
 #: whose second warpgroup has no row. SSD: (B, L, H, P, N) — ragged L,
-#: N 128, P 16, and P, N the wrapper pads to multiples of 8.
+#: N 128, P 16, and P, N the wrapper pads to multiples of 8; then the
+#: Hopper kernel's work tiles (chunks of 64 steps, 2 heads): a hand-over
+#: chain of 128 chunks (1 x 8,192 at 4 heads), a partial head group (81
+#: heads), L 100 (two chunks, the second ragged) and L 40 (shorter than
+#: one chunk).
 FLASH_EDGES = [(2, 4, 2, 300, 300, 80, True, None),
                (2, 4, 2, 300, 700, 80, True, None),
                (2, 4, 2, 512, 512, 80, True, 128),
@@ -961,7 +985,9 @@ FLASH_EDGES = [(2, 4, 2, 300, 300, 80, True, None),
                (2, 4, 2, 300, 700, 16, True, 100),
                (2, 4, 4, 64, 1500, 80, False, None)]
 SSD_EDGES = [(2, 200, 80, 64, 64), (2, 200, 4, 64, 128),
-             (2, 200, 4, 16, 64), (2, 300, 3, 40, 20)]
+             (2, 200, 4, 16, 64), (2, 300, 3, 40, 20),
+             (1, 8192, 4, 64, 64), (2, 512, 81, 64, 64),
+             (2, 100, 80, 64, 64), (2, 40, 80, 64, 64)]
 
 
 def edge_sweep(seed: int, dev) -> dict:
@@ -3842,8 +3868,9 @@ def main(argv=None) -> int:
           f"every flash_kernel_bf16 instantiation has HGMMA and UTMALDG "
           f"instructions: {got}")
     got = {k: v for k, v in mma.items() if "ssd_kernel_bf16" in k}
-    check(got and all(v["HMMA"] + v["HGMMA"] > 0 for v in got.values()),
-          f"every ssd_kernel_bf16 instantiation has HMMA/HGMMA "
+    check(got and all(v["HGMMA"] > 0 and v["UTMALDG"] > 0
+                      for v in got.values()),
+          f"every ssd_kernel_bf16 instantiation has HGMMA and UTMALDG "
           f"instructions: {got}")
     emit("build", seconds=info["seconds"], library=info["path"],
          ptxas=ptxas, sass_mma_counts=mma)

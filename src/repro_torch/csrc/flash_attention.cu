@@ -811,49 +811,17 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
   }
 }
 
-// cuTensorMapEncodeTiled, a driver-API call, fetched through the runtime
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // (d, rows, heads) bf16, boxes of (cols, box_rows, 1) at the swizzle;
 // elements outside the tensor load as zeros and are dropped on store
 static bool encode_map(CUtensorMap* m, const void* base, int d, int rows,
                        int heads, int cols, int box_rows,
                        CUtensorMapSwizzle swizzle) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)rows * d * 2};
   const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t one[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16_map(m, base, 3, dims, strides, box, swizzle);
 }
 
 // the atom and tail maps of one tensor

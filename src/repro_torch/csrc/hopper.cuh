@@ -1,8 +1,11 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention kernel:
-// transaction-counted mbarriers, TMA tile copies over a 3-D tensor map,
-// warpgroup MMA (wgmma) with its shared-memory descriptors, register
-// hand-over between warpgroups (setmaxnreg) and named barriers. PTX ISA
-// 8.0 and later; wgmma and setmaxnreg need the `a` target (sm_90a).
+// Hopper (sm_90a) building blocks of the bf16 flash-attention and SSD
+// kernels: transaction-counted mbarriers, TMA tile copies over 3-D and
+// 4-D tensor maps (encoded on the host over strided rows), warpgroup MMA
+// (wgmma) with its shared-memory descriptors, register hand-over between
+// warpgroups (setmaxnreg), named barriers, and tagged 16-byte values in
+// device memory (one block hands data to another).
+// PTX ISA 8.0 and later; wgmma and setmaxnreg need the `a` target
+// (sm_90a).
 //
 // wgmma fragment layouts (m64nNk16, bf16 in, float32 accumulate): warp w
 // of the warpgroup owns rows 16w .. 16w + 15; with g = lane / 4 and
@@ -14,7 +17,9 @@
 // n-blocks 2j and 2j + 1, rounded to bf16 in pairs, are the A operand
 // of the k-step over those 16 columns.
 #pragma once
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma.cuh"  // smem_u32
@@ -43,6 +48,15 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
       : "memory");
 }
 
+// add `bytes` to the current phase's expected transactions, no arrival
+__device__ __forceinline__ void mbar_add_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar))
@@ -64,6 +78,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
+// the same, but a wait that outlasts ~2^34 clocks (seconds) traps: a
+// lost arrival becomes a launch error instead of a hung card
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1LL << 34)) __trap();
+  } while (!done);
+}
+
 // ---- TMA -----------------------------------------------------------------
 
 // box (c0, c1, c2) of the map into shared memory at `dst`, completing
@@ -79,6 +111,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // shared memory at `src` into box (c0, c1, c2) of the map; elements
 // outside the tensor are dropped
 __device__ __forceinline__ void tma_store_3d(const void* map,
@@ -88,6 +131,16 @@ __device__ __forceinline__ void tma_store_3d(const void* map,
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
       "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const void* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -110,6 +163,29 @@ __device__ __forceinline__ void tma_prefetch_map(const void* map) {
 // (a TMA store reading them)
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- tagged values between blocks -----------------------------------------
+
+// A block hands data to another as 16-byte units, each two 32-bit values
+// and a 64-bit tag stored by one relaxed GPU-scope vector store: the
+// hardware moves an aligned 16-byte access as one, so a reader whose load
+// returns the tag it waits for has the values stored with it (CUB's
+// single-pass scan relies on the same for its tile descriptors). No fence
+// and no separate flag sit between the writer and the reader.
+__device__ __forceinline__ void st_tagged(void* p, uint64_t value,
+                                          uint64_t tag) {
+  asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};\n" ::"l"(p),
+               "l"(value), "l"(tag)
+               : "memory");
+}
+
+__device__ __forceinline__ void ld_tagged(const void* p, uint64_t& value,
+                                          uint64_t& tag) {
+  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];\n"
+               : "=l"(value), "=l"(tag)
+               : "l"(p)
+               : "memory");
 }
 
 // ---- warpgroups --------------------------------------------------------
@@ -292,4 +368,51 @@ __device__ __forceinline__ void wgmma_rs_k<128>(float* d,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// ---- tensor maps (host) ------------------------------------------------
+
+// cuTensorMapEncodeTiled, a driver-API call, fetched through the runtime
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 map of `rank` dims over strided rows: dims[0] contiguous,
+// strides[i] the byte stride of dims[i + 1] (multiples of 16, in any
+// order), boxes of `box` at the swizzle. A box may reach past a dim:
+// those elements load as zeros and are dropped on store.
+static inline bool encode_bf16_map(CUtensorMap* m, const void* base,
+                                   int rank, const cuuint64_t* dims,
+                                   const cuuint64_t* strides,
+                                   const cuuint32_t* box,
+                                   CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint32_t one[5] = {1, 1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(base), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

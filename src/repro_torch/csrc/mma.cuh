@@ -1,7 +1,8 @@
-// Tensor-core and async-copy building blocks of the bf16 kernels: PTX for
-// cp.async, ldmatrix and mma.sync.m16n8k16 (bf16 in, float32 accumulate),
-// sm_80 and later. ssd.cu runs on them; flash_attention.cu takes ldmatrix
-// (Q into wgmma's A fragments, the same layout) and the bf16 packing.
+// Register-fragment building blocks of the bf16 kernels: shared-memory
+// addresses, ldmatrix (plain and transposed) and bf16 packing and
+// splitting, sm_80 and later. flash_attention.cu and ssd.cu take them to
+// move operands between shared memory and wgmma's register fragments,
+// which have the layouts of mma.sync m16n8k16 below.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4), each
 // register holding two bf16 with the lower column index in its low half:
@@ -17,32 +18,6 @@
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
-// (and reads nothing), which is how ragged rows and columns are padded.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
@@ -65,16 +40,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
       : "memory");
 }
 
-// c += a b on the tensor cores: a 16 x 16, b 16 x 8 bf16, c float32.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two floats rounded to bf16 in one register, `lo` in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -89,11 +54,4 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(v0 - hf.x, v1 - hf.y);
-}
-
-// Zero an array of C fragments.
-template <int N>
-__device__ __forceinline__ void zero_frags(float (&c)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.0f;
 }

@@ -33,15 +33,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: C entry points: name -> argument types. Each returns cudaGetLastError().
+_L = ctypes.c_longlong
+_U64 = ctypes.c_uint64
+#: C entry points: name -> argument types. Each returns cudaGetLastError()
+#: unless RESTYPES names another result.
 SIGNATURES = {
     "forest_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _P],
     "criticality_scores": [_P, _P, _I, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _P],
-    "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, dt, a, b, c, d, y; batch, L, H, P, N, bf16; the row strides of
+    # x (batch, step, head), b and c (batch, step); scratch, epoch; stream
+    "ssd_scan": [_P] * 7 + [_I] * 6 + [_L] * 7 + [_P, _U64, _P],
+    "ssd_scratch_bytes": [_I, _I, _I],
 }
+RESTYPES = {"ssd_scratch_bytes": _L}
 
 
 def nvcc() -> str:
@@ -106,7 +113,7 @@ def load() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -1,11 +1,23 @@
 """Wrapper of the Mamba2 SSD kernel (`csrc/ssd.cu`).
 
-As `repro.kernels.ssd.ops`, it pads L to a multiple of the chunk
-min(128, max(L, 8)) with dt = 0 steps, which are exact no-ops, and cuts
-the result back to L. Tensors on the CPU take the plain chunked dual form
-(`ref.ssd_chunked`) at that chunk; tensors on the card launch the kernel
-or raise — it never falls back. The kernel has no backward, as the
-reference's has none: on the card an input that requires grad raises.
+Tensors on the CPU take the plain chunked dual form (`ref.ssd_chunked`)
+at the chunk min(128, max(L, 8)), with L padded to a multiple of it by
+dt = 0 steps (exact no-ops), as `repro.kernels.ssd.ops` does. Tensors on
+the card launch the kernel or raise — it never falls back. The kernel
+has no backward, as the reference's has none: on the card an input that
+requires grad raises.
+
+On the card, float32 operands are made contiguous and L padded as on
+the CPU. bf16 operands are read where they lie: x, B and C may be
+strided views (the model passes slices of its conv output, rows of
+d_inner + 2N), read by TMA over their strides, so the wrapper copies
+none of them unless a stride is not a multiple of 16 bytes or P or N is
+not a multiple of 8 — a layout copy, after which the kernel still runs.
+The bf16 kernel handles a ragged L itself. It hands each chunk's state
+to the next through scratch in device memory that the wrapper keeps,
+one buffer per (device, stream), zeroed once when allocated; each call
+passes a new epoch, which tags the states' units, so a unit that an
+earlier call left never reads as ready and no call needs a memset.
 """
 from __future__ import annotations
 
@@ -20,6 +32,11 @@ CHUNK = 128
 #: Largest head dim and state size the kernel's shared tiles hold.
 MAX_P, MAX_N = 64, 128
 
+#: (device index, raw stream) -> [scratch tensor, last epoch]. The
+#: scratch outlives a call (zeroed once, so no call launches a memset);
+#: a stream runs its calls in order, so one buffer a stream is enough.
+_SCRATCH: dict = {}
+
 
 def _check(x, dt, a, b, c, d) -> None:
     bsz, l, h, p = x.shape if x.ndim == 4 else (None,) * 4
@@ -31,6 +48,50 @@ def _check(x, dt, a, b, c, d) -> None:
             f"{tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}, d "
             f"{tuple(d.shape)} are not (B, L, H, P), (B, L, H), (H,), "
             "(B, L, N), (B, L, N), (H,)")
+
+
+def tma_strides(t) -> tuple | None:
+    """The strides (in elements) of every dim of `t` but its last, as
+    the bf16 kernel's TMA maps read them, or None when they cannot: the
+    last dim must be contiguous, every other stride a multiple of 8
+    elements (16 bytes of bf16) and the data 16-byte aligned. A dim of
+    size 1 is never stepped: it takes the stride a contiguous tensor
+    would give it."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return None
+    out, inner = [], t.shape[-1]
+    for n, st in reversed(list(zip(t.shape[:-1], t.stride()[:-1]))):
+        st = inner if n == 1 else st
+        if st % 8:
+            return None
+        out.append(st)
+        inner = st * n
+    return tuple(reversed(out))
+
+
+def kernel_operand(t, width: int):
+    """`t` (last dim `width` or less) as the bf16 kernel reads it, with
+    its TMA strides: the tensor itself when its last dim is `width` and
+    TMA can read it as it lies, else a zero-padded contiguous copy."""
+    if t.shape[-1] == width:
+        st = tma_strides(t)
+        if st is not None:
+            return t, st
+    t = build.aligned(F.pad(t, (0, width - t.shape[-1])))
+    return t, tma_strides(t)
+
+
+def _scratch(dev: torch.device, nbytes: int):
+    """This stream's scratch of at least `nbytes` and a new epoch."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (idx, torch._C._cuda_getCurrentRawStream(idx))
+    ent = _SCRATCH.get(key)
+    if ent is None or ent[0].numel() < nbytes:
+        ent = _SCRATCH[key] = [
+            torch.zeros(nbytes, dtype=torch.uint8, device=dev),
+            0 if ent is None else ent[1]]
+    ent[1] += 1
+    return ent[0], ent[1]
 
 
 def ssd(x, dt, a, b, c, d=None, chunk: int = CHUNK):
@@ -62,24 +123,40 @@ def ssd(x, dt, a, b, c, d=None, chunk: int = CHUNK):
     if p > MAX_P or n > MAX_N:
         raise ValueError(f"head dim {p} and state {n}: the kernel takes "
                          f"up to {MAX_P} and {MAX_N}")
-    pad = (-l) % ch
-    # the bf16 kernel copies rows of 8 values (16 bytes): P and N are
-    # padded to multiples of 8 with zeros, which is exact
-    bf16 = x.dtype == torch.bfloat16
-    pp, nn = (-(-p // 8) * 8, -(-n // 8) * 8) if bf16 else (p, n)
-    if pad or pp != p:
-        x = F.pad(x, (0, pp - p, 0, 0, 0, pad))
-    if pad:
-        dt = F.pad(dt, (0, 0, 0, pad))
-    if pad or nn != n:
-        b = F.pad(b, (0, nn - n, 0, pad))
-        c = F.pad(c, (0, nn - n, 0, pad))
-    x, dt, a, b, c, d = (build.aligned(t) for t in (x, dt, a, b, c, d))
-    y = torch.empty_like(x)
-    if y.numel() == 0:
-        return y[:, :l, :, :p]
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    if x.dtype == torch.float32:
+        return _ssd_f32(x, dt, a, b, c, d, ch)
+    # P and N padded to multiples of 8 (zeros are exact) where they are not
+    pp, nn = -(-p // 8) * 8, -(-n // 8) * 8
+    x, xs = kernel_operand(x, pp)
+    b, bs = kernel_operand(b, nn)
+    c, cs = kernel_operand(c, nn)
+    dt, a, d = (build.aligned(t) for t in (dt, a, d))
+    y = torch.empty((bsz, l, h, pp), dtype=x.dtype, device=x.device)
+    lib = build.load()
+    scratch, epoch = _scratch(x.device, lib.ssd_scratch_bytes(bsz, h, nn))
     build.launch("ssd_scan", x, x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                  b.data_ptr(), c.data_ptr(), d.data_ptr(), y.data_ptr(), bsz,
-                 l + pad, h, pp, nn, int(bf16))
+                 l, h, pp, nn, 1, *xs, *bs, *cs, scratch.data_ptr(), epoch)
     KERNEL_LAUNCHES["ssd"] += 1
-    return y[:, :l, :, :p]
+    return y[..., :p]
+
+
+def _ssd_f32(x, dt, a, b, c, d, ch):
+    """The float32 kernel: contiguous operands, L padded to the chunk."""
+    bsz, l, h, p = x.shape
+    n = b.shape[-1]
+    pad = (-l) % ch
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    x, dt, a, b, c, d = (build.aligned(t) for t in (x, dt, a, b, c, d))
+    y = torch.empty_like(x)
+    build.launch("ssd_scan", x, x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                 b.data_ptr(), c.data_ptr(), d.data_ptr(), y.data_ptr(), bsz,
+                 l + pad, h, p, n, 0, 0, 0, 0, 0, 0, 0, 0, None, 0)
+    KERNEL_LAUNCHES["ssd"] += 1
+    return y[:, :l]

@@ -94,26 +94,30 @@ def _split_bf16(v, split: bool = True):
     return hi, (v - hi).bfloat16().float() if split else torch.zeros_like(v)
 
 
-def ssd_bf16_emulated(x, dt, a, b, c, d, tile: int = 64,
+def ssd_bf16_emulated(x, dt, a, b, c, d, chunk: int = 64,
                       split: bool = True):
     """The bf16 kernel's rounding points, in torch, for the CPU tests (the
-    port never calls it): x, B, C exact bf16; per tile of `tile` steps,
-    C B^T in float32; (C B^T o M o dt_j), the float32 state S and
+    port never calls it): x, B, C exact bf16; per chunk of `chunk` steps
+    (the kernel's 64), C B^T in float32 (once for every head: the numbers
+    do not depend on how heads are grouped); (C B^T o M o dt_j) and
     (w o B), w = exp(total - cum) dt, each split into hi + lo bf16 before
     its product (rounded once instead when `split` is False, the design
-    the kernel rejects); float32 sums; y rounded to bf16. Shapes as
+    the kernel rejects); the chunk's own state x^T (w o B) summed from
+    zero, then added to the decayed carried state at the hand-over,
+    S_c = exp(total) S_{c-1} + S_loc, in float32; the carried state split
+    into hi + lo for C S^T; float32 sums; y rounded to bf16. Shapes as
     `ssd_chunked`; x, b, c should already be bf16."""
     bsz, l, h, p = x.shape
     n = b.shape[-1]
-    pad = (-l) % tile
+    pad = (-l) % chunk
     x32, dt32, b32, c32 = (F.pad(t.float(), (0, 0) * (t.ndim - 2)
                                  + (0, pad)) for t in (x, dt, b, c))
-    nt = (l + pad) // tile
-    xc = x32.reshape(bsz, nt, tile, h, p).permute(1, 0, 3, 2, 4)
-    dtc = dt32.reshape(bsz, nt, tile, h).permute(1, 0, 3, 2)
-    bc = b32.reshape(bsz, nt, tile, n).transpose(0, 1)
-    cc = c32.reshape(bsz, nt, tile, n).transpose(0, 1)
-    idx = torch.arange(tile, device=x.device)
+    nt = (l + pad) // chunk
+    xc = x32.reshape(bsz, nt, chunk, h, p).permute(1, 0, 3, 2, 4)
+    dtc = dt32.reshape(bsz, nt, chunk, h).permute(1, 0, 3, 2)
+    bc = b32.reshape(bsz, nt, chunk, n).transpose(0, 1)
+    cc = c32.reshape(bsz, nt, chunk, n).transpose(0, 1)
+    idx = torch.arange(chunk, device=x.device)
     lower = idx[:, None] >= idx[None, :]
     ninf = torch.full((), float("-inf"), device=x.device)
     state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
@@ -134,9 +138,9 @@ def ssd_bf16_emulated(x, dt, a, b, c, d, tile: int = 64,
             + torch.einsum("bhqk,bhkp->bhqp", g_lo, xq)
         w = torch.exp((total - cum).float()) * dtq       # (B, H, Q)
         wb_hi, wb_lo = _split_bf16(w[..., None] * bq[:, None], split)
-        state = torch.exp(total.float())[..., None] * state \
-            + torch.einsum("bhqp,bhqn->bhpn", xq, wb_hi) \
+        local = torch.einsum("bhqp,bhqn->bhpn", xq, wb_hi) \
             + torch.einsum("bhqp,bhqn->bhpn", xq, wb_lo)
+        state = torch.exp(total.float())[..., None] * state + local
         ys.append(y)
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(bsz, l + pad, h, p)
     y = y[:, :l] + d.float()[None, None, :, None] * x.float()

@@ -12,7 +12,14 @@ Hopper flash kernel's tiling (128 query rows a block in two warpgroups
 of 64, 128-key tiles, TMA boxes with zero fill): Lq 300 at GQA rep 6
 and D 128, a window of 64 narrower than a key tile at L 512, D 40 and
 16 padded to wgmma's depth, Lq 64 over Lk 1,500 non-causal. The bf16
-flash kernel needs `sm_90a` (wgmma, TMA, setmaxnreg).
+flash kernel needs `sm_90a` (wgmma, TMA, setmaxnreg). So does the bf16
+SSD kernel (chunks of 64 steps in parallel, each chunk's state handed to
+the next through device memory): its cases add a partial head group (81
+heads), L 40 (shorter than a chunk), and the model's operands, x, B and
+C sliced from one conv buffer and read in place, which must give the
+contiguous call's output bit for bit, as must a repeated call, at
+Zamba2's prefill, one 4,096-token prompt, 128 chunks in one chain and N
+128.
 
 The forest kernel runs one row, ragged batches, stacks over 48 KB of
 tables (T 100 and 256 at D 6), depths 1, 8 and 12 (two tree tiles), K 1,
@@ -119,7 +126,8 @@ def test_flash_kernel_gqa_rep6_ragged(cuda, dtype, b, hq, hkv, lq, d,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l,h,p,n", [(100, 3, 16, 8), (512, 4, 64, 64),
                                      (200, 2, 64, 128), (5, 2, 8, 4),
-                                     (200, 3, 16, 128), (300, 2, 40, 24)])
+                                     (200, 3, 16, 128), (300, 2, 40, 24),
+                                     (100, 81, 64, 64), (40, 3, 64, 64)])
 def test_ssd_kernel_matches_plain_version(cuda, dtype, l, h, p, n):
     rng = np.random.default_rng(l + p + n)
     x = _normal(rng, 2, l, h, p).to(cuda, dtype)
@@ -143,6 +151,40 @@ def test_ssd_kernel_matches_plain_version(cuda, dtype, l, h, p, n):
     else:
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,n", [(8, 512, 80, 64), (1, 4096, 80, 64),
+                                     (2, 100, 81, 64), (1, 8192, 4, 64),
+                                     (2, 300, 3, 128)])
+def test_ssd_kernel_strided_views_and_repeats_bit_equal(cuda, b, l, h, n):
+    """The bf16 kernel on the model's operands, x, B and C sliced from one
+    (B, L, H P + 2N) buffer and read in place, gives the contiguous call's
+    output bit for bit, and a repeated call gives it again (each chunk's
+    state is summed in a fixed order, whichever block takes it); both
+    within the bf16 bar of the plain version. The shapes: Zamba2's
+    prefill and one long prompt, a partial head group (81), a long
+    hand-over chain (128 chunks), N 128."""
+    rng = np.random.default_rng(b + l + h + n)
+    p = 64
+    buf = _normal(rng, b, l, h * p + 2 * n).to(cuda, torch.bfloat16)
+    xs, bs, cs = torch.split(buf, [h * p, n, n], dim=-1)
+    xh = xs.reshape(b, l, h, p)
+    dt = torch.nn.functional.softplus(_normal(rng, b, l, h)).to(cuda)
+    a = -torch.linspace(1.0, 16.0, h, device=cuda)
+    d = torch.ones(h, device=cuda)
+    reset_launches()
+    got = ssd_ops.ssd(xh, dt, a, bs, cs, d)
+    again = ssd_ops.ssd(xh, dt, a, bs, cs, d)
+    contig = ssd_ops.ssd(xh.contiguous(), dt, a, bs.contiguous(),
+                         cs.contiguous(), d)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["ssd"] == 3
+    assert torch.equal(got, again) and torch.equal(got, contig)
+    want = ssd_ref.ssd_chunked(xh, dt, a, bs, cs, d,
+                               chunk=min(128, max(l, 8)))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2 ** -7)
 
 
 @pytest.mark.cuda

@@ -188,3 +188,104 @@ def test_ssd_bf16_emulation_ragged_and_padded(l, p, n):
     want = ref.ssd_chunked(tx, tdt, ta, tb, tc, td,
                            chunk=min(128, max(l, 8))).float()
     torch.testing.assert_close(got, want, atol=2e-2, rtol=2 ** -7)
+
+
+def _strong(seed, b, l, h, p, n):
+    """Zamba2's decays (a = -linspace(1, 16), dt the softplus of a unit
+    normal), unit-normal x, B, C and D = 1, as numpy float32."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.normal(0, 1, (b, l, h, p)).astype(f),
+            np.log1p(np.exp(rng.normal(0, 1, (b, l, h)))).astype(f),
+            -np.linspace(1.0, 16.0, h).astype(f),
+            rng.normal(0, 1, (b, l, n)).astype(f),
+            rng.normal(0, 1, (b, l, n)).astype(f), np.ones(h, f))
+
+
+@pytest.mark.parametrize("b,l,h,p,n", [
+    (2, 200, 4, 64, 64),     # L not a multiple of the kernel's chunk of 64
+    (2, 40, 4, 64, 64),      # L shorter than one chunk
+    (1, 1100, 4, 64, 64),    # a chain of 18 chunks at Zamba2's decays
+    (1, 300, 3, 16, 32),     # H not a multiple of the head group
+    (1, 100, 81, 16, 16)])
+def test_ssd_bf16_emulation_matches_chunked_and_reference(b, l, h, p, n):
+    """The kernel's rounding design (`ref.ssd_bf16_emulated`: chunks of
+    64, each chunk's state summed from zero and handed over as
+    exp(total) S + S_loc, hi + lo splits) at Zamba2's strong decays holds
+    the bf16 bar (2e-2 + 2^-7 relative) against the plain chunked form
+    and the JAX package's SSD (Pallas, interpret mode) on the same bf16
+    inputs."""
+    x, dt, a, bm, cm, d = _strong(10 + l + h, b, l, h, p, n)
+    tx, tdt, ta, tb, tc, td = _t((x, dt, a, bm, cm, d))
+    tx, tb, tc = tx.bfloat16(), tb.bfloat16(), tc.bfloat16()
+    got = ref.ssd_bf16_emulated(tx, tdt, ta, tb, tc, td).float()
+    want = ref.ssd_chunked(tx, tdt, ta, tb, tc, td,
+                           chunk=min(128, max(l, 8))).float()
+    assert got.shape == (b, l, h, p)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2 ** -7)
+    jy = j_ssd(*_j((tx.float().numpy(), dt, a, tb.float().numpy(),
+                    tc.float().numpy(), d)))
+    torch.testing.assert_close(got, torch.from_numpy(np.array(jy)),
+                               atol=2e-2, rtol=2 ** -7)
+
+
+def test_ssd_bf16_emulation_chunk_invariant():
+    """The hand-over is exact: the emulation at chunks of 32, 64 and 128
+    agrees within the bf16 bar (only rounding moves)."""
+    tx, tdt, ta, tb, tc, td = _t(_strong(11, 1, 512, 2, 32, 32))
+    tx, tb, tc = tx.bfloat16(), tb.bfloat16(), tc.bfloat16()
+    outs = [ref.ssd_bf16_emulated(tx, tdt, ta, tb, tc, td, chunk=q).float()
+            for q in (32, 64, 128)]
+    torch.testing.assert_close(outs[0], outs[1], atol=2e-2, rtol=2 ** -7)
+    torch.testing.assert_close(outs[2], outs[1], atol=2e-2, rtol=2 ** -7)
+
+
+def _model_views(b, l, h, p, n):
+    """x, B and C as the model passes them: views of one conv output of
+    rows h p + 2n (bf16)."""
+    buf = torch.randn((b, l, h * p + 2 * n)).bfloat16()
+    xs, bs, cs = torch.split(buf, [h * p, n, n], dim=-1)
+    return buf, xs.reshape(b, l, h, p), bs, cs
+
+
+def test_kernel_operands_read_the_model_views_in_place():
+    """The bf16 kernel's operands on Zamba2's path (x, B, C sliced from
+    one (B, L, H P + 2N) buffer) go to the kernel as they lie, with their
+    row strides; only what TMA cannot read is copied (a head dim or state
+    that is not a multiple of 8, a stride that is not 16 bytes)."""
+    buf, xh, bs, cs = _model_views(2, 16, 80, 64, 64)
+    row = 80 * 64 + 128
+    for t, width, want in ((xh, 64, (16 * row, row, 64)),
+                           (bs, 64, (16 * row, row)),
+                           (cs, 64, (16 * row, row))):
+        got, st = ops.kernel_operand(t, width)
+        assert got.data_ptr() == t.data_ptr() and st == want
+    # batch 1: the batch stride is never stepped and takes L * row
+    _, xh1, _, _ = _model_views(1, 16, 80, 64, 64)
+    assert ops.kernel_operand(xh1, 64)[1] == (16 * row, row, 64)
+    # P 40 pads to 48 (a copy, zeros past P); rows of 8 + 2 * 3 values
+    # are not 16 bytes, and N 3 pads to 8: copies
+    x40 = torch.randn(2, 16, 3, 40).bfloat16()
+    got, st = ops.kernel_operand(x40, 48)
+    assert got.shape == (2, 16, 3, 48) and st == (16 * 144, 144, 48)
+    assert torch.equal(got[..., :40], x40) and not got[..., 40:].any()
+    _, xo, bo, _ = _model_views(2, 16, 1, 8, 3)
+    assert ops.tma_strides(xo) is None
+    got, st = ops.kernel_operand(xo, 8)
+    assert got.is_contiguous() and torch.equal(got, xo) and st == (128, 8, 8)
+    got, st = ops.kernel_operand(bo, 8)
+    assert torch.equal(got[..., :3], bo) and st == (16 * 8, 8)
+
+
+def test_ssd_strided_views_equal_contiguous_on_cpu():
+    """The wrapper on the model's strided views gives what it gives on
+    contiguous copies, bit for bit (the plain version on the CPU)."""
+    _, xh, bs, cs = _model_views(2, 70, 4, 16, 8)
+    rng = np.random.default_rng(12)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (2, 70, 4))
+                          .astype(np.float32))
+    a, d = -torch.linspace(1.0, 4.0, 4), torch.ones(4)
+    got = ops.ssd(xh, dt, a, bs, cs, d)
+    want = ops.ssd(xh.contiguous(), dt, a, bs.contiguous(),
+                   cs.contiguous(), d)
+    assert torch.equal(got, want)
