@@ -25,10 +25,11 @@ bit, as must a repeated call), and drives the port's two paths:
 - LM serving of Zamba2-2.7B at full width (54 Mamba2 layers, d 2,560, a
   shared attention block after every 6, seeded random bf16 weights):
   the batch prefill of 8 prompts of 512 tokens through the flash-attention
-  and SSD kernels, then `serve_batch` on the same prompts with 32
+  and SSD kernels, then `serve_batch` on their first 128 tokens with 32
   generated tokens through the cache path. It checks the launch counts
-  (9 flash, 54 SSD per prefill), finite logits, prefill against the
-  cache path, and the kernel forward against the plain forward;
+  (9 flash, 54 SSD per prefill), finite logits, a prefill of the 128
+  tokens against the cache path, and the kernel forward against the
+  plain forward;
 - LM serving of the moe, audio and vlm families (`lm_families`), one
   model at a time at full width with seeded bf16 weights: mixtral-8x22b
   cut to 8 layers (prefill 8 x 512, under its expert capacity),
@@ -109,6 +110,16 @@ bit, as must a repeated call), and drives the port's two paths:
   conservation check holding), with arrivals/s, launches per arrival
   (the sharded serving runs profiled whole, spills included) and the
   device idle share;
+- the mesh leg of sharded serving (`sharded_mesh`): the budgeted 4-shard
+  cell with one shard a position of a mesh over the card repeated
+  (`shard_mesh(4, devices=("cuda:0",) * 4)`, the table row-partitioned
+  over it), held bit for bit to a batch-axis card run (decisions, final
+  state, pools, spill counters; a forest launch per micro-batch), its
+  arrivals/s, batch p50/p99 and, on a micro-batch after the cell,
+  launches per arrival and idle share beside the batch axis's; the
+  both-planes streamed arm on the mesh against the batch axis (decisions,
+  alarms, ratios, every plane state); over cuda:0..3 too where the
+  machine has 4 cards, else why not;
 - the observability plane (`obs_serve`, `obs_streamed`, `obs_sharded`,
   `monitor`): the serving cell with `Observability.full()` (the main
   path's decisions and state bit for bit, its counters those decisions,
@@ -186,9 +197,13 @@ TIMED_RUNS = 20
 TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
          "kernel_device_ms", "host_us", "bound_share", "device_bound_share")
 
-#: LM path: Zamba2-2.7B, 8 prompts of 512 tokens, 32 generated; the long
-#: prompt of the kernel phases.
+#: LM path: Zamba2-2.7B, a prefill of 8 prompts of 512 tokens; serve_batch
+#: on their first LM_SERVE_PROMPT tokens with 32 generated (its cache path
+#: feeds the prompt a token a step, ~80 ms a step on the card's host: at
+#: 512 tokens it took 40.7 s of the script); the long prompt of the kernel
+#: phases.
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "zamba2-2.7b", 8, 512, 32
+LM_SERVE_PROMPT = 128
 LONG_PROMPT = 4096
 #: Bars of tests/test_kernels.py: flash in float32 and bf16, SSD in
 #: float32. An SSD output in bf16 (|y| reaches ~200 at Zamba2's inputs)
@@ -213,8 +228,10 @@ FLEET_SCALE, FLEET_STEPS = (1, 64, 1024), 150
 T4_BUDGETS = (290.0, 280.0, 270.0, 260.0, 250.0, 240.0, 230.0, 220.0, 210.0)
 T4_LOADS, T4_FLOORS = (1.0, 0.9, 0.8), (0.5, 0.6, 0.75)
 #: The Fig 7 run's length, cut from the reference test's 4 days to keep
-#: the whole script near 500 s.
-SIM_DAYS = 1.0
+#: the whole script's time (1 day until PR 25: its serve run took 18.7 s).
+SIM_DAYS = 0.5
+
+
 def mesh_step(seed: int, dev) -> dict:
     """(a): one fsdp2d train step on a one-rank NCCL DeviceMesh (1, 1)
     against the plain step from the same state, bit for bit where it is
@@ -324,8 +341,8 @@ def mesh_step(seed: int, dev) -> dict:
 
 def mesh_dryrun(jobs: int | None = None) -> dict:
     """(b): the dry-run of MESH_DRYRUN_CELLS under fsdp2d on both
-    production meshes through the CLI (a process a cell, fake groups, no
-    card), each with its argument GB a device against the card's 80 GB,
+    production meshes through the CLI (a process a cell for both meshes,
+    fake groups, no card), each with its argument GB a device against the card's 80 GB,
     FLOPs and collective bytes a device, the roofline terms at the H100's
     peaks and its seconds."""
     import torch
@@ -340,22 +357,23 @@ def mesh_dryrun(jobs: int | None = None) -> dict:
     archs = sorted({a for a, _ in MESH_DRYRUN_CELLS})
     shapes = sorted({s for _, s in MESH_DRYRUN_CELLS})
     procs = []
-    for mp in (False, True):
-        for arch, shape in MESH_DRYRUN_CELLS:
-            procs.append(((arch, shape, mp), subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun",
-                 "--arch", arch, "--shape", shape, "--strategy", "fsdp2d",
-                 "--multi-pod" if mp else "--single-pod", "--force",
-                 "--in-process", "--artifact-dir", str(art)],
-                env=env, stdout=subprocess.DEVNULL,
-                stderr=subprocess.DEVNULL)))
-            while sum(p.poll() is None for _, p in procs) >= jobs:
-                time.sleep(0.2)
+    # a process a cell, both meshes in it one after the other (the fake
+    # group is re-made at the second mesh's size): half the start-ups
+    for arch, shape in MESH_DRYRUN_CELLS:
+        procs.append(((arch, shape), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--arch", arch, "--shape", shape, "--strategy", "fsdp2d",
+             "--force", "--in-process", "--artifact-dir", str(art)],
+            env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)))
+        while sum(p.poll() is None for _, p in procs) >= jobs:
+            time.sleep(0.2)
     for _, p in procs:
         p.wait(timeout=900)
     cells = {}
     hbm_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
-    for (arch, shape, mp), p in procs:
+    for (arch, shape, mp), p in ((cell + (mp,), p) for cell, p in procs
+                                 for mp in (False, True)):
         name = f"{arch}__{shape}__pod{2 if mp else 1}__fsdp2d"
         with open(art / f"{name}.json") as f:
             rec = json.load(f)
@@ -449,8 +467,8 @@ def mesh_phase(seed: int, dev) -> dict:
 
 #: The profiled serve-backend run of the Fig 7 phase. Its launches per
 #: arrival move with the run's length (~900 over 0.1 days, ~690 over
-#: 0.25), and the profiler costs ~0.7 ms a launch: 0.25 days took 145 s
-#: of the script, 0.1 days ~22 s.
+#: 0.25). When the trace was read through `key_averages()` the profiler
+#: cost ~0.7 ms a launch: 0.25 days took 145 s of the script.
 SIM_PROFILE_DAYS = 0.1
 TIGHT_BUDGET_W = 12 * 112.0 + 60.0
 
@@ -477,21 +495,22 @@ FT_STEPS, FT_RATE, FT_EVERY = 40, 0.2, 5
 #: TRAIN_SEQ tokens, impl 'naive' as `launch.train` runs. (b) The dry-run
 #: (`launch.dryrun`, fake process groups of 256 and 512 ranks, meta
 #: shards) of the cells below under fsdp2d on (16, 16) and (2, 16, 16),
-#: MESH_DRYRUN_JOBS at a time: every family's decode cell, the prefill of
-#: the dense, moe, vlm and audio families and the train cell of the dense
-#: and audio ones. The SSM and hybrid prefill and train cells (2-6 min a
-#: cell on the card's host) and the moe and vlm train cells (2-4 min) are
-#: left to the whole grid, which `python -m repro_torch.launch.dryrun
-#: --jobs 8` runs in ~9 min a strategy. (c) More than one card: the sharded step on
-#: 2 NCCL ranks against 1 (`launch.sharded`).
+#: a process a cell for both meshes, all at once: every family's decode
+#: cell, the prefill of the dense, vlm and audio families and the train
+#: cell of the audio one. The SSM and hybrid prefill and train cells (2-6
+#: min a cell on the card's host), the moe and vlm train cells (2-4 min),
+#: and the dense train and moe prefill cells (~38 s a mesh, the longest
+#: of the rest, cut to keep the script's time) are left to the whole
+#: grid, which `python -m repro_torch.launch.dryrun --jobs 8` runs in ~9
+#: min a strategy. (c) More than one card: the sharded step on 2 NCCL
+#: ranks against 1 (`launch.sharded`).
 MESH_DRYRUN_CELLS = (
-    ("phi4-mini-3.8b", "train_4k"), ("phi4-mini-3.8b", "prefill_32k"),
-    ("phi4-mini-3.8b", "decode_32k"), ("mixtral-8x22b", "prefill_32k"),
+    ("phi4-mini-3.8b", "prefill_32k"), ("phi4-mini-3.8b", "decode_32k"),
     ("mixtral-8x22b", "decode_32k"), ("mamba2-2.7b", "decode_32k"),
     ("zamba2-2.7b", "decode_32k"), ("qwen2-vl-72b", "prefill_32k"),
     ("qwen2-vl-72b", "decode_32k"), ("whisper-tiny", "train_4k"),
     ("whisper-tiny", "prefill_32k"), ("whisper-tiny", "decode_32k"))
-MESH_DRYRUN_JOBS = 8
+MESH_DRYRUN_JOBS = len(MESH_DRYRUN_CELLS)
 
 
 _T0 = time.perf_counter()
@@ -766,21 +785,28 @@ def device_profile(fn, traced=None, kernels=()) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         (traced or fn)()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    named = {k: [sum(e.self_device_time_total for e in dev if k in e.key)
-                 / 1e3, sum(e.count for e in dev if k in e.key)]
+    # the raw trace events, summed by name: `key_averages()` first builds
+    # a Python object and tree for every event (two a launch), which took
+    # longer than the profiled run itself on the long serving runs
+    per_name, launches = {}, 0          # device name -> [ns, count]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation():
+                acc = per_name.setdefault(e.name(), [0, 0])
+                acc[0] += e.duration_ns()
+                acc[1] += 1
+        elif e.name() == "cudaLaunchKernel":
+            launches += 1
+    busy_ms = sum(ns for ns, _ in per_name.values()) / 1e6
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
+    named = {k: [sum(ns for n, (ns, _) in per_name.items() if k in n) / 1e6,
+                 sum(c for n, (_, c) in per_name.items() if k in n)]
              for k in kernels}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or "not measured",
             "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms
             else "not measured",
-            "launches": sum(e.count for e in events
-                            if e.key == "cudaLaunchKernel"),
-            "top_device_ms": [[e.key[:48], e.self_device_time_total / 1e3,
-                               e.count] for e in top],
+            "launches": launches,
+            "top_device_ms": [[n[:48], ns / 1e6, c] for n, (ns, c) in top],
             "kernel_device_ms": named}
 
 
@@ -1162,8 +1188,11 @@ def lm_path(seed: int, dev) -> dict:
     prefill_launches = dict(KERNEL_LAUNCHES)
     reset_launches()
     trace = {}
-    tokens = serve_batch(cfg, params, prompts, LM_GEN, trace=trace)
+    tokens = serve_batch(cfg, params, prompts[:, :LM_SERVE_PROMPT], LM_GEN,
+                         trace=trace)
     serve_launches = dict(KERNEL_LAUNCHES)
+    # the kernel prefill of serve_batch's prompts, for the comparison
+    short = prefill(params, {"tokens": batch["tokens"][:, :LM_SERVE_PROMPT]})
 
     groups = cfg.n_layers // cfg.attn_every
     check(prefill_launches["flash_attention"] == groups,
@@ -1172,9 +1201,10 @@ def lm_path(seed: int, dev) -> dict:
     check(prefill_launches["ssd"] == cfg.n_layers,
           f"SSD launches {prefill_launches['ssd']} == {cfg.n_layers} per "
           "prefill")
-    lf = logits.float()
+    lf = short.float()
     pl = trace["prompt_logits"].float()
-    check(bool(torch.isfinite(lf).all() and torch.isfinite(pl).all()),
+    check(bool(torch.isfinite(logits.float()).all()
+               and torch.isfinite(lf).all() and torch.isfinite(pl).all()),
           "prefill and cache-path logits finite")
     check(tokens.shape == (LM_BATCH, LM_GEN), "serve_batch token shape")
     gap = (lf - pl).abs()
@@ -1208,6 +1238,7 @@ def lm_path(seed: int, dev) -> dict:
 
     out = {"arch": cfg.name, "params": n_params, "init_s": init_s,
            "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "serve_prompt": LM_SERVE_PROMPT,
            "prefill_launches": prefill_launches,
            "serve_launches": serve_launches,
            "prefill_ms": cuda_ms(lambda: prefill(params, batch), runs=5),
@@ -1878,8 +1909,7 @@ STREAM_HOSTS = (1, 4)
 DEPART_EVERY, SWEEP_EVERY, SWEEP_UTIL = 4, 4, 0.85
 EMERGENCY_BUDGET_W = 12 * 310.0 / 2.0
 STREAM_DWELL_S, MIGRATE_AFTER = 600.0, 4
-#: Micro-batches of the streamed cell's profiled run (its idle share);
-#: each costs the profiler ~14 s.
+#: Micro-batches of the streamed cell's profiled run (its idle share).
 STREAM_PROFILE_BATCHES = 2
 WARM_EVERY, WARM_OCCUPANCY, WARM_UF = 3, 0.7, 0.7
 #: The reference benchmark's 2x emergency sim (benchmarks/serve_emergency.py)
@@ -1926,11 +1956,12 @@ def warm_cluster(seed: int):
 
 
 def _stream_pipeline(run, hist, labels, budget_w, warm_state, warm, hosts,
-                     device, shards=None, **planes):
+                     device, shards=None, mesh=None, **planes):
     """A streamed-cell pipeline on `device` over the warm cluster, its GB
     ledger (total and NUF slice) seeded from the warm VMs, with the
     `PlaneBundle` fields given in `planes`; a `ShardedServePipeline` of
-    `shards` shards when given."""
+    `shards` shards when given, one shard a device of `mesh` when
+    given."""
     from repro_torch.serve import (PlaneBundle, ResourceVector, ServeConfig,
                                    ServePipeline, ShardedServeConfig,
                                    ShardedServePipeline, device_state,
@@ -1950,7 +1981,8 @@ def _stream_pipeline(run, hist, labels, budget_w, warm_state, warm, hosts,
                config=cfg(batch_size=BATCH, n_ingest_hosts=hosts,
                           planes=PlaneBundle(
                               chassis_budget=ResourceVector(watts=budget_w),
-                              **planes), **extra))
+                              **planes), **extra),
+               **({} if mesh is None else {"mesh": mesh}))
 
 
 def streamed(pipe, batch, hosts: int, plane: bool, warm, samples=None,
@@ -2241,33 +2273,47 @@ def streamed_serve(run, hist, arrivals, budget_w: float, seed: int,
             "wall_ms", "device_busy_ms", "device_idle_share", "launches")}}}
 
 
-def sim_emergency(dev) -> dict:
+def _emergency_sim(backend: str, blind: bool, dev):
     """`simulate` with the emergency plane at the reference benchmark's
-    2x settings, aware and blind, on the event backend on the host, and
-    the aware run again on the serve backend on the card (its torch twin
-    held bit-equal to the numpy oracle on every scan): the serve trace
-    and every `SimMetrics` field equal the event backend's, aware gives
-    fewer critical throttled-seconds than blind, and the numbers stand
-    beside the reference's record."""
-    import dataclasses
+    2x settings on `backend` (`dev` unused by the event backend): its
+    metrics, trace and seconds."""
     from repro_torch.core.placement import SchedulerPolicy
     from repro_torch.serve import EmergencyConfig
     from repro_torch.sim import scheduler_sim as S
-    pol, ch = SchedulerPolicy(alpha=0.8), S.PredictionChannel("ml")
+    tr = []
+    t0 = time.perf_counter()
+    m = S.simulate(SchedulerPolicy(alpha=0.8), S.PredictionChannel("ml"),
+                   S.SimSpec(emergency=EmergencyConfig.from_model(
+                       EMERGENCY_BUDGET_W, dwell_s=EMERGENCY_SIM_DWELL_S,
+                       criticality_blind=blind),
+                       serve=S.ServeBackendSpec(backend=backend),
+                       **EMERGENCY_SIM), trace=tr, device=dev)
+    return m, tr, time.perf_counter() - t0
+
+
+def sim_emergency(dev) -> dict:
+    """`simulate` with the emergency plane at the reference benchmark's
+    2x settings, aware and blind, on the event backend on the host (each
+    in a process of its own, alongside the card's run), and the aware run
+    again on the serve backend on the card (its torch twin held bit-equal
+    to the numpy oracle on every scan): the serve trace and every
+    `SimMetrics` field equal the event backend's, aware gives fewer
+    critical throttled-seconds than blind, and the numbers stand beside
+    the reference's record."""
+    import dataclasses
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     metrics, traces, secs = {}, {}, {}
-    for name, backend, blind in (("aware", "event", False),
-                                 ("blind", "event", True),
-                                 ("aware_serve", "serve", False)):
-        tr = []
-        t0 = time.perf_counter()
-        metrics[name] = S.simulate(pol, ch, S.SimSpec(
-            emergency=EmergencyConfig.from_model(
-                EMERGENCY_BUDGET_W, dwell_s=EMERGENCY_SIM_DWELL_S,
-                criticality_blind=blind),
-            serve=S.ServeBackendSpec(backend=backend), **EMERGENCY_SIM),
-            trace=tr, device=dev)
-        secs[name] = time.perf_counter() - t0
-        traces[name] = tr
+    # the event backend runs on the host alone: its two runs go in
+    # processes of their own while the card's run goes here
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        host = {name: pool.submit(_emergency_sim, "event", blind, None)
+                for name, blind in (("aware", False), ("blind", True))}
+        (metrics["aware_serve"], traces["aware_serve"],
+         secs["aware_serve"]) = _emergency_sim("serve", False, dev)
+        for name, fut in host.items():
+            metrics[name], traces[name], secs[name] = fut.result()
     check(traces["aware_serve"] == traces["aware"],
           "emergency sim: serve trace on the card == event trace")
     a, s = metrics["aware"], metrics["aware_serve"]
@@ -2654,13 +2700,13 @@ SIM_TOKEN_RHO = 400.0
 
 
 def _sharded_serve_run(run, hist, budget_w, shards, dev, cluster_w=None,
-                       profiled=False):
+                       profiled=False, mesh=None):
     """The serving cell's arrivals through a fresh `ShardedServePipeline`
     of `shards` shards on `dev`, in the main path's micro-batches; the
     cluster budget `cluster_w` (watts) when given; the whole run under the
-    profiler when `profiled`. Returns the pipeline, the per-batch results,
-    the wall, the batch latencies, the arrivals each batch spilled and the
-    profile."""
+    profiler when `profiled`; one shard a device of `mesh` when given.
+    Returns the pipeline, the per-batch results, the wall, the batch
+    latencies, the arrivals each batch spilled and the profile."""
     import torch
     from repro_torch.serve import (PlaneBundle, ResourceVector,
                                    ShardedServeConfig, ShardedServePipeline)
@@ -2671,7 +2717,8 @@ def _sharded_serve_run(run, hist, budget_w, shards, dev, cluster_w=None,
                                   planes=PlaneBundle(
             chassis_budget=ResourceVector(watts=budget_w),
             cluster_budget=None if cluster_w is None
-            else ResourceVector(watts=cluster_w))))
+            else ResourceVector(watts=cluster_w))),
+        **({} if mesh is None else {"mesh": mesh}))
     parts, batch_ms, spilled, prof = [], [], [], None
 
     def serve_all():
@@ -2997,6 +3044,166 @@ def sharded_planes(run, hist, arrivals, labels, budget_w: float, seed: int,
         "hosts_equal": True, "cpu_equal": True,
         "one_shard_equals_unsharded": True, "cpu_state_max_gap": gaps,
         "launches_per_cap_window": per_window}
+
+
+#: The mesh leg of sharded serving (`sharded_mesh`): one shard a mesh
+#: position, over one card repeated and, where the machine has them, over
+#: MESH_SHARDS distinct cards.
+MESH_SHARDS = 4
+MESH_ONE_CARD = ("cuda:0",) * MESH_SHARDS
+
+
+def sharded_mesh(run, hist, arrivals, labels, budget_w: float, shard_serve,
+                 shard_planes, extra, seed: int, dev) -> dict:
+    """The mesh leg of sharded serving. The budgeted 4-shard serving cell
+    (`sharded_serve`'s `shards_4_budget`: its cluster budget, the main
+    path's micro-batches) through `ShardedServePipeline(mesh=shard_mesh(4,
+    devices=MESH_ONE_CARD))`, the table row-partitioned over the mesh,
+    its launch counts read from 0: a forest launch per micro-batch, and
+    the decisions, final state, pools left and spill counters of a
+    batch-axis card run on the same inputs, whose outcomes must be
+    `sharded_serve`'s. Arrivals/s and batch p50/p99 of both legs; launches
+    per arrival and the device idle share of each on a micro-batch after
+    the cell (`extra`), after which both must still agree. Then the
+    both-planes streamed arm of `sharded_planes` (PLANE_SHARDS shards,
+    SHARDED_PLANES_UTILS) on the mesh against a batch-axis run of it,
+    whose decisions, alarms and ratios must be `sharded_planes`':
+    decisions, alarms, throttled-seconds, ratios, the final state and
+    every plane state. With MESH_SHARDS cards the served cell again over
+    cuda:0..3; with fewer, why it did not run."""
+    import torch
+    from repro_torch import KERNEL_LAUNCHES, reset_launches
+    from repro_torch.serve import (AdaptiveConfig, BallooningConfig,
+                                   EmergencyConfig, ShardedTable, shard_mesh)
+    from repro_torch.sim.telemetry import arrival_batch
+    cores = run["batch"].cores.astype(np.float64)
+    n_batches = N_ARRIVALS // BATCH
+    cell = shard_serve["shards_4_budget"]
+    out, served = {}, {}
+
+    def serve(name, mesh):
+        reset_launches()
+        pipe, parts, wall, bm, _, _ = _sharded_serve_run(
+            run, hist, budget_w, MESH_SHARDS, dev, cell["cluster_budget_w"],
+            mesh=mesh)
+        launches = dict(KERNEL_LAUNCHES)
+        check(launches["forest"] == len(parts) == n_batches,
+              f"sharded_mesh {name}: a forest launch per micro-batch: "
+              f"{launches}")
+        s = sorted(bm)
+        out[name] = {**_outcomes(parts, cores), "spill": pipe.spill_info,
+                     "launches": launches, "arrivals_per_s": N_ARRIVALS / wall,
+                     "wall_s": wall,
+                     "batch_p50_ms": float(np.percentile(s, 50)),
+                     "batch_p99_ms": float(np.percentile(s, 99)),
+                     "mesh": None if mesh is None else [str(d) for d in mesh]}
+        served[name] = (pipe, np.concatenate([p.server for p in parts]))
+        return pipe
+
+    def agree(name, what=""):
+        """Decisions, final state, pools left and spill counters of the
+        `name` run equal the batch axis's, bit for bit."""
+        (pipe, srv), (base, base_srv) = served[name], served["batch_axis"]
+        check(np.array_equal(srv, base_srv),
+              f"sharded_mesh {name}{what}: the batch axis's decisions")
+        for f, a, b in zip(base.global_state()._fields, pipe.global_state(),
+                           base.global_state()):
+            check(torch.equal(a, b), f"sharded_mesh {name}{what}: final "
+                  f"{f} bit-equal to the batch axis's")
+        check(np.array_equal(pipe.pool_left_vec(), base.pool_left_vec()),
+              f"sharded_mesh {name}{what}: pools left bit-equal to the "
+              "batch axis's")
+        check(pipe.spill_info == base.spill_info,
+              f"sharded_mesh {name}{what}: spill counters "
+              f"{pipe.spill_info} == {base.spill_info}")
+
+    serve("batch_axis", None)
+    for k in ("admitted", "capacity_rejected", "power_rejected",
+              "token_rejected"):
+        check(out["batch_axis"][k] == cell[k],
+              f"sharded_mesh: the batch-axis run's {k} "
+              f"{out['batch_axis'][k]} is sharded_serve's {cell[k]}")
+    one = serve("one_card", shard_mesh(MESH_SHARDS, devices=MESH_ONE_CARD))
+    check(len(one.sharded.groups) == MESH_SHARDS
+          and isinstance(one.table, ShardedTable),
+          "sharded_mesh: the shards and the table lie on the mesh")
+    agree("one_card")
+    # where a micro-batch's time goes, on one after the cell, on each leg
+    prof = {name: serve_profile(served[name][0], *extra)
+            for name in ("batch_axis", "one_card")}
+    for name, p in prof.items():
+        out[name]["profile"] = {**p, "micro_batch": "after the cell"}
+    out["launch_ratio"] = prof["one_card"]["launches_per_arrival"] \
+        / prof["batch_axis"]["launches_per_arrival"]
+    agree("one_card", " after two more micro-batches")
+
+    # the both-planes streamed arm on either leg
+    batch = _rows(arrival_batch(arrivals),
+                  np.arange(SHARDED_STREAM_BATCHES * BATCH))
+    both = dict(emergency=EmergencyConfig.from_model(
+        EMERGENCY_BUDGET_W, dwell_s=STREAM_DWELL_S),
+        ballooning=BallooningConfig(),
+        adaptive=AdaptiveConfig(**PLANES_ADAPTIVE))
+    warm_state, warm = warm_cluster(seed)
+    arms = {}
+    for name, mesh in (("batch_axis", None), ("one_card", MESH_ONE_CARD)):
+        reset_launches()
+        pipe = _stream_pipeline(run, hist, labels, budget_w, warm_state,
+                                warm, 1, dev, PLANE_SHARDS,
+                                mesh=None if mesh is None
+                                else shard_mesh(PLANE_SHARDS, devices=mesh),
+                                **both)
+        arms[name] = (pipe, streamed(
+            pipe, batch, 1, True, warm,
+            arms["batch_axis"][1]["samples"] if arms else None,
+            utils=SHARDED_PLANES_UTILS, sweep_every=1))
+        arms[name][1]["launches"] = dict(KERNEL_LAUNCHES)
+    (base, b), (mesh_pipe, m) = arms["batch_axis"], arms["one_card"]
+    check(b["alarms"] == shard_planes["alarms"]
+          and int((b["servers"] >= 0).sum()) == shard_planes["admitted"]
+          and [np.ravel(r).tolist() for r in b["ratios"]]
+          == shard_planes["ratios"],
+          "sharded_mesh planes: the batch-axis arm is sharded_planes'")
+    check(m["launches"]["forest"] == m["micro_batches"]
+          == SHARDED_STREAM_BATCHES,
+          f"sharded_mesh planes: a forest launch per micro-batch: "
+          f"{m['launches']}")
+    for f in ("servers", "conservative", "throttled_by_level"):
+        check(np.array_equal(m[f], b[f]),
+              f"sharded_mesh planes: the batch axis's {f}")
+    check(m["alarms"] == b["alarms"] and len(m["ratios"]) == len(b["ratios"])
+          and all(np.array_equal(x, y) for x, y in zip(m["ratios"],
+                                                       b["ratios"])),
+          "sharded_mesh planes: the batch axis's alarms and ratios")
+    for what, x, y in (
+            ("state", mesh_pipe.global_state(), base.global_state()),
+            ("emergency", mesh_pipe.emergency, base.emergency),
+            ("balloons", mesh_pipe.balloon_state, base.balloon_state),
+            ("adaptive", mesh_pipe.adaptive_state, base.adaptive_state)):
+        for f, a, c in zip(x._fields, x, y):
+            check(torch.equal(a, c), f"sharded_mesh planes: {what} {f} "
+                  "bit-equal to the batch axis's")
+    check(np.array_equal(mesh_pipe.pool_left_vec(), base.pool_left_vec()),
+          "sharded_mesh planes: pools left bit-equal to the batch axis's")
+    out["planes"] = {
+        name: {"arrivals_per_s": r["arrivals_per_s"], "wall_s": r["wall"],
+               "alarms": r["alarms"], "launches": r["launches"],
+               "admitted": int((r["servers"] >= 0).sum()),
+               "balloon_events": r["balloon_events"]}
+        for name, (_, r) in arms.items()}
+
+    cards = torch.cuda.device_count()
+    if cards >= MESH_SHARDS:
+        serve("cards", shard_mesh(MESH_SHARDS))
+        agree("cards")
+        out["cards"]["run"] = True
+    else:
+        out["cards"] = {"run": False, "why": f"the machine has {cards} "
+                        f"card(s); a mesh of distinct cards takes "
+                        f"{MESH_SHARDS}"}
+    out["checks"] = {"decisions_equal": True, "state_bit_equal": True,
+                     "pools_bit_equal": True, "planes_bit_equal": True}
+    return out
 
 
 def sim_sharded(dev) -> dict:
@@ -4067,6 +4274,12 @@ def main(argv=None) -> int:
     shard_planes = sharded_planes(run, hist, arrivals, stream_labels,
                                   budget_w, args.seed, dev)
     emit("sharded_planes", **shard_planes)
+    # the mesh leg: one shard a position of a mesh over the card repeated
+    # (each served run's counts read from 0 inside)
+    shard_mesh_out = sharded_mesh(run, hist, arrivals, stream_labels,
+                                  budget_w, shard_serve, shard_planes, extra,
+                                  args.seed, dev)
+    emit("sharded_mesh", **shard_mesh_out)
     reset_launches()
     emit("sim_sharded", **sim_sharded(dev), launches=dict(KERNEL_LAUNCHES))
 
@@ -4118,6 +4331,12 @@ def main(argv=None) -> int:
              k: v["launches"]["forest"] for k, v in shard_serve.items()
              if isinstance(v, dict) and "launches" in v},
          "launches_sharded_planes": shard_planes["launches"]["forest"],
+         "launches_sharded_mesh": {
+             k: v["launches"]["forest"] for k, v in shard_mesh_out.items()
+             if isinstance(v, dict) and "launches" in v},
+         "launches_sharded_mesh_planes": {
+             k: v["launches"]["forest"]
+             for k, v in shard_mesh_out["planes"].items()},
          "launches_obs": {k: v["forest"] for k, v in obs_launches.items()},
          "launches_lm_train": train_launches["forest"],
          "launches_mesh": mesh["step"]["kernel_launches"]["forest"],

@@ -1,7 +1,9 @@
 """Wrapper of the oblivious-forest kernel (`csrc/forest.cu`).
 
 `pack_forest` turns a trained `ObliviousForest` into the kernel's
-operands once per model (models retrain daily in the paper).
+operands once per model (models retrain daily in the paper), and
+`forest_predict` is the package's public call, features in and
+probabilities out, as `repro.kernels.forest.forest_predict` is.
 `forest_sums` runs a stack of equally shaped forests: the plain version
 (`ref.py`) for a CPU tensor, the kernel for a CUDA tensor — it launches
 or raises, it never falls back. Normalization (RF mean, GB softmax)
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.forest import ObliviousForest
-from repro_torch.device import KERNEL_LAUNCHES
+from repro_torch.device import KERNEL_LAUNCHES, resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.forest import ref
 
@@ -163,3 +165,15 @@ def predict_packed(x, feat_idx, thr, leaf, kind: str) -> torch.Tensor:
     summed = forest_sums(x.float().contiguous(), feat_idx[None], thr[None],
                          leaf[None])[:, 0]
     return normalize_forest_output(summed, kind, feat_idx.shape[0])
+
+
+def forest_predict(forest: ObliviousForest, x, device=None) -> torch.Tensor:
+    """(B, F) features -> (B, K) probabilities of a trained forest on
+    `device` (None: the card): `pack_forest`, then the kernel's leaf sums
+    (`forest_sums`; their plain version on the CPU), then the RF mean or
+    the GB softmax. `x` is an array or a tensor."""
+    dev = resolve_device(device)
+    fi, thr, leaf, _, _, kind = pack_forest(forest, dev)
+    x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                        dtype=torch.float32, device=dev)
+    return predict_packed(x, fi, thr, leaf, kind)

@@ -4,7 +4,8 @@ confidence gating, Algorithm-1 placement and power admission, with all
 state resident on the pipeline's device; the per-host ingest merge, the
 power-emergency plane, the ballooning rung, migration planning, the
 adaptive oversubscription controller, and sharded serving under the
-reserve/commit token protocol."""
+reserve/commit token protocol, the shards as a batch axis or one a device
+on a mesh."""
 from repro_torch.core.resources import RESOURCES, ResourceVector
 from repro_torch.serve.adaptive import (
     REASON_NAMES, AdaptiveConfig, AdaptiveOutputs, AdaptiveState,
@@ -26,8 +27,9 @@ from repro_torch.serve.emergency import (
     scatter_samples, scatter_samples_np, throttled_by_level,
     util_from_power, util_from_power_np)
 from repro_torch.serve.featurizer import (
-    SubscriptionTable, empty_table, featurize, featurize_batch,
-    ingest_population, p95_bucket_torch, table_from_history, update_table)
+    ShardedTable, SubscriptionTable, empty_table, featurize, featurize_batch,
+    ingest_population, p95_bucket_torch, shard_table, table_from_history,
+    update_table)
 from repro_torch.serve.inference import (
     ForestMeta, PackedForest, PackedService, ServiceMeta, bucket_to_p95_torch,
     pack_service, resolve_kernel, served_query)
@@ -48,10 +50,10 @@ from repro_torch.serve.placement import (
 from repro_torch.serve.sharding import (
     ShardedState, apply_adaptive_sharded, apply_caps_ballooned_sharded,
     apply_caps_sharded, chassis_to_shard, consume_departures,
-    init_adaptive_sharded, init_ballooning_sharded, init_emergency_sharded,
-    place_group_sharded, remove_sharded, resource_pool_from_budget,
-    rho_pool_from_budget, route_shard, shard_state, split_caps,
-    split_departures, unshard_state)
+    device_put_sharded_state, init_adaptive_sharded, init_ballooning_sharded,
+    init_emergency_sharded, place_group_sharded, remove_sharded,
+    resource_pool_from_budget, rho_pool_from_budget, route_shard, shard_mesh,
+    shard_state, split_caps, split_departures, unshard_state)
 
 __all__ = [
     "RESOURCES", "ResourceVector",
@@ -72,9 +74,9 @@ __all__ = [
     "sampled_power", "sampled_power_np", "scatter_samples",
     "scatter_samples_np", "throttled_by_level", "util_from_power",
     "util_from_power_np",
-    "SubscriptionTable", "empty_table", "featurize", "featurize_batch",
-    "ingest_population", "p95_bucket_torch", "table_from_history",
-    "update_table",
+    "ShardedTable", "SubscriptionTable", "empty_table", "featurize",
+    "featurize_batch", "ingest_population", "p95_bucket_torch",
+    "shard_table", "table_from_history", "update_table",
     "ForestMeta", "PackedForest", "PackedService", "ServiceMeta",
     "bucket_to_p95_torch", "pack_service", "resolve_kernel", "served_query",
     "ARRIVAL", "DEPARTURE", "CAPPING", "CapBatch", "DepartureBatch",
@@ -89,8 +91,9 @@ __all__ = [
     "score_chassis_batch", "score_server_batch",
     "ShardedState", "apply_adaptive_sharded", "apply_caps_ballooned_sharded",
     "apply_caps_sharded", "chassis_to_shard", "consume_departures",
-    "init_adaptive_sharded", "init_ballooning_sharded",
-    "init_emergency_sharded", "place_group_sharded", "remove_sharded",
-    "resource_pool_from_budget", "rho_pool_from_budget", "route_shard",
-    "shard_state", "split_caps", "split_departures", "unshard_state",
+    "device_put_sharded_state", "init_adaptive_sharded",
+    "init_ballooning_sharded", "init_emergency_sharded",
+    "place_group_sharded", "remove_sharded", "resource_pool_from_budget",
+    "rho_pool_from_budget", "route_shard", "shard_mesh", "shard_state",
+    "split_caps", "split_departures", "unshard_state",
 ]

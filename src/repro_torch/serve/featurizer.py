@@ -5,8 +5,13 @@ The aggregates live as tensors indexed by subscription id —
 `SubscriptionTable` holds running *sums* (not means), so ingesting newly
 labeled VMs is one order-fixed segment sum over the columns and
 featurizing an arrival micro-batch is one gather plus a few elementwise
-ops. Feature order
-matches `core.features.FEATURE_NAMES` exactly.
+ops. Feature order matches `core.features.FEATURE_NAMES` exactly.
+
+`shard_table` partitions the rows over a mesh of devices
+(`serve.sharding.shard_mesh`): a `ShardedTable` of equal row blocks, one
+on each device, which `update_table`, `featurize` and `featurize_batch`
+take as they take a table on one device, with the same sums and
+features.
 """
 from __future__ import annotations
 
@@ -56,6 +61,48 @@ def empty_table(capacity: int, device=None) -> SubscriptionTable:
                              z(capacity))
 
 
+class ShardedTable(NamedTuple):
+    """A `SubscriptionTable` row-partitioned over a mesh (`shard_table`):
+    `blocks[i]` holds rows ``[i * rows, (i + 1) * rows)`` on mesh position
+    i's device."""
+    blocks: tuple
+
+    @property
+    def capacity(self) -> int:
+        return sum(b.capacity for b in self.blocks)
+
+
+def shard_table(table: SubscriptionTable, mesh) -> ShardedTable:
+    """Row-partition the table over a mesh of N devices: its capacity
+    padded with zero rows up to a multiple of N, and each block of
+    capacity/N rows copied to its position's device.
+
+    As in the reference, the capacity is the padded one, so ids in [old
+    capacity, padded capacity) become valid rows: `featurize` serves them
+    the unseen-subscription defaults until ingested (they start all-zero),
+    and `update_table` stores them rather than dropping them. Size the
+    original capacity for the id space and the window is never reached."""
+    mesh = tuple(torch.device(d) for d in mesh)
+    n = len(mesh)
+    cap = -(-table.capacity // n) * n
+    rows = cap // n
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((cap - a.shape[0],) + a.shape[1:])])
+    padded = SubscriptionTable(*(pad(a) for a in table))
+    return ShardedTable(tuple(
+        SubscriptionTable(*(a[i * rows:(i + 1) * rows].to(d, copy=True)
+                            for a in padded))
+        for i, d in enumerate(mesh)))
+
+
+def _device(table) -> torch.device:
+    """The device a table's callers put its operands on: its own, or its
+    first block's."""
+    return (table.blocks[0] if isinstance(table, ShardedTable)
+            else table).count.device
+
+
 def p95_bucket_torch(p95_util: torch.Tensor) -> torch.Tensor:
     """Torch twin of `repro.serve.featurizer.p95_bucket_jnp`
     (0-25/26-50/51-75/76-100, percent).
@@ -68,16 +115,21 @@ def p95_bucket_torch(p95_util: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.ceil(q) - 1, 0, F.N_UTIL_BUCKETS - 1).long()
 
 
-def update_table(table: SubscriptionTable, subscription: torch.Tensor,
-                 uf_label: torch.Tensor, lifetime_hours: torch.Tensor,
-                 p95_util: torch.Tensor,
-                 avg_util: torch.Tensor) -> SubscriptionTable:
+def update_table(table, subscription: torch.Tensor, uf_label: torch.Tensor,
+                 lifetime_hours: torch.Tensor, p95_util: torch.Tensor,
+                 avg_util: torch.Tensor):
     """Ingest a batch of labeled VMs (the label-bootstrap loop of paper
     §III-B, run incrementally). All args (B,), percent units. Ids outside
     [0, capacity) are dropped, as XLA drops out-of-range scatter rows:
     they add a zero to row 0. The sums are order-fixed
     (`serve._segments.segment_sums`), so the same history gives the same
-    table on every run."""
+    table on every run. A `ShardedTable` updates each block, on its
+    device, with the rows whose ids it holds, in input order: the sums a
+    table on one device makes."""
+    if isinstance(table, ShardedTable):
+        return ShardedTable(tuple(_update_block(
+            blk, i * blk.capacity, subscription, uf_label, lifetime_hours,
+            p95_util, avg_util) for i, blk in enumerate(table.blocks)))
     sub = subscription.long()
     keep = (sub >= 0) & (sub < table.capacity)
     sub = torch.where(keep, sub, 0)
@@ -102,12 +154,21 @@ def update_table(table: SubscriptionTable, subscription: torch.Tensor,
         p95_util_sum=out[:, 4 + nb].contiguous())
 
 
-def ingest_population(table: SubscriptionTable, history: Population,
-                      uf_labels) -> SubscriptionTable:
+def _update_block(blk: SubscriptionTable, lo: int, subscription, *cols):
+    """`update_table` on the block of rows ``[lo, lo + capacity)``: the
+    batch's rows with ids there, at their local ids."""
+    dev = blk.count.device
+    sub = subscription.long().to(dev)
+    mine = (sub >= lo) & (sub < lo + blk.capacity)
+    return update_table(blk, sub[mine] - lo,
+                        *(c.to(dev)[mine] for c in cols))
+
+
+def ingest_population(table, history: Population, uf_labels):
     """Fold a labeled population into the aggregates (one update)."""
     b = arrival_batch(history)
     avg = np.array([v.avg_util for v in history.vms], np.float32)
-    dev = table.count.device
+    dev = _device(table)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), device=dev)
@@ -123,24 +184,48 @@ def table_from_history(history: Population, uf_labels, capacity: int,
                              uf_labels)
 
 
-def featurize(table: SubscriptionTable, subscription: torch.Tensor,
-              cores: torch.Tensor, memory_gb: torch.Tensor,
+def _rows(table, sub: torch.Tensor) -> SubscriptionTable:
+    """The table's rows of ids `sub` (each in [0, capacity)), on `sub`'s
+    device. A `ShardedTable` gathers each block's ids on its device and
+    selects them into place."""
+    if not isinstance(table, ShardedTable):
+        return SubscriptionTable(*(a[sub] for a in table))
+    out = None
+    for i, blk in enumerate(table.blocks):
+        lo = i * blk.capacity
+        local = (sub - lo).to(blk.count.device)
+        got = SubscriptionTable(*(
+            a[local.clamp(0, blk.capacity - 1)].to(sub.device)
+            for a in blk))
+        if out is None:
+            out = got
+            continue
+        mine = (sub >= lo) & (sub < lo + blk.capacity)
+        out = SubscriptionTable(*(
+            torch.where(mine.view(-1, *([1] * (g.ndim - 1))), g, o)
+            for g, o in zip(got, out)))
+    return out
+
+
+def featurize(table, subscription: torch.Tensor, cores: torch.Tensor,
+              memory_gb: torch.Tensor,
               vm_type_idx: torch.Tensor) -> torch.Tensor:
-    """(B,) arrival columns -> (B, len(FEATURE_NAMES)) float32, same layout as
-    `core.features.build_features`. Unseen subscriptions, including ids
-    outside [0, capacity), fall back to the offline path's default
-    aggregates."""
+    """(B,) arrival columns -> (B, len(FEATURE_NAMES)) float32 on their
+    device, same layout as `core.features.build_features`. Unseen
+    subscriptions, including ids outside [0, capacity), fall back to the
+    offline path's default aggregates."""
     sub = subscription.long()
     in_range = (sub >= 0) & (sub < table.capacity)
     sub = torch.where(in_range, sub, 0)
-    cnt = table.count[sub]                                   # (B,)
+    rows = _rows(table, sub)
+    cnt = rows.count                                         # (B,)
     seen = in_range & (cnt > 0)
     denom = torch.clamp(cnt, min=1.0)
-    aggs = torch.stack([table.uf_sum[sub] / denom,
-                        table.lived7d_sum[sub] / denom, cnt], -1)
-    bucket_mix = table.bucket_sum[sub] / denom[:, None]      # (B, 4)
-    util = torch.stack([table.avg_util_sum[sub] / denom,
-                        table.p95_util_sum[sub] / denom], -1)
+    aggs = torch.stack([rows.uf_sum / denom, rows.lived7d_sum / denom, cnt],
+                       -1)
+    bucket_mix = rows.bucket_sum / denom[:, None]            # (B, 4)
+    util = torch.stack([rows.avg_util_sum / denom,
+                        rows.p95_util_sum / denom], -1)
     agg_row = torch.cat([aggs, bucket_mix, util], -1)        # (B, 9)
     default = torch.as_tensor(_DEFAULT_ROW, device=agg_row.device)
     agg_row = torch.where(seen[:, None], agg_row, default[None])
@@ -150,13 +235,14 @@ def featurize(table: SubscriptionTable, subscription: torch.Tensor,
                       memory_gb[:, None].float(), onehot], -1)
 
 
-def featurize_batch(table: SubscriptionTable, batch: ArrivalBatch,
-                    pad_to: int | None = None) -> torch.Tensor:
-    """Featurize one micro-batch on the table's device, optionally padded
-    to a fixed batch size (padding rows use subscription 0 / type 0 and
-    are dropped by the caller)."""
+def featurize_batch(table, batch: ArrivalBatch, pad_to: int | None = None,
+                    device=None) -> torch.Tensor:
+    """Featurize one micro-batch on `device` (None: the table's, a
+    `ShardedTable`'s first block's), optionally padded to a fixed batch
+    size (padding rows use subscription 0 / type 0 and are dropped by the
+    caller)."""
     n = len(batch) if pad_to is None else pad_to
-    dev = table.count.device
+    dev = _device(table) if device is None else torch.device(device)
 
     def col(a):
         out = np.zeros(n, np.asarray(a).dtype)

@@ -29,7 +29,8 @@ ceiling before the next micro-batch.
 `ShardedServePipeline` partitions the cluster state into shards that
 place each micro-batch together under the reserve/commit token protocol
 of `serve.sharding`, with `PlaneBundle.cluster_budget` as the token
-pool. `PlaneBundle.obs`, a `repro_torch.obs.Observability`, records what
+pool, as a batch axis on one device or one shard a device on a mesh.
+`PlaneBundle.obs`, a `repro_torch.obs.Observability`, records what
 the pipeline decided (metrics, audit rows, spans, windows, the
 prediction scorecard, SLO burn rates, the flight recorder) on the host,
 from outputs the device calls already returned: decisions are the same
@@ -53,7 +54,8 @@ from repro_torch.obs import LEVEL_NAMES, Observability
 from repro_torch.serve import (adaptive, admission, ballooning, emergency,
                                placement, sharding)
 from repro_torch.serve.featurizer import (
-    SubscriptionTable, featurize_batch, ingest_population, table_from_history)
+    SubscriptionTable, featurize_batch, ingest_population, shard_table,
+    table_from_history)
 from repro_torch.serve.inference import (
     bucket_to_p95_torch, pack_service, served_query)
 from repro_torch.serve.ingest import (
@@ -519,9 +521,10 @@ class ServePipeline:
                      blades_per_chassis: int,
                      table_capacity: int | None = None,
                      config: ServeConfig | None = None,
-                     device=None) -> "ServePipeline":
+                     device=None, **kw) -> "ServePipeline":
         """Bootstrap table + empty cluster on `device` (the card unless
-        ``device="cpu"``) from an offline labeled history."""
+        ``device="cpu"``) from an offline labeled history; `kw` go to the
+        constructor (`ShardedServePipeline`'s `mesh`)."""
         dev = resolve_device(device)
         if table_capacity is None:
             table_capacity = max(
@@ -533,7 +536,7 @@ class ServePipeline:
             n_servers, cores_per_server,
             np.arange(n_servers) // blades_per_chassis, device=dev)
         return cls(service, table, state, cores_per_server, config=config,
-                   blades_per_chassis=blades_per_chassis)
+                   blades_per_chassis=blades_per_chassis, **kw)
 
     def hot_swap(self, new_service: PredictionService) -> None:
         """Pack the retrained forests into the standby buffer, then flip.
@@ -710,7 +713,8 @@ class ServePipeline:
         pad_to = self.config.batch_size
         packed, meta = self._buffers[self._active]
         with self._span("featurize"):
-            x = featurize_batch(self.table, batch, pad_to=pad_to)
+            x = featurize_batch(self.table, batch, pad_to=pad_to,
+                                device=self.device)
         with self._span("infer"):
             q = served_query(packed, meta, x)
             is_uf = q["workload_type_used"] == UF
@@ -896,6 +900,9 @@ class ServePipeline:
         if self._balloon is None:
             return 0.0
         self._flush_caps()
+        return self._total_ballooned_gb()
+
+    def _total_ballooned_gb(self) -> float:
         return ballooning.total_ballooned_gb(self._balloon)
 
     def _record_balloon(self, bout) -> None:
@@ -920,7 +927,7 @@ class ServePipeline:
                         int(_host(bout.inflated).sum()))
         reg.gauge("balloon_ballooned_gb",
                   help="fleet GB currently ballooned out").set(
-                      ballooning.total_ballooned_gb(self._balloon))
+                      self._total_ballooned_gb())
 
     # -- adaptive oversubscription (serve.adaptive) --------------------------
     @property
@@ -1040,10 +1047,51 @@ class ServePipeline:
 
 @dataclass(frozen=True)
 class ShardedServeConfig(ServeConfig):
-    """`ServeConfig` plus the shard count; `batch_size` must be divisible
-    by `n_shards`. On one card the shards run as a leading batch axis,
-    with N-1 spillover rounds and the pools rebalanced before each."""
+    """`ServeConfig` plus the sharded-placement knobs, the reference's.
+    `batch_size` must be divisible by `n_shards`. `use_shard_map`: True
+    puts one shard on each of the first N cards (and raises with fewer),
+    False (the default) runs the shards as a batch axis on the pipeline's
+    device, "auto" takes the cards when a pipeline on the card finds N of
+    them, else the batch axis. The reference defaults to "auto"; here the
+    batch axis is the default because the mesh leg makes about N times
+    its launches from one host thread, which distinct cards do not
+    remove. `spill_rounds`: spillover rounds after the home
+    round (None: N-1). `rebalance_tokens`: equalize the pools before each
+    spillover round. `shard_table`: on a mesh, row-partition the
+    subscription table over it (`featurizer.shard_table`)."""
     n_shards: int = 1
+    use_shard_map: bool | str = False       # True | False | "auto"
+    spill_rounds: int | None = None         # None: n_shards - 1
+    rebalance_tokens: bool = True
+    shard_table: bool = True
+
+    def __post_init__(self):
+        if self.use_shard_map not in (True, False, "auto"):
+            raise ValueError(f"use_shard_map must be True, False or 'auto', "
+                             f"got {self.use_shard_map!r}")
+        if self.spill_rounds is not None and self.spill_rounds < 0:
+            raise ValueError(f"spill_rounds must be >= 0 or None, got "
+                             f"{self.spill_rounds}")
+
+
+def _mesh_for(config: ShardedServeConfig, device: torch.device, mesh):
+    """The pipeline's mesh: `mesh` when given (N devices), whatever
+    `use_shard_map` says, else as `use_shard_map` says (None: the batch
+    axis)."""
+    n = config.n_shards
+    if mesh is not None:
+        return sharding.shard_mesh(n, devices=mesh)
+    if config.use_shard_map == "auto":
+        return sharding.shard_mesh(n) if n > 1 and device.type == "cuda" \
+            else None
+    if config.use_shard_map:
+        mesh = sharding.shard_mesh(n)
+        if mesh is None:
+            have = torch.cuda.device_count() if torch.cuda.is_available() \
+                else 0
+            raise RuntimeError(f"use_shard_map=True needs >= {n} cards, "
+                               f"have {have}")
+    return mesh
 
 
 class ShardedServePipeline(ServePipeline):
@@ -1062,6 +1110,16 @@ class ShardedServePipeline(ServePipeline):
     The emergency, ballooning and adaptive planes run per shard, each
     shard over the chassis it owns.
 
+    `mesh` (a `sharding.shard_mesh`, N devices, one may repeat) puts one
+    shard on each of its devices; without it `config.use_shard_map`
+    decides (`ShardedServeConfig`; by default the batch axis). On a mesh
+    `sharded` and the plane states are `sharding.OnMesh` groups, each on
+    its device, and the subscription table is row-partitioned over it
+    with `config.shard_table`; featurization and inference stay on the
+    pipeline's device. `emergency`, `balloon_state` and `adaptive_state`
+    read the plane states stacked on the pipeline's device, whichever
+    leg runs. `self.mesh` is the mesh, or None for the batch axis.
+
     `state` and `res_cap` read the shards (`global_state()` and the
     per-shard ceilings in force, in global chassis order) and cannot be
     assigned: the shards live in `sharded`."""
@@ -1071,12 +1129,15 @@ class ShardedServePipeline(ServePipeline):
                  state: placement.DeviceClusterState,
                  cores_per_server: int,
                  config: ShardedServeConfig | None = None,
-                 blades_per_chassis: int | None = None):
+                 blades_per_chassis: int | None = None, mesh=None):
         config = config or ShardedServeConfig()
         if config.batch_size % config.n_shards:
             raise ValueError(
                 f"batch_size {config.batch_size} not divisible by "
                 f"n_shards {config.n_shards}")
+        # the plane states go onto the mesh as the base constructor makes
+        # them
+        self.mesh = _mesh_for(config, state.free_cores.device, mesh)
         super().__init__(service, table, state, cores_per_server,
                          config=config,
                          blades_per_chassis=blades_per_chassis)
@@ -1097,13 +1158,19 @@ class ShardedServePipeline(ServePipeline):
             pool_total = np.where(finite, np.maximum(gross - committed, 0.0),
                                   np.inf)
         self._has_pool = pool_total is not None
-        self.sharded = sharding.shard_state(
+        sharded = sharding.shard_state(
             self.state, n, rho_cap=self.res_cap, pool_total=pool_total)
         del self._handed_over       # the shards hold the state and caps
-        self._sharded_cap_base = self.sharded.res_cap
+        # the (N, C/N, R) ceilings at ratio 1.0, on the pipeline's device
+        self._sharded_cap_base = sharded.res_cap
+        if self.mesh is not None:
+            sharded = sharding.device_put_sharded_state(sharded, self.mesh)
+            if config.shard_table:
+                self.table = shard_table(self.table, self.mesh)
+        self.sharded = sharded
         self._pool_base = None if pool_total is None else torch.as_tensor(
             np.broadcast_to(gross / n, (n, N_RESOURCES)).copy()).to(
-                device=self.device, dtype=self.sharded.pool.dtype)
+                device=self.device, dtype=state.free_cores.dtype)
         self._ratio_prev = np.ones(n)
         self.spill_info = {"rounds": 0, "spilled": 0, "spill_admitted": 0}
 
@@ -1115,7 +1182,10 @@ class ShardedServePipeline(ServePipeline):
                 return self._handed_over[name]
             if name == "state":
                 return self.global_state()
-            return self.sharded.res_cap.reshape(-1, N_RESOURCES)
+            caps = [g.res_cap.to(self.device)
+                    for g in sharding.groups_of(self.sharded)]
+            cap = caps[0] if len(caps) == 1 else torch.cat(caps)
+            return cap.reshape(-1, N_RESOURCES)
 
         def put(self, value):
             if "sharded" in self.__dict__:
@@ -1146,7 +1216,8 @@ class ShardedServePipeline(ServePipeline):
         out = sharding.place_group_sharded(
             self.sharded, cores, is_uf, p95_eff,
             np.arange(len(cores)) < n_valid, cfg.policy,
-            self.cores_per_server, mem_gb=mem, **kw)
+            self.cores_per_server, mem_gb=mem, spill_rounds=cfg.spill_rounds,
+            rebalance=cfg.rebalance_tokens, **kw)
         if fused:
             self.sharded, servers, info, self._emergency, sweep = out
             self._alarms += int(sweep.alarms)
@@ -1180,7 +1251,7 @@ class ShardedServePipeline(ServePipeline):
                     "rho units").inc(max(0.0, info.get("tokens_drawn", 0.0)))
         drawn = np.asarray(info.get(
             "tokens_drawn_vec", np.zeros(N_RESOURCES)), np.float64)
-        pools = self.sharded.pool.cpu().numpy()
+        pools = sharding.pool_left(self.sharded)
         for r, name in enumerate(RESOURCES):
             reg.counter("serve_tokens_drawn_res_total",
                         help="tokens drawn from the pools, by "
@@ -1201,7 +1272,7 @@ class ShardedServePipeline(ServePipeline):
     def _pool_tokens_left(self) -> float:
         if not self._has_pool:
             return float("inf")
-        return float(self.sharded.pool[:, 0].cpu().numpy().sum())
+        return float(sharding.pool_left(self.sharded)[:, 0].sum())
 
     def _sharded_caps(self):
         """The queued unique-chassis windows as stacked (N, W, C/N)
@@ -1232,20 +1303,56 @@ class ShardedServePipeline(ServePipeline):
             self.sharded, servers, cores, p95_eff, is_uf, mem_gb=mem_gb)
 
     # -- the planes, per shard -----------------------------------------------
+    def _on_mesh(self, value):
+        """A stacked plane state on the pipeline's mesh (as it is without
+        one)."""
+        return value if self.mesh is None \
+            else sharding.device_put_sharded_state(value, self.mesh)
+
+    def _stacked(self, value):
+        """A plane state stacked on the pipeline's device."""
+        return sharding.from_mesh(value, self.device)
+
     def _init_emergency(self):
-        return sharding.init_emergency_sharded(
+        return self._on_mesh(sharding.init_emergency_sharded(
             self.n_chassis, self.config.n_shards,
-            dtype=self.state.free_cores.dtype, device=self.device)
+            dtype=self.state.free_cores.dtype, device=self.device))
 
     def _init_ballooning(self):
-        return sharding.init_ballooning_sharded(
+        return self._on_mesh(sharding.init_ballooning_sharded(
             self.n_chassis, self.config.n_shards,
-            dtype=self.state.free_cores.dtype, device=self.device)
+            dtype=self.state.free_cores.dtype, device=self.device))
 
     def _init_adaptive(self):
-        return sharding.init_adaptive_sharded(
+        return self._on_mesh(sharding.init_adaptive_sharded(
             self.adaptive_cfg, self.n_chassis, self.config.n_shards,
-            dtype=self.state.free_cores.dtype, device=self.device)
+            dtype=self.state.free_cores.dtype, device=self.device))
+
+    @property
+    def emergency(self):
+        """The emergency state, stacked (N, ...) on the pipeline's device;
+        applies queued cap windows first. Assigning one puts it back on
+        the mesh."""
+        self._flush_caps()
+        return self._stacked(self._emergency)
+
+    @emergency.setter
+    def emergency(self, value):
+        self._emergency = self._on_mesh(value)
+
+    @property
+    def balloon_state(self):
+        """The balloon state, stacked on the pipeline's device."""
+        self._flush_caps()
+        return self._stacked(self._balloon)
+
+    def _total_ballooned_gb(self) -> float:
+        return ballooning.total_ballooned_gb(self._stacked(self._balloon))
+
+    @property
+    def adaptive_state(self):
+        """The controllers' state, stacked on the pipeline's device."""
+        return self._stacked(self._adaptive)
 
     @property
     def adaptive_ratio(self) -> np.ndarray:
@@ -1253,7 +1360,7 @@ class ShardedServePipeline(ServePipeline):
         controller off): each shard adapts the budget slice it owns."""
         if self._adaptive is None:
             return np.ones(self.config.n_shards)
-        return self._adaptive.ratio.cpu().numpy()
+        return self.adaptive_state.ratio.cpu().numpy()
 
     def _adaptive_scan(self, chassis, power_w) -> None:
         """Step every shard's controller on one unique-chassis window."""
@@ -1265,10 +1372,12 @@ class ShardedServePipeline(ServePipeline):
 
     def _axis_mult(self, dtype) -> torch.Tensor:
         """(N, R) multipliers: each shard's ratio on the watts axis, the
-        shared time-of-day ratios on cores/GB."""
+        shared time-of-day ratios on cores/GB, on the pipeline's
+        device."""
         ones = torch.ones(self.config.n_shards, dtype=dtype,
                           device=self.device)
-        r = ones if self._ratio_dev is None else self._ratio_dev.to(dtype)
+        r = ones if self._ratio_dev is None \
+            else self._ratio_dev.to(self.device, dtype)
         return torch.stack([r, ones, ones], -1) * torch.as_tensor(
             self._res_ratios, dtype=dtype, device=self.device)
 
@@ -1279,14 +1388,21 @@ class ShardedServePipeline(ServePipeline):
         placed VMs are never revoked). The ledger is summed over the
         shard's chassis in numpy's order, so the pools repeat on the card."""
         mult = self._axis_mult(self._sharded_cap_base.dtype)
-        pool = self.sharded.pool
-        if self._pool_base is not None:
-            committed = emergency._numpy_order_sum(
-                self.sharded.shards.res_peak, -2)
-            pool = adaptive.retarget_pool(self.adaptive_cfg,
-                                          self._pool_base, mult, committed)
-        self.sharded = self.sharded._replace(
-            res_cap=self._sharded_cap_base * mult[:, None, :], pool=pool)
+        groups = []
+        for g, blk in zip(sharding.groups_of(self.sharded),
+                          sharding.shard_blocks(self.sharded)):
+            dev = g.pool.device
+            m = mult[blk].to(dev)
+            pool = g.pool
+            if self._pool_base is not None:
+                committed = emergency._numpy_order_sum(g.shards.res_peak, -2)
+                pool = adaptive.retarget_pool(
+                    self.adaptive_cfg, self._pool_base[blk].to(dev), m,
+                    committed)
+            groups.append(g._replace(
+                res_cap=self._sharded_cap_base[blk].to(dev) * m[:, None, :],
+                pool=pool))
+        self.sharded = sharding.regroup(self.sharded, groups)
 
     def _record_adaptive(self, out) -> None:
         """Per-shard export of one controller decision: a shard-labelled
@@ -1350,8 +1466,9 @@ class ShardedServePipeline(ServePipeline):
 
     # -- diagnostics ----------------------------------------------------------
     def global_state(self) -> placement.DeviceClusterState:
-        """The sharded aggregates as one cluster state."""
-        return sharding.unshard_state(self.sharded)
+        """The sharded aggregates as one cluster state, on the pipeline's
+        device."""
+        return sharding.unshard_state(self.sharded, self.device)
 
     def chassis_headroom_w(self, budget_w) -> np.ndarray:
         return admission.headroom_w(self.global_state(), budget_w,
@@ -1360,8 +1477,8 @@ class ShardedServePipeline(ServePipeline):
     def pool_left(self) -> np.ndarray:
         """(N,) tokens left per shard, rho units: the watts axis of
         `pool_left_vec`."""
-        return self.sharded.pool[:, 0].cpu().numpy()
+        return sharding.pool_left(self.sharded)[:, 0]
 
     def pool_left_vec(self) -> np.ndarray:
         """(N, R) tokens left per shard and axis (+inf where unbudgeted)."""
-        return self.sharded.pool.cpu().numpy()
+        return sharding.pool_left(self.sharded)

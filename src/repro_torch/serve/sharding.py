@@ -23,18 +23,31 @@ Reserve/commit
     draws its own pool (`placement._walk`, the pooled form of
     `place_batch`); ownership is exclusive and pools disjoint, so the
     budget holds whatever the shards do. Arrivals the home shard rejected
-    are offered to the other shards in up to N-1 spillover rounds (round
-    r sends arrival i to shard ``(i + r) % n_shards``), with the pools
-    rebalanced equally between rounds. Departures credit their own
+    are offered to the other shards in spillover rounds (round r sends
+    arrival i to shard ``(i + r) % n_shards``; `spill_rounds` of them,
+    N-1 by default), with the pools rebalanced equally before each
+    (unless `rebalance=False`). Departures credit their own
     shard's pool, so ``sum(committed) <= pool_total`` holds for the life
     of the cluster.
 
 Execution
-    On one card the shards run as a leading batch axis, as the
-    reference's single-device vmap leg does: a micro-batch walks B/N
-    arrival slots, each stepping all N shards at once. The reference's
-    mesh leg (`shard_map`, `shard_mesh`, `device_put_sharded_state`) has
-    no counterpart on one card.
+    Two legs run the same per-shard arithmetic and decide alike. The
+    batch-axis leg runs the shards as a leading batch axis on one device,
+    as the reference's single-device vmap leg does: a micro-batch walks
+    B/N arrival slots, each stepping all N shards at once. The mesh leg,
+    the counterpart of the reference's `shard_map` over a ``("shard",)``
+    mesh, puts each shard on its own device: `shard_mesh` names N
+    devices, one shard a position, and `device_put_sharded_state` splits
+    the stacked state into N one-shard groups (`OnMesh`), each holding
+    its own state, pool and plane states there. A round launches every
+    position's walk before it reads any result back, so distinct cards
+    walk at once; routing, round packing and the global ids stay on the
+    host, and the rebalance gathers the N pool rows in shard order,
+    adds them as the batch-axis leg does, and hands each position its
+    row. A device may repeat in a mesh (``("cuda:0",) * 4``): the leg
+    then runs one position after another on it, with the same
+    arithmetic. The controller is one process, as the reference's
+    pipeline is; `torch.distributed` plays no part.
 
 Every division on a decision path divides by a device tensor: the card
 divides by a Python scalar as a multiply by its rounded reciprocal. The
@@ -79,6 +92,158 @@ class ShardedState(NamedTuple):
     @property
     def n_shards(self) -> int:
         return self.global_server.shape[0]
+
+
+#: `ShardedState` fields over all servers (no shard axis): every group of
+#: a mesh holds them whole, as the reference replicates them.
+_REPLICATED = ("shard_of_server", "local_of_server")
+
+
+class OnMesh(NamedTuple):
+    """A value with a leading shard axis placed on a mesh
+    (`device_put_sharded_state`):
+    `groups[i]` is its slice for mesh position i, that axis cut to 1, on
+    position i's device and in its own memory. A `ShardedState` on a mesh
+    is N one-shard `ShardedState`s."""
+    groups: tuple
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.groups)
+
+    @property
+    def devices(self) -> tuple:
+        return tuple(_first_tensor(g).device for g in self.groups)
+
+
+def _first_tensor(x) -> torch.Tensor:
+    return x if torch.is_tensor(x) else _first_tensor(x[0])
+
+
+def _mesh_device(d) -> torch.device:
+    """A mesh position's device, its CUDA index made explicit; a card the
+    machine does not have raises."""
+    d = torch.device(d)
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"mesh device {d}: no CUDA device available")
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        if d.index >= torch.cuda.device_count():
+            raise RuntimeError(f"mesh device {d}: the machine has "
+                               f"{torch.cuda.device_count()} cards")
+    return d
+
+
+def shard_mesh(n_shards: int, devices=None):
+    """The mesh of N shards, a tuple of N `torch.device`s, one shard a
+    position: the single-controller counterpart of the reference's 1-D
+    ``("shard",)`` mesh. Without `devices`, the first N cards, or None
+    when the machine has fewer (the batch-axis leg then runs every shard
+    on one device, deciding alike). With `devices`, those N devices; one
+    may repeat (``("cpu",) * 4``, ``("cuda:0",) * 4``), which runs the
+    mesh leg's per-position arithmetic on one device."""
+    if devices is None:
+        if not torch.cuda.is_available() \
+                or torch.cuda.device_count() < n_shards:
+            return None
+        return tuple(torch.device("cuda", i) for i in range(n_shards))
+    mesh = tuple(_mesh_device(d) for d in devices)
+    if len(mesh) != n_shards:
+        raise ValueError(f"a mesh of {n_shards} shards takes {n_shards} "
+                         f"devices, got {len(mesh)}")
+    return mesh
+
+
+def _slice(x, i: int, dev):
+    if torch.is_tensor(x):
+        return x[i:i + 1].to(dev, copy=True)
+    rep = _REPLICATED if isinstance(x, ShardedState) else ()
+    return type(x)(*(v.to(dev, copy=True) if f in rep else _slice(v, i, dev)
+                     for f, v in zip(x._fields, x)))
+
+
+def _join(groups: list, dev):
+    first = groups[0]
+    if torch.is_tensor(first):
+        return torch.cat([g.to(dev) for g in groups])
+    rep = _REPLICATED if isinstance(first, ShardedState) else ()
+    return type(first)(*(
+        v.to(dev) if f in rep else _join([g[k] for g in groups], dev)
+        for k, (f, v) in enumerate(zip(first._fields, first))))
+
+
+def device_put_sharded_state(x, mesh):
+    """Put each shard's slice of a value with a leading (N,) shard axis (a
+    stacked `ShardedState`, or a plane's state) on its mesh device: an
+    `OnMesh` of N one-shard groups, each copied to its position's device
+    (a `ShardedState`'s groups each hold the whole inverse tables). A
+    value already on `mesh` is returned as it is, one on another mesh
+    raises; None stays None."""
+    if x is None:
+        return None
+    mesh = tuple(_mesh_device(d) for d in mesh)
+    if isinstance(x, OnMesh):
+        if x.devices != mesh:
+            raise ValueError(f"the value lies on the mesh {x.devices}, "
+                             f"not on {mesh}")
+        return x
+    n = x.n_shards if isinstance(x, ShardedState) \
+        else _first_tensor(x).shape[0]
+    if n != len(mesh):
+        raise ValueError(f"{n} shards do not map onto a mesh of "
+                         f"{len(mesh)} devices")
+    return OnMesh(tuple(_slice(x, i, d) for i, d in enumerate(mesh)))
+
+
+def from_mesh(x, device=None):
+    """The stacked value of an `OnMesh`, its groups joined along the shard
+    axis in mesh order on `device` (None: the first position's); any
+    other value as it is."""
+    if not isinstance(x, OnMesh):
+        return x
+    return _join(list(x.groups),
+                 x.devices[0] if device is None else torch.device(device))
+
+
+def groups_of(x) -> list:
+    """The groups a leg steps: a mesh's one-shard groups, or a stacked
+    value as its one group of N shards."""
+    return list(x.groups) if isinstance(x, OnMesh) else [x]
+
+
+def regroup(like, groups: list):
+    """`groups` in the form of `like`: an `OnMesh` for a mesh value, else
+    the one stacked group."""
+    return OnMesh(tuple(groups)) if isinstance(like, OnMesh) else groups[0]
+
+
+def shard_blocks(sharded) -> list:
+    """The slices of the shard axis each group of `groups_of` holds, in
+    its order."""
+    n = sharded.n_shards
+    return [slice(i, i + 1) for i in range(n)] \
+        if isinstance(sharded, OnMesh) else [slice(0, n)]
+
+
+def _placed(mesh, sharded, *states):
+    """The state put on `mesh` (when given), and the plane states on the
+    state's mesh when it has one."""
+    if mesh is not None:
+        sharded = device_put_sharded_state(sharded, mesh)
+    if isinstance(sharded, OnMesh):
+        states = tuple(device_put_sharded_state(s, sharded.devices)
+                       for s in states)
+    elif any(isinstance(s, OnMesh) for s in states):
+        raise ValueError("a plane state lies on a mesh and the cluster "
+                         "state does not: pass mesh=")
+    return (sharded, *states)
+
+
+def pool_left(sharded) -> np.ndarray:
+    """(N, R) tokens left per shard and axis, on the host, of a stacked
+    or a mesh state."""
+    return np.concatenate([g.pool.cpu().numpy() for g in groups_of(sharded)])
 
 
 def chassis_to_shard(n_chassis: int, n_shards: int) -> np.ndarray:
@@ -170,9 +335,11 @@ def shard_state(state: DeviceClusterState, n_shards: int, rho_cap=None,
                         local_of, cap, pool)
 
 
-def unshard_state(sharded: ShardedState) -> DeviceClusterState:
-    """The global `DeviceClusterState` view of a sharded state (for
-    diagnostics and headroom reports; serving never needs it)."""
+def unshard_state(sharded, device=None) -> DeviceClusterState:
+    """The global `DeviceClusterState` view of a sharded state, stacked or
+    on a mesh (gathered to `device`, None: its first position's), for
+    diagnostics and headroom reports; serving never needs it."""
+    sharded = from_mesh(sharded, device)
     sh = sharded.shards
     n, s_loc = sharded.global_server.shape
     c_loc, k = sh.chassis_servers.shape[1:]
@@ -218,31 +385,47 @@ def _pack_round(pending: np.ndarray, targets: np.ndarray, n_shards: int,
     return idx, attempt
 
 
-def _rebalance(pool: torch.Tensor) -> torch.Tensor:
+def _rebalance(pools: list, blocks: list) -> list:
     """Every shard's row set to the mean of the N rows, as the reference's
     compiled mean takes it: the rows added in index order, times 1/N
     rounded in the pool's dtype (its reciprocal a device-tensor division).
-    Each axis total is conserved up to that rounding (+inf axes stay
-    +inf)."""
-    acc = pool[0]
-    for row in pool[1:]:
+    On a mesh the rows are gathered to the first group's device in shard
+    order and each group is handed its rows back. Each axis total is
+    conserved up to that rounding (+inf axes stay +inf)."""
+    rows = pools[0] if len(pools) == 1 \
+        else torch.cat([p.to(pools[0].device) for p in pools])
+    acc = rows[0]
+    for row in rows[1:]:
         acc = acc + row
     one = acc.new_ones(())
-    mean = acc * (one / acc.new_full((), pool.shape[0]))
-    return mean.expand_as(pool).contiguous()
+    mean = (acc * (one / acc.new_full((), rows.shape[0]))).expand_as(rows)
+    if len(pools) == 1:
+        return [mean.contiguous()]
+    return [mean[blk].to(p.device, copy=True) for p, blk in zip(pools,
+                                                                 blocks)]
 
 
-def place_group_sharded(sharded: ShardedState, cores, is_uf, p95_eff, valid,
+def place_group_sharded(sharded, cores, is_uf, p95_eff, valid,
                         policy: SchedulerPolicy, cores_per_server: int, *,
-                        mem_gb=None, emer=None, caps=None, ecfg=None,
-                        registry=None):
+                        mem_gb=None, mesh=None,
+                        spill_rounds: int | None = None,
+                        rebalance: bool = True, emer=None, caps=None,
+                        ecfg=None, registry=None):
     """Place one arrival batch through the whole sharded protocol.
 
     cores/is_uf/p95_eff/mem_gb: (B,) host arrays or tensors, with B
     divisible by the shard count; `valid` (B,) on the host (False rows
-    are padding). Runs the home round and up to N-1 spillover rounds, so
-    an arrival fails only if every shard rejected it, with the pools
-    equalized before each spillover round.
+    are padding). Runs the home round and up to `spill_rounds` spillover
+    rounds (None: N-1, so an arrival fails only if every shard rejected
+    it), with the pools equalized before each spillover round unless
+    `rebalance` is False.
+
+    `sharded` is a stacked `ShardedState` (the batch-axis leg) or one on a
+    mesh (`device_put_sharded_state`, the mesh leg); `mesh`, a
+    `shard_mesh`, puts a stacked state on it first. On a mesh every
+    position walks its own shard on its own device, all launched before a
+    result is read back, and the state and emergency state come back on
+    the mesh.
 
     `emer`/`caps`/`ecfg` fuse the power-emergency sweep into the home
     round: `caps` is ``(pw, mask, ts)`` stacked (N, W, C/N) (the
@@ -254,10 +437,10 @@ def place_group_sharded(sharded: ShardedState, cores, is_uf, p95_eff, valid,
     apply them.
 
     The home round walks all B/N slots of every shard, padding included,
-    as the reference does; a spillover round walks only as many slots as
-    its fullest shard has pending arrivals (the empty slots after them
-    are no-ops), so on the card it costs launches in proportion to what
-    spilled.
+    as the reference does; a spillover round walks, in each group, only
+    as many slots as its fullest shard has pending arrivals (the empty
+    slots after them are no-ops), so on the card it costs launches in
+    proportion to what spilled.
 
     Returns ``(sharded_state, servers, info)``: servers (B,) global ids
     with FAIL_* codes (an arrival that failed everywhere reports the most
@@ -269,72 +452,91 @@ def place_group_sharded(sharded: ShardedState, cores, is_uf, p95_eff, valid,
 
     `registry`, a `repro_torch.obs.MetricsRegistry`, counts each round
     into ``serve_dispatch_total{kind=sharded_round|sharded_round_caps}``,
-    the reference's kinds: one count for every round this function runs
-    (a home round, and each spillover round it walks over the pending
-    slots only), so a round counts as one dispatch though on the card it
-    is many launches."""
+    the reference's kinds: one count for every round this function runs,
+    whatever its launches and devices."""
+    sharded, emer = _placed(mesh, sharded, emer)
     n = sharded.n_shards
     valid = np.asarray(valid, bool)
     b = len(valid)
     if b % n:
         raise ValueError(f"batch size {b} not divisible by {n} shards")
     b_loc = b // n
-    dtype = sharded.shards.free_cores.dtype
-    dev = sharded.shards.free_cores.device
-    cores_d = _as(cores, dtype, dev)
+    if spill_rounds is None:
+        spill_rounds = n - 1
+    groups, blocks = groups_of(sharded), shard_blocks(sharded)
+    devs = [g.pool.device for g in groups]
+    dtype = groups[0].shards.free_cores.dtype
+    cores_d = _as(cores, dtype, devs[0])
     mem_d = torch.zeros_like(cores_d) if mem_gb is None \
-        else _as(mem_gb, dtype, dev)
-    # the float operands, gathered per round as one (3, N, B/N) block
-    ops = torch.stack([cores_d, _as(p95_eff, dtype, dev), mem_d])
-    uf_d = _as(is_uf, torch.bool, dev)
+        else _as(mem_gb, dtype, devs[0])
+    # the float operands, gathered per round as one (3, k, slots) block,
+    # and the UF flags, each on every group's device
+    ops0 = torch.stack([cores_d, _as(p95_eff, dtype, devs[0]), mem_d])
+    uf0 = _as(is_uf, torch.bool, devs[0])
+    ops = [ops0.to(d) for d in devs]
+    ufs = [uf0.to(d) for d in devs]
     fused = emer is not None
     if fused:
-        pw, mask, ts = (_as(a, dt, dev).transpose(0, 1)
-                        for a, dt in zip(caps, (dtype, torch.bool, dtype)))
+        emers = groups_of(emer)
+        windows = [[_as(a[blk], dt, d).transpose(0, 1) for a, dt in zip(
+            caps, (dtype, torch.bool, dtype))] for blk, d in zip(blocks,
+                                                                  devs)]
 
     result = np.full(b, FAIL_CAPACITY, np.int64)
     pending = np.arange(b)[valid]
-    shards, pool = sharded.shards, sharded.pool
-    pool_start = pool.cpu().numpy()
+    shards = [g.shards for g in groups]
+    pools = [g.pool for g in groups]
+    pool_start = pool_left(sharded)
     has_pool = bool(np.isfinite(pool_start).any())
     info = {"rounds": 0, "spilled": 0, "spill_admitted": 0,
             "tokens_drawn": 0.0,
             "tokens_drawn_vec": np.zeros(pool_start.shape[-1])}
-    for rnd in range(n):
+    for rnd in range(spill_rounds + 1):
         if not len(pending) and not (rnd == 0 and fused):
             break
         if rnd > 0:
             info["spilled"] += len(pending)
-            pool = _rebalance(pool)
+            if rebalance:
+                pools = _rebalance(pools, blocks)
         idx, attempt = _pack_round(pending, route_shard(b, n, rnd), n,
                                    b_loc)
-        if rnd > 0:
-            # a spillover round walks only the slots that hold an arrival:
-            # the empty ones after them change no state and draw no token
-            width = int(attempt.sum(1).max())
-            idx, attempt = idx[:, :width], attempt[:, :width]
-        idx_d = torch.as_tensor(idx.astype(np.int64)).to(dev)
-        att_d = torch.as_tensor(attempt).to(dev)
-        c, p, m = ops[:, idx_d]
-        if rnd == 0 and fused:
-            emer, sw = _apply_cap_windows(ecfg, shards, emer, pw, mask, ts)
-            sweep = SweepCounters(*(x.cpu().numpy().sum(axis=0)
-                                    for x in sw))
         if registry is not None:
             registry.counter("serve_dispatch_total",
                              kind="sharded_round_caps" if rnd == 0 and fused
                              else "sharded_round").inc()
-        # an infinite pool draws nothing: the walk skips the compares
-        shards, srv, left = _walk(shards, c, uf_d[idx_d], p, att_d, m,
-                                  sharded.res_cap,
-                                  pool if has_pool else None, policy,
-                                  cores_per_server)
-        if has_pool:
-            pool = left
-        glob = torch.gather(sharded.global_server, 1,
-                            torch.clamp(srv, min=0))
-        out = torch.where(srv >= 0, glob, srv).cpu().numpy()[attempt]
-        arrivals = idx[attempt]
+        # launch every group's walk, then read the results back
+        outs, sweeps = [], []
+        for j, (g, blk, dev) in enumerate(zip(groups, blocks, devs)):
+            g_idx, g_att = idx[blk], attempt[blk]
+            if rnd > 0:
+                # a spillover round walks only the slots that hold an
+                # arrival: the empty ones after them change no state and
+                # draw no token
+                width = int(g_att.sum(1).max())
+                if not width:
+                    continue
+                g_idx, g_att = g_idx[:, :width], g_att[:, :width]
+            idx_d = torch.as_tensor(g_idx.astype(np.int64)).to(dev)
+            att_d = torch.as_tensor(g_att).to(dev)
+            c, p, m = ops[j][:, idx_d]
+            if rnd == 0 and fused:
+                emers[j], sw = _apply_cap_windows(ecfg, shards[j], emers[j],
+                                                  *windows[j])
+                sweeps.append(sw)
+            # an infinite pool draws nothing: the walk skips the compares
+            shards[j], srv, left = _walk(
+                shards[j], c, ufs[j][idx_d], p, att_d, m, g.res_cap,
+                pools[j] if has_pool else None, policy, cores_per_server)
+            if has_pool:
+                pools[j] = left
+            glob = torch.gather(g.global_server, 1, torch.clamp(srv, min=0))
+            outs.append((torch.where(srv >= 0, glob, srv), g_idx, g_att))
+        if sweeps:
+            sweep = SweepCounters(*(np.concatenate(
+                [x.cpu().numpy() for x in col]).sum(axis=0)
+                for col in zip(*sweeps)))
+        out = np.concatenate([o.cpu().numpy()[a] for o, _, a in outs])
+        arrivals = np.concatenate([i[a] for _, i, a in outs])
         admitted = out >= 0
         result[arrivals[admitted]] = out[admitted]
         if rnd > 0:
@@ -344,7 +546,9 @@ def place_group_sharded(sharded: ShardedState, cores, is_uf, p95_eff, valid,
         result[failed] = np.minimum(result[failed], out[~admitted])
         pending = np.sort(failed)
         info["rounds"] = rnd + 1
-    pool_end = pool.cpu().numpy()
+    new = regroup(sharded, [g._replace(shards=s, pool=p)
+                            for g, s, p in zip(groups, shards, pools)])
+    pool_end = pool_left(new)
     # the rebalance conserves each axis total, so the per-axis change is
     # what every round admitted; +inf (unbudgeted) axes report 0
     finite = np.isfinite(pool_start).all(axis=0)
@@ -352,27 +556,27 @@ def place_group_sharded(sharded: ShardedState, cores, is_uf, p95_eff, valid,
                      - np.where(finite, pool_end, 0.0).sum(axis=0), 0.0)
     info["tokens_drawn_vec"] = drawn
     info["tokens_drawn"] = float(drawn[0])
-    new = sharded._replace(shards=shards, pool=pool)
     if fused:
         # the home round always runs when fused: it must apply the queued
         # windows even with no arrival pending
-        return new, result, info, emer, sweep
+        return new, result, info, regroup(sharded, emers), sweep
     return new, result, info
 
 
-def split_departures(sharded: ShardedState, servers, cores, p95_eff, is_uf,
-                     mem_gb=None):
+def split_departures(sharded, servers, cores, p95_eff, is_uf, mem_gb=None):
     """Route a global departure batch to per-shard local batches (host
     numpy): ``(local_srv, cores, p95_eff, is_uf, mem_gb)`` stacked (N, B),
     padded with ``local_srv = -1``, each shard's rows in input order.
-    Negative server codes are dropped."""
+    Negative server codes are dropped. `sharded` is stacked or on a
+    mesh."""
     servers = np.asarray(servers)
     b = len(servers)
     n = sharded.n_shards
+    tables = groups_of(sharded)[0]       # the inverse tables, whole
     live = servers >= 0
     safe = np.where(live, servers, 0).astype(np.int64)
-    owner = np.where(live, sharded.shard_of_server.cpu().numpy()[safe], -1)
-    local = sharded.local_of_server.cpu().numpy()[safe]
+    owner = np.where(live, tables.shard_of_server.cpu().numpy()[safe], -1)
+    local = tables.local_of_server.cpu().numpy()[safe]
     srv_out = np.full((n, b), -1, np.int32)
     cores_out = np.zeros((n, b), np.float64)
     p95_out = np.zeros((n, b), np.float64)
@@ -406,29 +610,38 @@ def _flat(sh: DeviceClusterState) -> DeviceClusterState:
         sh.chassis_servers, sh.mem_nuf.reshape(-1))
 
 
-def consume_departures(sharded: ShardedState, local_srv, cores, p95_eff,
-                       is_uf, mem_gb=None) -> ShardedState:
+def consume_departures(sharded, local_srv, cores, p95_eff, is_uf,
+                       mem_gb=None):
     """Consume per-shard departure batches (the `split_departures`
-    layout): each shard's rows leave its own slice, through
-    `placement.remove_batch`'s order-fixed sums over flat ids (every
-    server and chassis sums only its own shard's rows, in input order),
-    and credit the freed ``(p95*cores, cores, GB)`` back to its own pool,
-    one axis at a time. The credits are summed on the host in the state's
-    dtype, in one fixed order, so the pools repeat bit for bit on the card
-    and the CPU."""
+    layout) on a stacked or a mesh state: each shard's rows leave its own
+    slice, on its own device, through `placement.remove_batch`'s
+    order-fixed sums over flat ids (every server and chassis sums only
+    its own shard's rows, in input order), and credit the freed
+    ``(p95*cores, cores, GB)`` back to its own pool, one axis at a time.
+    The credits are summed on the host in the state's dtype, in one fixed
+    order, so the pools repeat bit for bit on the card and the CPU."""
+    local_srv = np.asarray(local_srv)
+    cores = np.asarray(cores, np.float64)
+    p95_eff = np.asarray(p95_eff, np.float64)
+    is_uf = np.asarray(is_uf, bool)
+    mem = np.zeros_like(cores) if mem_gb is None \
+        else np.asarray(mem_gb, np.float64)
+    return regroup(sharded, [
+        _consume(g, local_srv[blk], cores[blk], p95_eff[blk], is_uf[blk],
+                 mem[blk])
+        for g, blk in zip(groups_of(sharded), shard_blocks(sharded))])
+
+
+def _consume(sharded: ShardedState, local_srv, cores, p95_eff, is_uf, mem):
+    """`consume_departures` on one group of shards."""
     sh = sharded.shards
     n, s_loc = sh.free_cores.shape
     dtype = sh.free_cores.dtype
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-    local_srv = np.asarray(local_srv)
     live = local_srv >= 0
     flat = (local_srv + np.arange(n)[:, None] * s_loc)[live]
-    cores = np.asarray(cores, np.float64)
-    p95_eff = np.asarray(p95_eff, np.float64)
-    mem = np.zeros_like(cores) if mem_gb is None \
-        else np.asarray(mem_gb, np.float64)
     st = remove_batch(_flat(sh), flat, cores[live], p95_eff[live],
-                      np.asarray(is_uf, bool)[live], mem_gb=mem[live])
+                      is_uf[live], mem_gb=mem[live])
     c_live = cores.astype(np_dtype) * live.astype(np_dtype)
     w = p95_eff.astype(np_dtype) * c_live
     credit = np.stack([w.sum(-1), c_live.sum(-1),
@@ -444,12 +657,11 @@ def consume_departures(sharded: ShardedState, local_srv, cores, p95_eff,
     return sharded._replace(shards=shards, pool=pool)
 
 
-def remove_sharded(sharded: ShardedState, servers, cores, p95_eff, is_uf,
-                   mem_gb=None) -> ShardedState:
+def remove_sharded(sharded, servers, cores, p95_eff, is_uf, mem_gb=None):
     """Sharded twin of `placement.remove_batch`: each departure leaves its
     owner shard (negative server codes are ignored) and credits its (R,)
-    demand back to that shard's pool. `split_departures` then
-    `consume_departures`."""
+    demand back to that shard's pool, on a stacked or a mesh state.
+    `split_departures` then `consume_departures`."""
     return consume_departures(
         sharded, *split_departures(sharded, servers, cores, p95_eff, is_uf,
                                    mem_gb))
@@ -486,12 +698,12 @@ def init_adaptive_sharded(cfg, n_chassis: int, n_shards: int,
         device=resolve_device(device))
 
 
-def split_caps(sharded: ShardedState, chassis, power_w, t):
+def split_caps(sharded, chassis, power_w, t):
     """Route a global power-sample batch to the dense per-shard
     `masked_step` operands ``(power (N, C/N), mask (N, C/N), t (N,
     C/N))``, host numpy. Chassis within the batch must be unique."""
     n = sharded.n_shards
-    c_loc = sharded.global_chassis.shape[1]
+    c_loc = groups_of(sharded)[0].global_chassis.shape[1]
     chassis = np.asarray(chassis, np.int64)
     pw = np.zeros((n, c_loc), np.float64)
     mask = np.zeros((n, c_loc), bool)
@@ -503,50 +715,83 @@ def split_caps(sharded: ShardedState, chassis, power_w, t):
     return pw, mask, ts
 
 
-def _window(sharded: ShardedState, chassis, power_w, t):
-    """A window's operands on the state's device, with each shard's
-    per-chassis, per-level commitments."""
-    sh = sharded.shards
-    dtype, dev = sh.free_cores.dtype, sh.free_cores.device
+def _windows(sharded, chassis, power_w, t) -> list:
+    """A window's operands for each group, on its device, with each
+    shard's per-chassis, per-level commitments: (group, rho_lv, pw, mask,
+    ts)."""
     pw, mask, ts = split_caps(sharded, chassis, power_w, t)
-    rho_lv = emergency.chassis_rho_levels(sh.gamma_nuf, sh.gamma_uf,
-                                          sh.chassis_servers)
-    return (rho_lv, _as(pw, dtype, dev), torch.as_tensor(mask).to(dev),
-            _as(ts, dtype, dev))
+    out = []
+    for g, blk in zip(groups_of(sharded), shard_blocks(sharded)):
+        sh = g.shards
+        dtype, dev = sh.free_cores.dtype, sh.free_cores.device
+        rho_lv = emergency.chassis_rho_levels(sh.gamma_nuf, sh.gamma_uf,
+                                              sh.chassis_servers)
+        out.append((g, rho_lv, _as(pw[blk], dtype, dev),
+                    torch.as_tensor(mask[blk]).to(dev),
+                    _as(ts[blk], dtype, dev)))
+    return out
 
 
-def apply_caps_sharded(cfg: emergency.EmergencyConfig, sharded: ShardedState,
-                       emer, chassis, power_w, t):
+def _outputs(parts: list):
+    """Per-group step outputs joined along the shard axis on the first
+    group's device (the host reads them)."""
+    return parts[0] if len(parts) == 1 \
+        else _join(parts, _first_tensor(parts[0]).device)
+
+
+def apply_caps_sharded(cfg: emergency.EmergencyConfig, sharded, emer,
+                       chassis, power_w, t, *, mesh=None):
     """Apply one unique-chassis power-sample window to the sharded
     emergency state: samples go to their owner shards and every shard
-    steps at once against its own aggregates (no cross-shard traffic).
-    Returns ``(emergency_state, EmergencyOutputs)`` with the shard axis."""
-    rho_lv, pw, mask, ts = _window(sharded, chassis, power_w, t)
-    return emergency.masked_step(cfg, emer, rho_lv, pw, mask, ts)
+    steps at once against its own aggregates (no cross-shard traffic), on
+    its own device on a mesh. Returns ``(emergency_state,
+    EmergencyOutputs)``: the state in the form of `sharded` (on its mesh
+    if it has one, `mesh` putting both there first), the outputs with the
+    shard axis."""
+    sharded, emer = _placed(mesh, sharded, emer)
+    steps = [emergency.masked_step(cfg, e, rho_lv, pw, mask, ts)
+             for e, (_, rho_lv, pw, mask, ts) in zip(
+                 groups_of(emer), _windows(sharded, chassis, power_w, t))]
+    return (regroup(sharded, [s[0] for s in steps]),
+            _outputs([s[1] for s in steps]))
 
 
 def apply_caps_ballooned_sharded(ecfg: emergency.EmergencyConfig,
                                  bcfg: ballooning.BallooningConfig,
-                                 sharded: ShardedState, emer, bst, chassis,
-                                 power_w, t):
+                                 sharded, emer, bst, chassis, power_w, t, *,
+                                 mesh=None):
     """`apply_caps_sharded` with the ballooning rung in front: each shard
     balloons its alarmed chassis against its own NUF memory ledger, then
     steps the emergency state on the adjusted draws. Returns
     ``(emergency_state, balloon_state, EmergencyOutputs,
-    BalloonOutputs)``, all with the shard axis."""
-    rho_lv, pw, mask, ts = _window(sharded, chassis, power_w, t)
-    bst, bout = ballooning.balloon_step(bcfg, ecfg, bst, rho_lv, pw,
-                                        sharded.shards.mem_nuf, mask)
-    emer, out = emergency.masked_step(ecfg, emer, rho_lv, bout.power_adj_w,
-                                      mask, ts)
-    return emer, bst, out, bout
+    BalloonOutputs)``, the states in the form of `sharded`, the outputs
+    with the shard axis."""
+    sharded, emer, bst = _placed(mesh, sharded, emer, bst)
+    steps = []
+    for e, b, (g, rho_lv, pw, mask, ts) in zip(
+            groups_of(emer), groups_of(bst),
+            _windows(sharded, chassis, power_w, t)):
+        b, bout = ballooning.balloon_step(bcfg, ecfg, b, rho_lv, pw,
+                                          g.shards.mem_nuf, mask)
+        e, out = emergency.masked_step(ecfg, e, rho_lv, bout.power_adj_w,
+                                       mask, ts)
+        steps.append((e, b, out, bout))
+    return (regroup(sharded, [s[0] for s in steps]),
+            regroup(sharded, [s[1] for s in steps]),
+            _outputs([s[2] for s in steps]), _outputs([s[3] for s in steps]))
 
 
-def apply_adaptive_sharded(cfg, sharded: ShardedState, ast, chassis,
-                           power_w):
+def apply_adaptive_sharded(cfg, sharded, ast, chassis, power_w, *,
+                           mesh=None):
     """Step every shard's adaptive controller on one unique-chassis sample
     window: each shard scores its own chassis and steps its own ratio.
-    Returns ``(adaptive_state, AdaptiveOutputs)`` with the shard axis."""
-    rho_lv, pw, mask, _ = _window(sharded, chassis, power_w,
-                                  np.zeros(len(np.asarray(chassis))))
-    return adaptive.adaptive_step(cfg, ast, rho_lv, pw, mask)
+    Returns ``(adaptive_state, AdaptiveOutputs)``, the state in the form
+    of `sharded`, the outputs with the shard axis."""
+    sharded, ast = _placed(mesh, sharded, ast)
+    steps = [adaptive.adaptive_step(cfg, a, rho_lv, pw, mask)
+             for a, (_, rho_lv, pw, mask, _) in zip(
+                 groups_of(ast), _windows(sharded, chassis, power_w,
+                                          np.zeros(len(np.asarray(
+                                              chassis)))))]
+    return (regroup(sharded, [s[0] for s in steps]),
+            _outputs([s[1] for s in steps]))

@@ -56,6 +56,30 @@ def test_forest_matches_oracle_and_pallas(trainer, kind, n_classes):
     np.testing.assert_array_equal(got.argmax(-1), pallas.argmax(-1))
 
 
+@pytest.mark.parametrize("trainer,kind", [(train_random_forest, "rf"),
+                                          (train_gradient_boosting, "gb")])
+def test_forest_predict_matches_reference(trainer, kind):
+    """The package's public call, `repro_torch.kernels.forest.
+    forest_predict`, against the reference's (its Pallas kernel in
+    interpret mode) at the bar of tests/test_kernels.py, on arrays and on
+    tensors."""
+    from repro_torch.kernels.forest import forest_predict as port_predict
+    from repro_torch.core.forest import ObliviousForest
+    x = RNG.normal(0, 1, (300, 7)).astype(np.float32)
+    y = RNG.integers(0, 3, 300)
+    y[x[:, 0] > 0.3] = 0
+    f = trainer(x, y, 3, n_trees=12, depth=4)
+    pf = ObliviousForest(*(getattr(f, k) for k in (
+        "feat_idx", "thresholds", "leaf_values", "kind", "n_features")))
+    want = np.asarray(forest_predict(f, x))
+    got = port_predict(pf, x, device="cpu")
+    assert got.shape == (300, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), f.predict_proba_np(x), atol=1e-5)
+    again = port_predict(pf, torch.as_tensor(x), device="cpu")
+    assert torch.equal(again, got)
+
+
 def test_stacked_sums_equal_per_forest():
     """One pass over a (NF, ...) stack equals NF single-forest passes."""
     x = RNG.normal(0, 1, (130, 5)).astype(np.float32)

@@ -2,7 +2,10 @@
 
 - Obs on decides as obs off, bit for bit, unsharded and at 1 and 4 shards,
   with the emergency, ballooning and adaptive planes, at 1 and 4 ingest
-  hosts; and the port's registry snapshot equals the reference
+  hosts; at 4 shards on a CPU mesh (one shard a position, the table
+  row-partitioned over it) the obs-on pipeline is held the same way to
+  the batch-axis pipeline with obs off, its pools too; and the port's
+  registry snapshot equals the reference
   pipeline's on the same stream in every counter and gauge, but for the
   span timings (held by name and count) and the float sums of the
   emergency and ballooning sweeps and of what derives from them (held to
@@ -35,7 +38,7 @@ from repro_torch.obs.recorder import verify_replay  # noqa: E402
 from repro_torch.serve import (PlaneBundle, ResourceVector,  # noqa: E402
                                ServeConfig, ServePipeline,
                                ShardedServeConfig, ShardedServePipeline,
-                               featurize_batch)
+                               featurize_batch, shard_table)
 from repro_torch.serve import adaptive as A  # noqa: E402
 from repro_torch.serve import ballooning as B  # noqa: E402
 from repro_torch.serve import emergency as E  # noqa: E402
@@ -106,9 +109,10 @@ def _port_planes(planes, budget, hold_on_stale=False):
 
 
 def _port(world, shards, hosts, planes=(), budget=False, obs=None,
-          hold_on_stale=False, chassis_w=None):
+          hold_on_stale=False, chassis_w=None, mesh=False):
     """A port pipeline on the CPU over the reference's table: unsharded
-    when `shards` is None; `chassis_w` a per-chassis watt budget."""
+    when `shards` is None; `chassis_w` a per-chassis watt budget; `mesh`,
+    the shards on a CPU mesh, the table row-partitioned over it."""
     pb = PlaneBundle(obs=obs, chassis_budget=None if chassis_w is None
                      else ResourceVector(watts=chassis_w),
                      **_port_planes(planes, budget, hold_on_stale))
@@ -119,10 +123,13 @@ def _port(world, shards, hosts, planes=(), budget=False, obs=None,
         cls, cfg = ShardedServePipeline, ShardedServeConfig(
             batch_size=CHUNK, n_ingest_hosts=hosts, n_shards=shards,
             planes=pb)
+    kw = {"mesh": ("cpu",) * shards} if mesh else {}
     pipe = cls.from_history(world["psvc"], world["hist"], world["labels"],
                             table_capacity=world["cap"], config=cfg,
-                            device="cpu", **KW)
+                            device="cpu", **KW, **kw)
     pipe.table = convert.table_from_numpy(table_dict(world["table"]), "cpu")
+    if mesh:
+        pipe.table = shard_table(pipe.table, pipe.mesh)
     return pipe
 
 
@@ -244,25 +251,28 @@ def _assert_snapshots_match(got, want):
 
 ALL = ("emergency", "ballooning", "adaptive")
 CASES = [
-    # (shards, hosts, planes, cluster budget)
-    (None, 1, ALL, False), (None, 4, ALL, False),
-    (1, 1, ALL, False), (1, 4, ALL, False),
-    (4, 1, ALL, True), (4, 4, ALL, True),
+    # (shards, hosts, planes, cluster budget, obs-on pipeline on a mesh)
+    (None, 1, ALL, False, False), (None, 4, ALL, False, False),
+    (1, 1, ALL, False, False), (1, 4, ALL, False, False),
+    (4, 1, ALL, True, False), (4, 4, ALL, True, False),
     # emergency alone: the cap windows ride in front of the placement
-    (None, 1, ("emergency",), False), (4, 1, ("emergency",), True),
+    (None, 1, ("emergency",), False, False),
+    (4, 1, ("emergency",), True, False),
+    (4, 1, ALL, True, True), (4, 4, ALL, True, True),
 ]
 
 
 @pytest.mark.parametrize(
-    "shards,hosts,planes,budget", CASES,
+    "shards,hosts,planes,budget,mesh", CASES,
     ids=[f"{'unsharded' if s is None else f'{s}shards'}-{h}hosts-"
-         f"{'all' if len(p) == 3 else p[0]}" for s, h, p, _ in CASES])
+         f"{'all' if len(p) == 3 else p[0]}{'-mesh' if m else ''}"
+         for s, h, p, _, m in CASES])
 def test_obs_is_decision_neutral_and_snapshots_like_reference(
-        world, rserve, shards, hosts, planes, budget):
+        world, rserve, shards, hosts, planes, budget, mesh):
     off = _port(world, shards, hosts, planes, budget)
     want_res, want_alarms, samples = _stream(off, PT, hosts)
     obs = P.Observability.full()
-    on = _port(world, shards, hosts, planes, budget, obs=obs)
+    on = _port(world, shards, hosts, planes, budget, obs=obs, mesh=mesh)
     got_res, got_alarms, _ = _stream(on, PT, hosts, samples)
     _assert_results_equal(got_res, want_res)
     assert got_alarms == want_alarms
@@ -272,6 +282,14 @@ def test_obs_is_decision_neutral_and_snapshots_like_reference(
                                   np.ravel(off.adaptive_ratio))
     for a, b in zip(on.state, off.state):
         assert torch.equal(a, b)
+    if shards is not None:
+        np.testing.assert_array_equal(on.pool_left_vec(),
+                                      off.pool_left_vec())
+        for x, y in ((on.emergency, off.emergency),
+                     (on.balloon_state, off.balloon_state),
+                     (on.adaptive_state, off.adaptive_state)):
+            for a, b in zip(x or (), y or ()):
+                assert torch.equal(a, b)
     # the reference pipeline with its own plane on the same stream
     from repro.sim import telemetry as RT
     robs = R.Observability.full()

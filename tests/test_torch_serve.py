@@ -3,7 +3,8 @@ reference, on the CPU: label a history, carry the JAX
 `PredictionService` and `SubscriptionTable` across through
 `repro_torch.convert`, build both `ServePipeline.from_history`, serve,
 depart some arrivals and serve again. Every decision column must be
-equal; the featurizer and table must match the reference.
+equal; the featurizer and table must match the reference, a table
+row-partitioned over a CPU mesh (`shard_table`) too.
 """
 import numpy as np
 import pytest
@@ -24,8 +25,9 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import criticality as PC  # noqa: E402
 from repro_torch.serve import (FAIL_POWER, PlaneBundle,  # noqa: E402
                                ResourceVector, ServeConfig, ServePipeline,
-                               featurize_batch, p95_bucket_torch,
-                               table_from_history, update_table)
+                               ShardedTable, SubscriptionTable,
+                               featurize_batch, p95_bucket_torch, shard_mesh,
+                               shard_table, table_from_history, update_table)
 from repro_torch.serve import emergency as PE  # noqa: E402
 from repro_torch.serve import mitigation as PM  # noqa: E402
 from repro_torch.sim import telemetry as PT  # noqa: E402
@@ -93,6 +95,49 @@ def test_out_of_range_ids_fall_back_and_drop(world, rserve):
                              jnp.full(3, 50.0), jnp.full(3, 30.0))
     for f, a, w in zip(t2._fields, t2, j2):
         np.testing.assert_array_equal(a.numpy(), np.asarray(w), err_msg=f)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_shard_table_matches_reference_padded(world, rserve, n):
+    """`shard_table` over a CPU mesh of n positions pads the capacity up to
+    a multiple of n; `featurize_batch` equals the reference's on its table
+    padded the same way (the reference's own `shard_table` needs n JAX
+    devices), for ids inside, in the padded window, past it and negative;
+    and `update_table` stores an id of the padded window, as the
+    reference does, rather than dropping it."""
+    cap = -(-world["cap"] // 4) * 4 + 1          # 4k + 1 rows: a window
+    ref = rserve.table_from_history(world["hist"], world["labels"], cap)
+    padded = -(-cap // n) * n
+    rpad = type(ref)(*(jnp.pad(a, [(0, padded - cap)]
+                               + [(0, 0)] * (a.ndim - 1)) for a in ref))
+    table = shard_table(convert.table_from_numpy(table_dict(ref), "cpu"),
+                        shard_mesh(n, devices=("cpu",) * n))
+    assert isinstance(table, ShardedTable) and len(table.blocks) == n
+    assert table.capacity == padded > cap and padded % n == 0
+    assert {b.capacity for b in table.blocks} == {padded // n}
+
+    def check(table, rtable):
+        batch = arrival_batch(world["arrivals"])
+        batch.subscription[:4] = [cap, padded - 1, padded, -1]
+        got = featurize_batch(table, batch, pad_to=len(batch) + 3)
+        want = rserve.featurize_batch(rtable, batch, pad_to=len(batch) + 3)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return got
+    check(table, rpad)
+    ids = [cap, 3, padded + 1, cap, -2]
+    cols = (np.ones(5), np.full(5, 200.0), np.full(5, 50.0),
+            np.full(5, 30.0))
+    table = update_table(table, torch.tensor(ids),
+                         *(torch.tensor(c, dtype=torch.float32)
+                           for c in cols))
+    rpad = rserve.update_table(rpad, jnp.asarray(ids),
+                               *(jnp.asarray(c, jnp.float32) for c in cols))
+    rows = SubscriptionTable(*(torch.cat(col) for col in zip(*table.blocks)))
+    for f, a, w in zip(rows._fields, rows, rpad):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(w), err_msg=f)
+    assert rows.count[cap] == 2
+    x = check(table, rpad)
+    assert x[0, 2] == 2.0                 # the window row now counts 2 VMs
 
 
 def test_p95_bucket_boundaries(rserve):

@@ -6,8 +6,12 @@ on the CPU.
   is the unsharded state.
 - Four shards under a `cluster_budget` decide as the reference's sharded
   pipeline: servers, pools and spill counters; a warm start nets its
-  committed rho out of the pool; misconfigurations raise; `state` and
-  `res_cap` read the shards. Retargeting the pools after a shard has
+  committed rho out of the pool; misconfigurations raise, the reference's
+  refusals of the mesh knobs among them; `state` and `res_cap` read the
+  shards. The `spill_rounds` and `rebalance_tokens` knobs give the
+  reference pipeline's decisions, pools and spill counters, on the batch
+  axis and on a CPU mesh (`mesh=shard_mesh(4, devices=("cpu",) * 4)`,
+  the table row-partitioned over it). Retargeting the pools after a shard has
   committed past its slice of the budget over-grants the others, in the
   reference as in the port (a known defect, kept for parity).
 - The streamed loop (`submit_to`/`depart_to`/`cap_to`) with the emergency,
@@ -41,7 +45,8 @@ from repro_torch.core.placement import SchedulerPolicy  # noqa: E402
 from repro_torch.serve import (FAIL_TOKENS, PlaneBundle,  # noqa: E402
                                ResourceVector, ServeConfig, ServePipeline,
                                ShardedServeConfig, ShardedServePipeline,
-                               device_state, rho_pool_from_budget,
+                               ShardedTable, device_state,
+                               rho_pool_from_budget, shard_mesh, shard_table,
                                table_from_history)
 from repro_torch.serve import adaptive as A  # noqa: E402
 from repro_torch.serve import ballooning as B  # noqa: E402
@@ -79,13 +84,21 @@ def world(rserve):
                 cap=max(v.subscription for v in pop.vms) + 64)
 
 
-def _port(world, cls=ShardedServePipeline, config=None, table=None):
+def _port(world, cls=ShardedServePipeline, config=None, table=None,
+          mesh=None):
+    """A port pipeline on the CPU, on `mesh` when given; `table`, a
+    reference table, replaces its own (row-partitioned over the mesh as
+    its own was)."""
     pipe = cls.from_history(
         convert.service_from_numpy(service_dict(world["svc"])),
         world["hist"], world["labels"], table_capacity=world["cap"],
-        config=config, device="cpu", **KW)
+        config=config, device="cpu", **KW,
+        **({} if mesh is None else {"mesh": mesh}))
     if table is not None:
         pipe.table = convert.table_from_numpy(table_dict(table), "cpu")
+        if isinstance(getattr(pipe, "mesh", None), tuple) \
+                and pipe.config.shard_table:
+            pipe.table = shard_table(pipe.table, pipe.mesh)
     return pipe
 
 
@@ -178,10 +191,66 @@ def test_sharded_config_refuses_misuse(world):
         _port(world, config=ShardedServeConfig(batch_size=30, n_shards=4))
     with pytest.raises(ValueError, match="divide"):
         _port(world, config=ShardedServeConfig(batch_size=30, n_shards=3))
-    # one card has no mesh: the reference's mesh knobs are not accepted
-    for knob in ("use_shard_map", "shard_table"):
-        with pytest.raises(TypeError, match=knob):
-            ShardedServeConfig(n_shards=2, **{knob: True})
+    # the reference's refusals of the mesh knobs: use_shard_map=True wants
+    # a card a shard (this machine has fewer than 4), and a mesh one
+    # device a shard
+    with pytest.raises(RuntimeError, match="use_shard_map=True needs"):
+        _port(world, config=ShardedServeConfig(batch_size=32, n_shards=4,
+                                               use_shard_map=True))
+    with pytest.raises(ValueError, match="takes 4 devices, got 2"):
+        _port(world, config=ShardedServeConfig(batch_size=32, n_shards=4),
+              mesh=("cpu",) * 2)
+    with pytest.raises(ValueError, match="use_shard_map"):
+        ShardedServeConfig(n_shards=2, use_shard_map="always")
+    with pytest.raises(ValueError, match="spill_rounds"):
+        ShardedServeConfig(n_shards=2, spill_rounds=-1)
+    # the default and "auto" run the batch axis on the CPU; an explicit
+    # mesh is taken
+    for knob in ({}, {"use_shard_map": "auto"}):
+        pipe = _port(world, config=ShardedServeConfig(batch_size=32,
+                                                      n_shards=4, **knob))
+        assert pipe.mesh is None and not isinstance(pipe.table, ShardedTable)
+    pipe = _port(world, config=ShardedServeConfig(batch_size=32, n_shards=4),
+                 mesh=("cpu",) * 4)
+    assert pipe.mesh == shard_mesh(4, devices=("cpu",) * 4)
+    assert isinstance(pipe.table, ShardedTable)
+
+
+@pytest.mark.parametrize("on_mesh,table_on_mesh",
+                         [(False, False), (True, True), (True, False)],
+                         ids=["batch", "mesh4", "mesh4_whole_table"])
+@pytest.mark.parametrize("spill_rounds,rebalance", [(0, True), (1, False)],
+                         ids=["home_only", "one_spill_no_rebalance"])
+def test_pipeline_knobs_match_reference(world, rserve, spill_rounds,
+                                        rebalance, on_mesh, table_on_mesh):
+    """`spill_rounds` and `rebalance_tokens` on the pipeline at 4 shards
+    under the cluster budget: the reference pipeline's decisions, pools
+    left and spill counters, on either leg; on the mesh the state lies on
+    the mesh, and the table too unless `shard_table=False` keeps it whole
+    on the pipeline's device."""
+    knobs = dict(spill_rounds=spill_rounds, rebalance_tokens=rebalance,
+                 shard_table=table_on_mesh)
+    ref = _ref(world, rserve, "ShardedServePipeline",
+               rserve.ShardedServeConfig(
+                   kernel="ref", batch_size=32, n_shards=4, **knobs,
+                   planes=rserve.PlaneBundle(
+                       cluster_budget=RVector(watts=CLUSTER_W))))
+    pipe = _port(world, config=ShardedServeConfig(
+        batch_size=32, n_shards=4, **knobs, planes=PlaneBundle(
+            cluster_budget=ResourceVector(watts=CLUSTER_W))),
+        table=ref.table, mesh=("cpu",) * 4 if on_mesh else None)
+    assert (pipe.mesh is not None) == on_mesh
+    assert isinstance(pipe.table, ShardedTable) == table_on_mesh
+    from repro.sim.telemetry import arrival_batch
+    b = arrival_batch(world["arrivals"], np.arange(160))
+    got, want = pipe.serve(b), ref.serve(b)
+    _assert_results_equal(got, want)
+    np.testing.assert_array_equal(pipe.pool_left_vec(), ref.pool_left_vec())
+    assert pipe.spill_info == ref.spill_info
+    assert (pipe.spill_info["spilled"] > 0) == (spill_rounds > 0)
+    for f, a, b in zip(pipe.global_state()._fields, pipe.global_state(),
+                       ref.global_state()):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f)
 
 
 def test_state_and_caps_read_the_shards(world):

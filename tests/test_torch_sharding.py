@@ -20,6 +20,12 @@ and its pooled walk (`serve.placement`) against the JAX package's
   shard, their float fields within rounding of it (the reference sums a
   chassis' blades in XLA's order), and the emergency and balloon states
   are bit-equal to the port's unsharded steps.
+- The mesh leg (one shard a position of `shard_mesh(n, devices=("cpu",)
+  * n)`, n 2 and 4, or 3 for the planes) runs the cases above that name
+  it: its servers, info, states, pools and plane outputs are bit-equal to
+  the batch-axis leg's on the same inputs, and so held to the reference
+  as that leg is. `spill_rounds` 0, 1 and None and `rebalance=False` give
+  the reference's servers, info and states on both legs.
 
 The reference's `tests/test_serve_sharded.py` fails collection on the
 installed jax, so its module comes through `_torch_parity.reference_serve`.
@@ -122,6 +128,49 @@ def _assert_info_equal(got, want):
                                       np.asarray(want[k]), err_msg=k)
 
 
+def _mesh(n):
+    """The mesh leg on the CPU: one position a shard, one device."""
+    return S.shard_mesh(n, devices=("cpu",) * n)
+
+
+def _legs(shards, mesh_shards=(2, 4)):
+    """(n, on_mesh) cases: the batch-axis leg at each of `shards` (ids as
+    before the mesh leg), the mesh leg at each of `mesh_shards`."""
+    return [pytest.param(n, False, id=str(n)) for n in shards] + [
+        pytest.param(n, True, id=f"mesh{n}") for n in mesh_shards]
+
+
+def _assert_same(got, want, what=""):
+    """Two results of the port bit-equal, leaf by leaf (NamedTuples of
+    tensors, arrays and numbers, nested)."""
+    if isinstance(got, dict):
+        _assert_info_equal(got, want)
+    elif torch.is_tensor(got):
+        assert torch.equal(got, want), what
+    elif isinstance(got, tuple):
+        assert type(got) is type(want) and len(got) == len(want), what
+        for k, (a, b) in enumerate(zip(got, want)):
+            _assert_same(a, b, f"{what}[{k}]")
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def _place(on_mesh, psh, *args, **kw):
+    """`place_group_sharded` on the batch axis, or on the CPU mesh too,
+    whose result, stacked back (`from_mesh`), must be bit-equal to the
+    batch-axis leg's on the same inputs; returns the leg's result in
+    stacked form."""
+    want = S.place_group_sharded(psh, *args, **kw)
+    if not on_mesh:
+        return want
+    got = S.place_group_sharded(psh, *args, mesh=_mesh(psh.n_shards), **kw)
+    assert isinstance(got[0], S.OnMesh)
+    assert got[0].devices == (torch.device("cpu"),) * psh.n_shards
+    got = tuple(S.from_mesh(x) for x in got)
+    _assert_same(got, want, "mesh leg against the batch-axis leg")
+    return got
+
+
 # --- host helpers ---------------------------------------------------------
 
 def test_host_helpers_match_reference(rs):
@@ -167,8 +216,8 @@ def test_split_caps_and_departures_match_reference(rs, rp):
         np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("n", SHARDS)
-def test_shard_and_unshard_match_reference(rs, rp, n):
+@pytest.mark.parametrize("n,on_mesh", _legs(SHARDS))
+def test_shard_and_unshard_match_reference(rs, rp, n, on_mesh):
     st = _loaded(4)
     cap = np.random.default_rng(n).uniform(20, 80, (12, 3))
     for kw in (dict(), dict(rho_cap=cap[:, 0], pool_total=300.0),
@@ -176,7 +225,13 @@ def test_shard_and_unshard_match_reference(rs, rp, n):
                                                       2000.0]))):
         with jax.enable_x64(True):
             rsh, psh = _pair(rp, st, torch.float64, n, **kw)
-            _assert_state_equal(psh, rsh, f"{n} shards {sorted(kw)}")
+            if on_mesh:
+                mesh = S.device_put_sharded_state(psh, _mesh(n))
+                assert [g.n_shards for g in mesh.groups] == [1] * n
+                _assert_same(S.from_mesh(mesh), psh, "mesh round trip")
+                psh = mesh
+            _assert_state_equal(S.from_mesh(psh), rsh,
+                                f"{n} shards {sorted(kw)}")
             back, want = S.unshard_state(psh), rs.unshard_state(rsh)
             for f in want._fields:
                 np.testing.assert_array_equal(
@@ -191,11 +246,12 @@ def test_shard_and_unshard_match_reference(rs, rp, n):
 
 # --- the protocol in float64 ----------------------------------------------
 
-@pytest.mark.parametrize("n", SHARDS)
+@pytest.mark.parametrize("n,on_mesh", _legs(SHARDS))
 @pytest.mark.parametrize("policy", POLICIES, ids=POLICY_IDS)
-def test_place_group_sharded_float64_bit_equal(rs, rp, policy, n):
+def test_place_group_sharded_float64_bit_equal(rs, rp, policy, n, on_mesh):
     """Unbudgeted and under a pool that runs dry mid-batch: servers, info,
-    every state leaf and the pools equal the reference's bit for bit."""
+    every state leaf and the pools equal the reference's bit for bit, on
+    either leg."""
     st = _loaded(1)
     cores, uf, p95, valid = _batch(2)
     valid[5::11] = False                      # padding rows in the batch
@@ -206,9 +262,9 @@ def test_place_group_sharded_float64_bit_equal(rs, rp, policy, n):
             rsh, want, rinfo = rs.place_group_sharded(
                 rsh, cores, uf, p95, valid, RPolicy(**policy), 40,
                 mem_gb=mem)
-        psh, got, info = S.place_group_sharded(
-            psh, cores, uf, p95, valid, SchedulerPolicy(**policy), 40,
-            mem_gb=mem)
+        psh, got, info = _place(
+            on_mesh, psh, cores, uf, p95, valid, SchedulerPolicy(**policy),
+            40, mem_gb=mem)
         np.testing.assert_array_equal(got, want)
         _assert_info_equal(info, rinfo)
         _assert_state_equal(psh, rsh, f"pool {pool}")
@@ -216,8 +272,8 @@ def test_place_group_sharded_float64_bit_equal(rs, rp, policy, n):
             assert info["spilled"] > 0
 
 
-@pytest.mark.parametrize("n", [3, 4])
-def test_tiny_pool_fails_tokens_and_holds_the_budget(rs, rp, n):
+@pytest.mark.parametrize("n,on_mesh", _legs([3, 4], [4]))
+def test_tiny_pool_fails_tokens_and_holds_the_budget(rs, rp, n, on_mesh):
     st = _loaded(1)
     cores, uf, p95, valid = _batch(2)
     pool_total = 15.0
@@ -225,8 +281,8 @@ def test_tiny_pool_fails_tokens_and_holds_the_budget(rs, rp, n):
         rsh, psh = _pair(rp, st, torch.float64, n, pool_total=pool_total)
         rsh, want, rinfo = rs.place_group_sharded(
             rsh, cores, uf, p95, valid, RPolicy(alpha=0.8), 40)
-    psh, got, info = S.place_group_sharded(
-        psh, cores, uf, p95, valid, SchedulerPolicy(alpha=0.8), 40)
+    psh, got, info = _place(on_mesh, psh, cores, uf, p95, valid,
+                            SchedulerPolicy(alpha=0.8), 40)
     np.testing.assert_array_equal(got, want)
     _assert_info_equal(info, rinfo)
     _assert_state_equal(psh, rsh)
@@ -278,24 +334,58 @@ def test_batch_must_divide_by_shards(rp):
         S.place_group_sharded(psh, *_batch(0, 30), SchedulerPolicy(), 40)
 
 
-@pytest.mark.parametrize("n", [2, 3, 4])
-def test_place_group_sharded_float32(rs, rp, n):
+@pytest.mark.parametrize("n,on_mesh", _legs([2, 3, 4]))
+def test_place_group_sharded_float32(rs, rp, n, on_mesh):
     """float32, the serving dtype: decisions, info and states equal the
-    reference's. The pools are bit-equal too: the walk draws one
-    subtraction an admission and the rebalance adds the rows in index
-    order, which is the order XLA's reduction takes at these sizes."""
+    reference's, on either leg. The pools are bit-equal too: the walk
+    draws one subtraction an admission and the rebalance adds the rows in
+    index order, which is the order XLA's reduction takes at these
+    sizes."""
     st = _loaded(6, n_servers=48, per_chassis=4, n=200)
     cores, uf, p95, valid = _batch(8)
     rsh, psh = _pair(rp, st, torch.float32, n,
                      pool_total=np.array([70.0, 120.0, np.inf]))
     rsh, want, rinfo = rs.place_group_sharded(rsh, cores, uf, p95, valid,
                                               RPolicy(alpha=0.8), 40)
-    psh, got, info = S.place_group_sharded(
-        psh, cores, uf, p95, valid, SchedulerPolicy(alpha=0.8), 40)
+    psh, got, info = _place(on_mesh, psh, cores, uf, p95, valid,
+                            SchedulerPolicy(alpha=0.8), 40)
     np.testing.assert_array_equal(got, want)
     assert info["spilled"] > 0 and (got == P.FAIL_TOKENS).any()
     _assert_info_equal(info, rinfo)
     _assert_state_equal(psh, rsh)
+
+
+KNOBS = [(0, True), (1, True), (None, False), (1, False)]
+
+
+@pytest.mark.parametrize("on_mesh", [False, True], ids=["batch", "mesh4"])
+@pytest.mark.parametrize("spill_rounds,rebalance", KNOBS,
+                         ids=["home_only", "one_spill", "no_rebalance",
+                              "one_spill_no_rebalance"])
+def test_spill_rounds_and_rebalance_match_reference(rs, rp, spill_rounds,
+                                                    rebalance, on_mesh):
+    """The protocol's two knobs at 4 shards under a pool that spills:
+    `spill_rounds` 0 (the home round alone), 1 or None (N-1), and
+    `rebalance=False` (each pool left as its shard drew it) give the
+    reference's servers, info, states and pools bit for bit in float64,
+    on either leg."""
+    st = _loaded(1)
+    cores, uf, p95, valid = _batch(2)
+    kw = dict(mem_gb=cores * 4.0, spill_rounds=spill_rounds,
+              rebalance=rebalance)
+    with jax.enable_x64(True):
+        rsh, psh = _pair(rp, st, torch.float64, 4,
+                         pool_total=np.array([60.0, 150.0, np.inf]))
+        rsh, want, rinfo = rs.place_group_sharded(
+            rsh, cores, uf, p95, valid, RPolicy(alpha=0.8), 40, **kw)
+    psh, got, info = _place(on_mesh, psh, cores, uf, p95, valid,
+                            SchedulerPolicy(alpha=0.8), 40, **kw)
+    np.testing.assert_array_equal(got, want)
+    _assert_info_equal(info, rinfo)
+    _assert_state_equal(psh, rsh)
+    rounds = 1 + (3 if spill_rounds is None else spill_rounds)
+    assert info["rounds"] == rounds
+    assert (info["spilled"] > 0) == (spill_rounds != 0)
 
 
 @pytest.mark.parametrize("policy", POLICIES, ids=POLICY_IDS)
@@ -355,6 +445,17 @@ def _windows(n_chassis, rng, w=3):
 
 
 def test_fused_home_round_matches_reference_and_standalone_windows(rs, rp):
+    _fused_home_round(rs, rp, on_mesh=False)
+
+
+def test_fused_home_round_on_a_mesh(rs, rp):
+    """The case above on a CPU mesh of 2 positions, held to the batch
+    axis bit for bit: the fused round (state, servers, emergency state and
+    sweep) and the standalone windows of `apply_caps_sharded(mesh=)`."""
+    _fused_home_round(rs, rp, on_mesh=True)
+
+
+def _fused_home_round(rs, rp, on_mesh):
     re = reference_serve("emergency")
     st = _loaded(7, n_servers=48, per_chassis=12, n=300)
     cores, uf, p95, valid = _batch(3)
@@ -369,8 +470,8 @@ def test_fused_home_round_matches_reference_and_standalone_windows(rs, rp):
         rsh, cores, uf, p95, valid, RPolicy(alpha=0.8), 40, emer=remer,
         caps=tuple(caps), ecfg=rcfg)
     pemer = S.init_emergency_sharded(4, 2, device="cpu")
-    psh2, got, info, pemer2, sweep = S.place_group_sharded(
-        psh, cores, uf, p95, valid, SchedulerPolicy(alpha=0.8), 40,
+    psh2, got, info, pemer2, sweep = _place(
+        on_mesh, psh, cores, uf, p95, valid, SchedulerPolicy(alpha=0.8), 40,
         emer=pemer, caps=tuple(caps), ecfg=cfg)
     np.testing.assert_array_equal(got, want)
     _assert_info_equal(info, rinfo)
@@ -381,17 +482,32 @@ def test_fused_home_round_matches_reference_and_standalone_windows(rs, rp):
     assert int(sweep.samples) == int(rsweep.samples)
     np.testing.assert_allclose(sweep.cut_w, rsweep.cut_w, rtol=1e-6)
     # W standalone windows ahead of a plain placement: the same states
+    mesh = _mesh(2) if on_mesh else None
     solo = pemer
     for w in wins:
-        solo, _ = S.apply_caps_sharded(cfg, psh, solo, *w)
-    psh3, got3, _ = S.place_group_sharded(
-        psh, cores, uf, p95, valid, SchedulerPolicy(alpha=0.8), 40)
+        solo, out = S.apply_caps_sharded(cfg, psh, solo, *w, mesh=mesh)
+        assert isinstance(solo, S.OnMesh) == on_mesh
+        assert out.alarm.shape == (2, 2)
+    psh3, got3, _ = _place(on_mesh, psh, cores, uf, p95, valid,
+                           SchedulerPolicy(alpha=0.8), 40)
     np.testing.assert_array_equal(got3, got)
+    solo = S.from_mesh(solo)
     for f, a, b in zip(solo._fields, solo, pemer2):
         assert torch.equal(a, b), f
 
 
 def test_remove_sharded_round_trips_state_and_pool(rs, rp):
+    _remove_round_trip(rs, rp, on_mesh=False)
+
+
+def test_remove_sharded_on_a_mesh(rs, rp):
+    """The round trip above on a CPU mesh of 4 positions: placement and
+    departures bit-equal to the batch axis's, the state staying on the
+    mesh."""
+    _remove_round_trip(rs, rp, on_mesh=True)
+
+
+def _remove_round_trip(rs, rp, on_mesh):
     st = _loaded(6)
     pool_total = 200.0
     cores, uf, p95, valid = _batch(9, 16)
@@ -402,11 +518,17 @@ def test_remove_sharded_round_trips_state_and_pool(rs, rp):
                                               RPolicy(alpha=0.8), 40,
                                               mem_gb=mem)
         rsh = rs.remove_sharded(rsh, want, cores, p95, uf, mem_gb=mem)
-    psh, got, _ = S.place_group_sharded(psh0, cores, uf, p95, valid,
-                                        SchedulerPolicy(alpha=0.8), 40,
-                                        mem_gb=mem)
+    psh, got, _ = _place(on_mesh, psh0, cores, uf, p95, valid,
+                         SchedulerPolicy(alpha=0.8), 40, mem_gb=mem)
     np.testing.assert_array_equal(got, want)
+    if on_mesh:
+        on = S.remove_sharded(S.device_put_sharded_state(psh, _mesh(4)),
+                              got, cores, p95, uf, mem_gb=mem)
+        assert isinstance(on, S.OnMesh)
+        on = S.from_mesh(on)
     psh = S.remove_sharded(psh, got, cores, p95, uf, mem_gb=mem)
+    if on_mesh:
+        _assert_same(on, psh, "departures on the mesh")
     for f in psh.shards._fields:
         np.testing.assert_allclose(getattr(psh.shards, f).numpy(),
                                    getattr(psh0.shards, f).numpy(),
@@ -439,8 +561,12 @@ def _close(got, want, rtol, what):
             np.testing.assert_array_equal(a, b, err_msg=f"{what} {f}")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_sharded_planes_match_reference(rs, rp, dtype):
+@pytest.mark.parametrize("dtype,on_mesh", [
+    pytest.param(torch.float32, False, id="dtype0"),
+    pytest.param(torch.float64, False, id="dtype1"),
+    pytest.param(torch.float32, True, id="mesh3-float32"),
+    pytest.param(torch.float64, True, id="mesh3-float64")])
+def test_sharded_planes_match_reference(rs, rp, dtype, on_mesh):
     """Four windows through the sharded emergency, balloon-then-cap and
     adaptive steps at 3 shards. Against the reference, per shard: alarms,
     p-states, RAPL, balloon inflations, window counts and every ratio
@@ -448,7 +574,9 @@ def test_sharded_planes_match_reference(rs, rp, dtype):
     float64, 1e-6 in float32), since the reference sums each chassis'
     blades in XLA's order and the port in numpy's (Queue 3). Against the
     port's own unsharded steps the emergency and balloon states are
-    bit-equal: the shard axis changes no chassis' arithmetic."""
+    bit-equal: the shard axis changes no chassis' arithmetic. On a CPU
+    mesh of 3 positions every output and state is bit-equal to the batch
+    axis's."""
     re, rb = reference_serve("emergency"), reference_serve("ballooning")
     ra = reference_serve("adaptive")
     st = _loaded(8, n_servers=48, per_chassis=4, n=400)
@@ -472,6 +600,9 @@ def test_sharded_planes_match_reference(rs, rp, dtype):
         pbst = S.init_ballooning_sharded(12, 3, dtype, "cpu")
         past = S.init_adaptive_sharded(acfg, 12, 3, dtype, "cpu")
         pemer2 = pemer
+        mesh = _mesh(3) if on_mesh else None
+        memer = memer2 = pemer
+        mbst, mast = pbst, past
         flat = S.unshard_state(psh)
         rho_lv = E.chassis_rho_levels(flat.gamma_nuf, flat.gamma_uf,
                                       flat.chassis_servers)
@@ -479,8 +610,8 @@ def test_sharded_planes_match_reference(rs, rp, dtype):
         ubst = B.init_ballooning(12, dtype=dtype, device="cpu")
         for w in _windows(12, np.random.default_rng(11), 4):
             remer, rout = rs.apply_caps_sharded(recfg, rsh, remer, *w)
-            pemer, out = S.apply_caps_sharded(ecfg, psh, pemer, *w)
-            _close(out, rout, rtol, "caps")
+            pemer, cout = S.apply_caps_sharded(ecfg, psh, pemer, *w)
+            _close(cout, rout, rtol, "caps")
             remer2, rbst, rout, rbout = rs.apply_caps_ballooned_sharded(
                 recfg, rbcfg, rsh, remer2, rbst, *w)
             pemer2, pbst, out, bout = S.apply_caps_ballooned_sharded(
@@ -490,12 +621,26 @@ def test_sharded_planes_match_reference(rs, rp, dtype):
             rast, raout = rs.apply_adaptive_sharded(racfg, rsh, rast, *w[:2])
             past, aout = S.apply_adaptive_sharded(acfg, psh, past, *w[:2])
             _close(aout, raout, rtol, "adaptive")
+            if on_mesh:
+                memer, mout = S.apply_caps_sharded(ecfg, psh, memer, *w,
+                                                   mesh=mesh)
+                memer2, mbst, mout2, mbout = S.apply_caps_ballooned_sharded(
+                    ecfg, bcfg, psh, memer2, mbst, *w, mesh=mesh)
+                mast, maout = S.apply_adaptive_sharded(acfg, psh, mast,
+                                                       *w[:2], mesh=mesh)
+                assert isinstance(memer, S.OnMesh)
+                _assert_same((mout, mout2, mbout, maout),
+                             (cout, out, bout, aout), "mesh outputs")
             # the same window unsharded, on the port's own steps
             pw, mask, ts = E.scatter_samples(12, *w, dtype, "cpu")
             ubst, ubout = B.balloon_step(bcfg, ecfg, ubst, rho_lv, pw,
                                          flat.mem_nuf, mask)
             uemer, _ = E.masked_step(ecfg, uemer, rho_lv, ubout.power_adj_w,
                                      mask, ts)
+        if on_mesh:
+            _assert_same(tuple(S.from_mesh(x) for x in (
+                memer, memer2, mbst, mast)), (pemer, pemer2, pbst, past),
+                "mesh states")
         _close(pemer, remer, rtol, "emergency state")
         _close(pemer2, remer2, rtol, "ballooned emergency state")
         _close(pbst, rbst, rtol, "balloon state")
