@@ -10,10 +10,13 @@ instantiation must have HGMMA and UTMALDG), holds
 each kernel against its plain torch version on the card, at the paths'
 shapes and at each kernel's edge shapes (forest:
 one row, ragged batches, stacks over 48 KB of tables, depths 1, 8 and
-12, K 1, 4 and 10; template: T 48 to 1,008, constant, zero and tied
-rows; flash and SSD in bf16; SSD also on the model's strided views of
-one conv buffer, which must give the contiguous call's output bit for
-bit, as must a repeated call), and drives the port's two paths:
+12, K 1, 4 and 10; template: T 48 to 1,056, constant, zero and tied
+rows, and its block path timed at 8,000 x 1,440 and 8,000 x 4,320;
+flash and SSD in bf16, flash also causal at Lk < Lq, whose first
+Lq - Lk rows see no key, and at head dims 20 and 100, timed at Zamba2's
+heads; SSD also on the model's strided views of one conv buffer, which
+must give the contiguous call's output bit for bit, as must a repeated
+call), and drives the port's two paths:
 
 - the placement path at the full width of one real cluster: label an
   8,000-VM history with the template kernel, train the four forests on
@@ -630,24 +633,30 @@ def forest_bound_ms(b, f, nf, t, d, k) -> tuple[float, str]:
                  + b * nf * k * 4, b * nf * t * (2 * d + k), FP32_OPS_PER_S)
 
 
-def fleet_series(pop, rows: int, seed: int) -> np.ndarray:
+def fleet_series(pop, rows: int, seed: int,
+                 slots: int | None = None) -> np.ndarray:
     """(rows, T) series for the daily fleet labeling pass: population
-    series resampled with per-VM scale and per-slot jitter."""
+    series resampled with per-VM scale and per-slot jitter, repeated to
+    `slots` slots when given."""
     rng = np.random.default_rng(seed)
     base = pop.series[rng.integers(0, len(pop.vms), rows)]
+    if slots is not None:
+        base = np.tile(base, (1, -(-slots // base.shape[1])))[:, :slots]
     jitter = base * rng.uniform(0.9, 1.1, (rows, 1)) \
         + rng.normal(0.0, 1.0, base.shape)
     return np.clip(jitter, 0.0, 100.0).astype(np.float32)
 
 
-def template_phase(series: np.ndarray, dev, timed: bool = True) -> dict:
+def template_phase(series: np.ndarray, dev, timed: bool = True,
+                   keep_frac: float = 0.8) -> dict:
     """The template kernel against its plain version on one input, with
-    both timed and the bound when `timed`."""
+    both timed and the bound when `timed` (the register path's kernel up
+    to its MAX_T slots, the block path's past them)."""
     import torch
     from repro_torch.kernels.template import ops, ref
     x = torch.as_tensor(series, device=dev)
-    got = ops.criticality_scores(x)
-    want = ref.criticality_scores_ref(x)
+    got = ops.criticality_scores(x, keep_frac)
+    want = ref.criticality_scores_ref(x, keep_frac)
     torch.cuda.synchronize()
     err = (got - want).abs()
     check(bool(torch.isfinite(got).all()), "template scores finite")
@@ -655,16 +664,26 @@ def template_phase(series: np.ndarray, dev, timed: bool = True) -> dict:
           f"template kernel within rtol {TEMPLATE_RTOL} atol "
           f"{TEMPLATE_ATOL} of its plain version")
     agree = ((got[:, 0] < 0.72) == (want[:, 0] < 0.72)).float().mean()
-    out = {"shape": list(series.shape), "max_abs_err": err.max().item(),
+    out = {"shape": list(series.shape), "keep_frac": keep_frac,
+           "max_abs_err": err.max().item(),
            "max_rel_err": (err / want.abs().clamp(min=1e-12)).max().item(),
            "label_agreement": agree.item()}
     if timed:
-        out["ms"] = cuda_ms(lambda: ops.criticality_scores(x))
-        out["plain_ms"] = cuda_ms(lambda: ref.criticality_scores_ref(x))
+        out["ms"] = cuda_ms(lambda: ops.criticality_scores(x, keep_frac))
+        out["plain_ms"] = cuda_ms(
+            lambda: ref.criticality_scores_ref(x, keep_frac))
         out["bound_ms"], out["bound_by"] = template_bound_ms(*series.shape)
-        kernel_times(out, lambda: ops.criticality_scores(x),
-                     "criticality_kernel")
+        kernel = "criticality_kernel" if series.shape[1] <= ops.MAX_T \
+            else "criticality_block_kernel"
+        kernel_times(out, lambda: ops.criticality_scores(x, keep_frac),
+                     kernel)
     return out
+
+
+#: Long series of the template kernel's block path, timed: 30 and 90 days
+#: of history (1,440 and 4,320 slots) for a day's fleet labeling batch.
+TEMPLATE_LONG_ROWS = 8000
+TEMPLATE_LONG_T = (1440, 4320)
 
 
 def main_path(pop, hist, arrivals, budget_w: float, dev):
@@ -822,8 +841,9 @@ def serve_profile(pipe, batch_a, batch_b) -> dict:
 
 def flash_ops(b, h, lq, lk, d) -> float:
     """The QK and PV products of the (q, k) pairs the causal mask keeps
-    (2 D operations each for QK^T and for PV)."""
-    pairs = sum(min(lk, lk - lq + i + 1) for i in range(lq))
+    (2 D operations each for QK^T and for PV); rows before the first key
+    (Lk < Lq) keep none."""
+    pairs = sum(max(0, min(lk, lk - lq + i + 1)) for i in range(lq))
     return 4 * d * pairs * b * h
 
 
@@ -874,17 +894,22 @@ def flash_phase(b: int, l: int, seed: int, dev) -> dict:
     q, k, v = (torch.randn(shape, generator=gen, device=dev)
                for _ in range(3))
     out = {"shape": list(shape), "causal": True}
-    for dt in (torch.float32, torch.bfloat16):
-        name = str(dt).split(".")[1]
-        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
-        got = ops.flash_attention(qd, kd, vd, causal=True)
-        want = ref.attention_ref(qd, kd, vd, causal=True)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        check(bool(torch.isfinite(got).all()), "flash output finite")
-        check(err <= FLASH_ATOL[name], f"flash kernel {name} within "
-              f"{FLASH_ATOL[name]} of its plain version: {err}")
-        out[f"max_abs_err_{name}"] = err
+    # Lk = L, and one causal case at Lk = L / 2 < Lq, whose first L / 2
+    # rows see no key and take the reference kernel's value from the kernel
+    for lk, tag in ((l, ""), (l // 2, "lk_below_lq_")):
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            qd, kd, vd = q.to(dt), k[:, :, :lk].to(dt), v[:, :, :lk].to(dt)
+            got = ops.flash_attention(qd, kd, vd, causal=True)
+            want = ref.attention_kernel_ref(qd, kd, vd, causal=True)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(bool(torch.isfinite(got).all()), "flash output finite")
+            check(err <= FLASH_ATOL[name], f"flash kernel {name} at Lk {lk}"
+                  f", Lq {l} within {FLASH_ATOL[name]} of its plain "
+                  f"version: {err}")
+            out[f"max_abs_err_{tag}{name}"] = err
+    qd, kd, vd = q.bfloat16(), k.bfloat16(), v.bfloat16()
     out["max_abs_err"] = out["max_abs_err_bfloat16"]
     out["ms"] = cuda_ms(lambda: ops.flash_attention(qd, kd, vd))
     out["plain_ms"] = cuda_ms(lambda: ref.attention_ref(qd, kd, vd))
@@ -899,6 +924,74 @@ def flash_phase(b: int, l: int, seed: int, dev) -> dict:
     out["bound_peaks"] = BF16_PEAKS
     rates(out, flash_ops(b, 32, l, l, 80))
     return out
+
+
+#: Flash shapes no model path gives the kernel, which the reference's
+#: wrapper takes: (B, Hq, Hkv, Lq, Lk, D, window), causal, bf16 —
+#: Zamba2's heads at Lk 200 < Lq 512 (312 rows see no key), and Zamba2's
+#: prefill at head dim 100, which the wrapper pads to 104.
+FLASH_GAPS = {"lk_below_lq": (8, 32, 32, 512, 200, 80, None),
+              "d100": (8, 32, 32, 512, 512, 100, None)}
+
+
+def flash_gaps(seed: int, dev) -> dict:
+    """The flash kernel at FLASH_GAPS against its plain version
+    (`attention_kernel_ref`), timed with the plain version, the bound and,
+    where one call computes the same function, SDPA (at Lk < Lq SDPA's
+    causal mask is top-left aligned and leaves the rows before the first
+    key NaN: no library call)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = {}
+    for name, (b, hq, hkv, lq, lk, d, window) in FLASH_GAPS.items():
+        q = torch.randn((b, hq, lq, d), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((b, hkv, lk, d), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        rep = hq // hkv
+        kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+
+        def call():
+            return ops.flash_attention(q, k, v, causal=True, window=window)
+        got = call()
+        want = ref.attention_kernel_ref(q, kr, vr, causal=True,
+                                        window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"flash {name} finite")
+        check(err <= FLASH_ATOL["bfloat16"], f"flash {name} within "
+              f"{FLASH_ATOL['bfloat16']} of its plain version: {err}")
+        out = {"shape": [b, hq, hkv, lq, lk, d], "causal": True,
+               "window": window, "max_abs_err": err,
+               "no_key_rows": ref.no_key_rows(lq, lk, True)}
+        out["ms"] = cuda_ms(call)
+        out["plain_ms"] = cuda_ms(lambda: ref.attention_kernel_ref(
+            q, kr, vr, causal=True, window=window))
+        out["library_ms"] = None
+        if lq == lk:
+            out["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                       is_causal=True))
+        out["device_ms"] = device_ms(call)
+        out["bound_ms"], out["bound_by"] = flash_bound_ms(b, hq, lq, lk, d,
+                                                          2, hkv)
+        out["bound_peaks"] = BF16_PEAKS
+        rates(out, flash_ops(b, hq, lq, lk, d))
+        # where a call's device time goes: the main kernel, the rows
+        # with no key, the wrapper's pads and slice (per call, 20 calls)
+        prof = device_profile(lambda: [call() for _ in range(20)],
+                              kernels=("flash_kernel_bf16",
+                                       "no_key_rows_kernel"))
+        out["profile_per_call"] = {
+            "device_busy_ms": prof["device_busy_ms"] / 20,
+            "launches": prof["launches"] / 20,
+            "kernel_device_ms": {k: ms / 20 for k, (ms, _) in
+                                 prof["kernel_device_ms"].items()},
+            "top_device_ms": [[n, ms / 20, c / 20]
+                              for n, ms, c in prof["top_device_ms"]]}
+        res[name] = out
+    return res
 
 
 def ssd_inputs(b: int, l: int, seed: int, dev):
@@ -988,7 +1081,10 @@ def ssd_phase(b: int, l: int, seed: int, dev, exact: bool) -> dict:
 #: a multiple of 128, at GQA rep 6 and D 128; a window of 64, narrower
 #: than a key tile, at L 512; D 40 and D 16 padded to wgmma's depth of
 #: 16 by the maps' zero fill; Lq 64 over Lk 1,500 non-causal, a block
-#: whose second warpgroup has no row. SSD: (B, L, H, P, N) — ragged L,
+#: whose second warpgroup has no row; causal at Lk < Lq (GQA rep 6, D
+#: 128, with a window of 16 too), whose first Lq - Lk rows see no key;
+#: D 20 and 100, which the wrapper pads to 24 and 104. SSD: (B, L, H, P,
+#: N) — ragged L,
 #: N 128, P 16, and P, N the wrapper pads to multiples of 8; then the
 #: Hopper kernel's work tiles (chunks of 64 steps, 2 heads): a hand-over
 #: chain of 128 chunks (1 x 8,192 at 4 heads), a partial head group (81
@@ -1009,7 +1105,11 @@ FLASH_EDGES = [(2, 4, 2, 300, 300, 80, True, None),
                (2, 4, 2, 512, 512, 80, True, 64),
                (2, 4, 2, 300, 300, 40, False, None),
                (2, 4, 2, 300, 700, 16, True, 100),
-               (2, 4, 4, 64, 1500, 80, False, None)]
+               (2, 4, 4, 64, 1500, 80, False, None),
+               (1, 12, 2, 300, 200, 128, True, None),
+               (1, 12, 2, 700, 72, 128, True, 16),
+               (2, 4, 2, 300, 700, 20, True, 128),
+               (2, 4, 2, 300, 300, 100, True, None)]
 SSD_EDGES = [(2, 200, 80, 64, 64), (2, 200, 4, 64, 128),
              (2, 200, 4, 16, 64), (2, 300, 3, 40, 20),
              (1, 8192, 4, 64, 64), (2, 512, 81, 64, 64),
@@ -1037,9 +1137,9 @@ def edge_sweep(seed: int, dev) -> dict:
         k, v = randn(b, hkv, lk, d).bfloat16(), randn(b, hkv, lk, d).bfloat16()
         rep = hq // hkv
         got = fops.flash_attention(q, k, v, causal=causal, window=window)
-        want = fref.attention_ref(q, k.repeat_interleave(rep, 1),
-                                  v.repeat_interleave(rep, 1),
-                                  causal=causal, window=window)
+        want = fref.attention_kernel_ref(q, k.repeat_interleave(rep, 1),
+                                         v.repeat_interleave(rep, 1),
+                                         causal=causal, window=window)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         case = [b, hq, hkv, lq, lk, d, causal, window]
@@ -1073,12 +1173,13 @@ def edge_sweep(seed: int, dev) -> dict:
 #: K) at F = 18 — one row, a ragged batch, stacks over the 48 KB of
 #: shared memory (T = 100 and 256 at D = 6), depths 1 and 8, K = 1, 4 and
 #: 10, and a stack of 400 trees at depth 12 that takes two tree tiles.
-#: Template: T = 48, 96, 480 and 1,008 slots.
+#: Template: T = 48, 96, 480 and 1,008 slots, and 1,056, the block
+#: path's first (at keep_frac 0.6 too).
 FOREST_EDGES = [(1, 4, 48, 6, 2), (300, 4, 48, 6, 2), (256, 4, 100, 6, 2),
                 (256, 4, 256, 6, 2), (256, 4, 48, 1, 2), (256, 4, 48, 8, 2),
                 (256, 4, 48, 6, 1), (256, 4, 48, 6, 4), (256, 4, 48, 6, 10),
                 (256, 1, 400, 12, 2)]
-TEMPLATE_EDGES = (48, 96, 480, 1008)
+TEMPLATE_EDGES = (48, 96, 480, 1008, 1056)
 
 
 def template_edge_rows(pop, t: int, rng) -> np.ndarray:
@@ -1128,6 +1229,8 @@ def placement_edge_sweep(pop, seed: int, dev) -> dict:
     for t in TEMPLATE_EDGES + (240,):
         template.append(template_phase(template_edge_rows(pop, t, rng), dev,
                                        timed=False))
+    template.append(template_phase(template_edge_rows(pop, 1056, rng), dev,
+                                   timed=False, keep_frac=0.6))
     return {"forest": forest, "template": template}
 
 
@@ -4102,6 +4205,14 @@ def main(argv=None) -> int:
                           timed=False)
     check(res9["label_agreement"] == 1.0, "seed-9 labels agree exactly")
     emit("template_seed9", **res9)
+    #    the block path: a day's labeling batch at 30 and 90 days of history
+    res_long = {}
+    for t in TEMPLATE_LONG_T:
+        res_long[t] = template_phase(
+            fleet_series(pop, TEMPLATE_LONG_ROWS, args.seed + t, t), dev)
+        check(res_long[t]["label_agreement"] == 1.0,
+              f"labels equal at T {t}")
+        emit(f"template_long_{t}", **res_long[t])
 
     # 5. the main path, with every launch count at 0 just before it
     #    budget: each chassis may commit its share of the rho the
@@ -4218,6 +4329,9 @@ def main(argv=None) -> int:
         emit(f"flash_attention_{name}", **flash[name])
         emit(f"ssd_{name}", **ssd[name])
     emit("bf16_edge_sweep", **edge_sweep(args.seed, dev))
+    gaps = flash_gaps(args.seed, dev)
+    for name, res in gaps.items():
+        emit(f"flash_attention_{name}", **res)
 
     # the LM serving path: prefill through the kernels, serve_batch
     # through the cache path, each read from counts at 0
@@ -4364,7 +4478,8 @@ def main(argv=None) -> int:
          "edge_shapes": [r["shape"] for r in edges["template"]],
          "edge_max_rel_err": max(r["max_rel_err"]
                                  for r in edges["template"]),
-         "fleet": res_fleet},
+         "fleet": res_fleet,
+         **{f"long_{t}": res_long[t] for t in TEMPLATE_LONG_T}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:73",
@@ -4378,7 +4493,8 @@ def main(argv=None) -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape", "tflops", "bound_share", "device_ms",
              "library_device_ms")},
-         "long": flash["long"], "mixtral": families["flash_mixtral"]},
+         "long": flash["long"], "mixtral": families["flash_mixtral"],
+         **gaps},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:77",

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 SLOTS_PER_DAY = 48          # 30-minute intervals
+DEFAULT_DAYS = 5
 EPS = 1e-6
 
 

@@ -16,7 +16,11 @@
 // exp(-inf - -inf) = NaN; with NEG the row's junk is scaled away by
 // alpha = exp(NEG - m) = 0 once a real key arrives. Tiles masked for every
 // row of a block (beyond the causal diagonal or before the window) are
-// skipped, which is exact for the same reason.
+// skipped, which is exact for the same reason. With Lk < Lq the offset is
+// negative and, under a causal mask, the first Lq - Lk rows see no key:
+// the reference's kernel gives them the sum of v over 128 ceil(Lk / 128)
+// (its NEG makes every key of every 128-key tile weigh 1), and a second
+// small kernel (`no_key_rows_kernel`) writes them so after either design.
 //
 // What bounds it on the H100: at Zamba2's prefill (B*Hq = 256, L = 512,
 // D = 80, causal) the function needs ~10.8 GFLOP against ~84 MB of q, k,
@@ -909,22 +913,94 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// q (bh, lq, d), k/v (bh / rep, lk, d), o like q; bf16 != 0 means
-// __nv_bfloat16 operands, else float32. window <= 0 means none; scale is
-// D^-1/2 as the caller rounds it. d must be a multiple of 8 and at most 128
-// and, for bf16, the pointers 16-byte aligned (checked by the wrapper).
-extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int bh, int hq, int rep, int lq,
-                               int lk, int d, int q_offset, int valid_lk,
-                               int causal, int window, float scale, int bf16,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// ---- rows that see no key ------------------------------------------------
+
+// Under a causal mask with Lk < Lq the rows i < Lq - Lk sit before the
+// first key. The reference's kernel writes them as its finite NEG makes
+// them: a row whose every score is NEG keeps max NEG, so each key of each
+// 128-key tile, the zero keys padding Lk to that tile among them, takes
+// exp(NEG - NEG) = 1, and the row is the sum of v over the Lk keys over
+// 128 ceil(Lk / 128) (flash_attention.py:52-58 and ops.py:28-31 of the
+// reference's kernel package). The main kernels leave these rows to this
+// one, launched after them on the same stream: one block a query head.
+// The column sums go in 16-byte units of E values: thread (g, u) sums unit
+// u of keys g, g + G, ... (G = NK_THREADS / units groups, a few keys
+// each), the groups add up in group order in shared memory, and the row
+// value goes out to every row as 16-byte stores.
+#define NK_THREADS 256
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// d a multiple of 8 (so of E) up to 128; v, o and their rows at 16 bytes
+template <typename T>
+__global__ void __launch_bounds__(NK_THREADS)
+    no_key_rows_kernel(const T* __restrict__ v, T* __restrict__ o, int hq,
+                       int rep, int lq, int lk, int d, int n_rows,
+                       float n_keys) {
+  constexpr int E = 16 / sizeof(T);  // values a 16-byte unit
+  __shared__ float part[NK_THREADS * E];
+  __shared__ __align__(16) T val[128];
+  const int bh = blockIdx.x, tid = threadIdx.x;
+  const size_t kvh = (size_t)(bh / hq) * (hq / rep) + (bh % hq) / rep;
+  const T* vp = v + kvh * lk * d;
+  const int units = d / E, groups = NK_THREADS / units;
+  if (tid < groups * units) {
+    const int u = tid % units, g = tid / units;
+    float acc[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) acc[j] = 0.0f;
+    for (int r = g; r < lk; r += groups) {
+      const uint4 w =
+          __ldg(reinterpret_cast<const uint4*>(vp + (size_t)r * d) + u);
+      const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+      for (int j = 0; j < E; ++j) acc[j] += to_f32(e[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < E; ++j) part[g * d + u * E + j] = acc[j];
+  }
+  __syncthreads();
+  if (tid < d) {
+    float acc = 0.0f;
+    for (int g = 0; g < groups; ++g) acc += part[g * d + tid];
+    from_f32(&val[tid], acc / n_keys);
+  }
+  __syncthreads();
+  const uint4* src = reinterpret_cast<const uint4*>(val);
+  uint4* op = reinterpret_cast<uint4*>(o + (size_t)bh * lq * d);
+  for (int i = tid; i < n_rows * units; i += NK_THREADS)
+    op[i] = src[i % units];
+}
+
+static int launch_no_key_rows(const void* v, void* o, int bh, int hq,
+                              int rep, int lq, int lk, int d, int n_rows,
+                              int bf16, cudaStream_t stream) {
+  const float n_keys = (float)(128 * ((lk + 127) / 128));
+  if (bf16)
+    no_key_rows_kernel<__nv_bfloat16><<<bh, NK_THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+        hq, rep, lq, lk, d, n_rows, n_keys);
+  else
+    no_key_rows_kernel<float><<<bh, NK_THREADS, 0, stream>>>(
+        static_cast<const float*>(v), static_cast<float*>(o), hq, rep, lq,
+        lk, d, n_rows, n_keys);
+  return (int)cudaGetLastError();
+}
+
+static int launch_main(const void* q, const void* k, const void* v, void* o,
+                       int bh, int hq, int rep, int lq, int lk, int d,
+                       int q_offset, int valid_lk, int causal, int window,
+                       float scale, int bf16, cudaStream_t s) {
   if (!bf16)
     return launch_f32(q, k, v, o, bh, hq, rep, lq, lk, d, q_offset, valid_lk,
                       causal, window, scale, s);
-  if (lk == 0) {  // no key: the output is zero, as with every key masked
-    return (int)cudaMemsetAsync(o, 0, (size_t)bh * lq * d * 2, s);
-  }
 #define FLASH_BF16(DP, WGS, BK, ST, MINB)                                  \
   if (d <= DP)                                                             \
     return launch_bf16<DP, WGS, BK, ST, MINB>(q, k, v, o, bh, hq, rep, lq, \
@@ -938,4 +1014,27 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   FLASH_BF16(128, 2, 64, 5, 1)
 #undef FLASH_BF16
   return (int)cudaErrorInvalidValue;
+}
+
+// q (bh, lq, d), k/v (bh / rep, lk, d), o like q; bf16 != 0 means
+// __nv_bfloat16 operands, else float32. window <= 0 means none; scale is
+// D^-1/2 as the caller rounds it (from the true head dim where the caller
+// padded d). d must be a multiple of 8 and at most 128 and, for bf16, the
+// pointers 16-byte aligned (checked by the wrapper). q_offset = lk - lq
+// may be negative: with a causal mask the rows before the first key then
+// get the reference kernel's value (`no_key_rows_kernel`).
+extern "C" int flash_attention(const void* q, const void* k, const void* v,
+                               void* o, int bh, int hq, int rep, int lq,
+                               int lk, int d, int q_offset, int valid_lk,
+                               int causal, int window, float scale, int bf16,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lk == 0)  // no key: the output is zero, as with every key masked
+    return (int)cudaMemsetAsync(o, 0, (size_t)bh * lq * d * (bf16 ? 2 : 4),
+                                s);
+  const int err = launch_main(q, k, v, o, bh, hq, rep, lq, lk, d, q_offset,
+                              valid_lk, causal, window, scale, bf16, s);
+  if (err != (int)cudaSuccess || !causal || q_offset >= 0) return err;
+  return launch_no_key_rows(v, o, bh, hq, rep, lq, lk, d,
+                            q_offset < -lq ? lq : -q_offset, bf16, s);
 }

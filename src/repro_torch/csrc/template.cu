@@ -1,4 +1,5 @@
-// Fleet-scale criticality template scoring (paper §III-B), one VM per warp.
+// Fleet-scale criticality template scoring (paper §III-B): one VM per warp
+// up to 1,024 slots, one VM per block past that.
 //
 // Replaces the TPU kernel `criticality_scores_pallas` / `_criticality_kernel`
 // (src/repro/kernels/template/template.py). Per (B, T) row of utilization
@@ -12,10 +13,11 @@
 //   3. per-slot median templates for periods 48/24/16 over T/period
 //      repetitions; an even count averages the two middle values as
 //      `jnp.median` does;
-//   4. |x - tiled template| per period, and the mean of the k = round(0.8 T)
-//      smallest, selected exactly: the function the sort-based oracle
-//      computes. The TPU kernel approximated this selection by a 24-step
-//      bisection because it has no cheap sort.
+//   4. |x - tiled template| per period, and the mean of the
+//      k = round(keep_frac T) smallest (keep_frac 0.8 by default), selected
+//      exactly: the function the sort-based oracle computes. The TPU
+//      kernel approximated this selection by a 24-step bisection because
+//      it has no cheap sort.
 //
 // What bounds it on the H100: the kernel reads 4 T bytes and writes 8 bytes
 // per row (63 MB at 65,536 x 240, under 20 us at 3.35 TB/s) and does a few
@@ -30,7 +32,8 @@
 // rows; by instruction count the exact selection's passes take most of
 // its instruction slots.
 //
-// Design: WARPS rows per block, one warp per row, no block barrier at all.
+// Design (T <= 1,024): WARPS rows per block, one warp per row, no block
+// barrier at all.
 // - Lane j holds elements [j PER, (j + 1) PER) in registers (PER = NP / 32,
 //   NP the next power of two >= T: 8 at T = 240, 32 at T = 1008), loaded as
 //   float4 (float2 at T = 48).
@@ -325,8 +328,223 @@ criticality_kernel(const float* __restrict__ series, float* __restrict__ out,
   }
 }
 
+// ---- long series: a block a row, the row in shared memory ---------------
+//
+// Past 1,024 slots a row no longer fits a warp's registers. Here one block
+// of BLOCK_THREADS takes a row, held in shared memory with one buffer of
+// the same size (8 T bytes, up to 28,896 slots in the 227 KB a block may
+// have), and computes what the warp path computes, in the same arithmetic:
+// - cumsum: each thread sums a run of ceil(T / threads) slots serially in
+//   float64, a block scan of the run totals gives each run's start, and
+//   each slot's cumsum is rounded to float32 from float64, as above;
+// - mean and std: two passes of float64 block sums;
+// - medians: per period the row copied slot-major into the second
+//   buffer, then a warp a slot: its T / p repetitions (270 for the 8 h
+//   period at T = 4,320, past what a sorting network unrolls) selected in
+//   place by a radix select over their order-preserving bit patterns,
+//   which finds the lower middle value, and one more pass the upper (the
+//   next pattern, or the same one when it repeats);
+// - deviations of one period at a time in the second buffer, and the k
+//   smallest summed after a block-wide radix select of the k-th smallest,
+//   bits 30 to 0, as `smallest_k_sums` (the three periods one after
+//   another: their deviations do not fit beside the row together).
+#define BLOCK_THREADS 256
+#define BLOCK_WARPS (BLOCK_THREADS / 32)
+
+// float bit patterns in an order an unsigned compare keeps: negatives
+// flipped whole, non-negatives with the sign bit set
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// the block's sum of v, in warp order, the same at every thread
+__device__ __forceinline__ double block_sum(double v, double* red) {
+  v = warp_sum(v);
+  __syncthreads();  // the last use of `red` is over
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double s = 0.0;
+#pragma unroll
+  for (int w = 0; w < BLOCK_WARPS; ++w) s += red[w];
+  return s;
+}
+
+__device__ __forceinline__ unsigned block_count(unsigned c, unsigned* red) {
+  c = __reduce_add_sync(FULL, c);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = c;
+  __syncthreads();
+  unsigned s = 0;
+#pragma unroll
+  for (int w = 0; w < BLOCK_WARPS; ++w) s += red[w];
+  return s;
+}
+
+// the median of the reps values at `v` (one slot's repetitions), by the
+// calling warp
+__device__ float slot_median(const float* v, int reps, int lane) {
+  const int lo_r = (reps - 1) / 2;  // 0-based rank of the lower middle
+  unsigned prefix = 0;  // the largest pattern with <= lo_r patterns under it
+  for (int b = 31; b >= 0; --b) {
+    const unsigned mid = prefix | (1u << b);
+    unsigned c = 0;
+    for (int r = lane; r < reps; r += 32) c += order_key(v[r]) < mid;
+    if (__reduce_add_sync(FULL, c) <= (unsigned)lo_r) prefix = mid;
+  }
+  const float lo = key_value(prefix);
+  if (reps & 1) return lo;
+  // the upper middle: the same pattern when more than lo_r + 1 are at or
+  // under it, else the least pattern above it
+  unsigned le = 0, next = 0xffffffffu;
+  for (int r = lane; r < reps; r += 32) {
+    const unsigned u = order_key(v[r]);
+    le += u <= prefix;
+    if (u > prefix) next = min(next, u);
+  }
+  le = __reduce_add_sync(FULL, le);
+  next = __reduce_min_sync(FULL, next);
+  const float hi = le > (unsigned)(lo_r + 1) ? lo : key_value(next);
+  return (lo + hi) * 0.5f;
+}
+
+__global__ void __launch_bounds__(BLOCK_THREADS)
+criticality_block_kernel(const float* __restrict__ series,
+                         float* __restrict__ out, int T, int k) {
+  extern __shared__ __align__(16) float s_buf[];
+  __shared__ float tmpl[N_SLOTS];
+  __shared__ double red[BLOCK_WARPS];
+  __shared__ unsigned cnt[BLOCK_WARPS];
+  float* x = s_buf;       // the row, de-trended and normalized in place
+  float* w = s_buf + T;   // the cumsum, then one period's deviations
+  unsigned* u = reinterpret_cast<unsigned*>(w);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* src = series + (size_t)blockIdx.x * T;
+  for (int i = tid; i < T / 4; i += BLOCK_THREADS)
+    reinterpret_cast<float4*>(x)[i] =
+        __ldg(reinterpret_cast<const float4*>(src) + i);
+  __syncthreads();
+
+  // 1. inclusive cumsum in float64, rounded to float32 slot by slot: a
+  //    run of `per` slots a thread, then the exclusive scan of the runs
+  const int per = (T + BLOCK_THREADS - 1) / BLOCK_THREADS;
+  const int i0 = min(tid * per, T), i1 = min(i0 + per, T);
+  double run = 0.0;
+  for (int i = i0; i < i1; ++i) run += x[i];
+  double incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double n = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += n;
+  }
+  if (lane == 31) red[warp] = incl;
+  double excl = __shfl_up_sync(FULL, incl, 1);
+  if (lane == 0) excl = 0.0;
+  __syncthreads();
+  for (int v = 0; v < warp; ++v) excl += red[v];
+  double part = 0.0;
+  for (int i = i0; i < i1; ++i) {
+    part += x[i];
+    w[i] = (float)(excl + part);
+  }
+  __syncthreads();
+  //    de-trend by the mean of the previous 48 slots (prefix mean while
+  //    fewer than 48 exist)
+  for (int i = tid; i < T; i += BLOCK_THREADS) {
+    const int lo = max(i - 47, 0);
+    const float win = w[i] - (i >= 48 ? w[i - 48] : 0.0f);
+    x[i] = x[i] / fmaxf(win / (float)(i - lo + 1), EPS);
+  }
+  __syncthreads();
+
+  // 2. normalize by the population std (two passes in float64)
+  double acc = 0.0;
+  for (int i = tid; i < T; i += BLOCK_THREADS) acc += x[i];
+  const double mu = block_sum(acc, red) / T;
+  acc = 0.0;
+  for (int i = tid; i < T; i += BLOCK_THREADS) {
+    const double d = x[i] - mu;
+    acc += d * d;
+  }
+  const float sd = fmaxf((float)sqrt(block_sum(acc, red) / T), EPS);
+  for (int i = tid; i < T; i += BLOCK_THREADS) x[i] = x[i] / sd;
+  __syncthreads();
+
+  // 3. median templates: slots [0,48) period 48, [48,72) period 24,
+  //    [72,88) period 16. Per period the row is copied slot-major into
+  //    the second buffer, so that a slot's repetitions lie side by side
+  //    (the row's stride p would put a warp's reads in two banks), then a
+  //    warp takes a slot.
+  for (int q = 0; q < 3; ++q) {
+    const int p = q == 0 ? 48 : (q == 1 ? 24 : 16);
+    const int off = q == 0 ? 0 : (q == 1 ? 48 : 72);
+    const int reps = T / p;
+    for (int i = tid; i < T; i += BLOCK_THREADS)
+      w[(i % p) * reps + i / p] = x[i];
+    __syncthreads();
+    for (int j = warp; j < p; j += BLOCK_WARPS) {
+      const float m = slot_median(w + j * reps, reps, lane);
+      if (lane == 0) tmpl[off + j] = m;
+    }
+    __syncthreads();
+  }
+
+  // 4. per period, the deviations and the mean of the k smallest
+  float dev[3];
+  for (int q = 0; q < 3; ++q) {
+    const int p = q == 0 ? 48 : (q == 1 ? 24 : 16);
+    const int off = q == 0 ? 0 : (q == 1 ? 48 : 72);
+    for (int i = tid; i < T; i += BLOCK_THREADS)
+      u[i] = __float_as_uint(fabsf(x[i] - tmpl[off + i % p]));
+    __syncthreads();
+    unsigned prefix = 0;
+    int below = 0;  // patterns < prefix
+    for (int b = 30; b >= 0; --b) {
+      const unsigned mid = prefix | (1u << b);
+      unsigned c = 0;
+      for (int i = tid; i < T; i += BLOCK_THREADS) c += u[i] < mid;
+      c = block_count(c, cnt);
+      if ((int)c < k) {
+        prefix = mid;
+        below = (int)c;
+      }
+    }
+    // prefix is now the k-th smallest pattern v_k
+    double sm = 0.0;
+    for (int i = tid; i < T; i += BLOCK_THREADS)
+      if (u[i] < prefix) sm += __uint_as_float(u[i]);
+    sm = block_sum(sm, red);
+    dev[q] = (float)(sm + (double)(k - below) * __uint_as_float(prefix)) /
+             (float)k;
+    __syncthreads();  // every thread is done with this period's u
+  }
+  if (tid == 0) {
+    out[(size_t)blockIdx.x * 2] = dev[0] / fmaxf(dev[2], EPS);
+    out[(size_t)blockIdx.x * 2 + 1] = dev[0] / fmaxf(dev[1], EPS);
+  }
+}
+
+// series (B, T) float32 at a 16-byte boundary, T % 48 == 0, T > 1,024 and
+// 8 T bytes within the block's shared memory; 1 <= k <= T. out (B, 2).
+extern "C" int criticality_scores_long(const float* series, float* out,
+                                       int B, int T, int k, void* stream) {
+  const size_t smem = (size_t)8 * T;
+  cudaError_t err = cudaFuncSetAttribute(
+      criticality_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  criticality_block_kernel<<<B, BLOCK_THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(series, out,
+                                                                  T, k);
+  return (int)cudaGetLastError();
+}
+
 // series (B, T) float32 at a 16-byte boundary, T % 48 == 0; NP the next
-// power of two >= T, 64 to 1024; k = round(0.8 T). out (B, 2) float32.
+// power of two >= T, 64 to 1024; 1 <= k <= T. out (B, 2) float32.
 extern "C" int criticality_scores(const float* series, float* out, int B,
                                   int T, int NP, int k, void* stream) {
   const dim3 grid((B + WARPS - 1) / WARPS);

@@ -1,1 +1,3 @@
 """Prefill flash attention kernel."""
+from repro_torch.kernels.flash_attention.ops import \
+    flash_attention  # noqa: F401

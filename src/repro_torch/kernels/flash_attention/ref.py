@@ -1,12 +1,17 @@
 """Plain torch version of the flash-attention kernel: the naive-softmax
 oracle of `repro.kernels.flash_attention.ref`, float32 throughout, with
 the kernel's end alignment (queries sit at the last Lq positions of the
-keys) and the finite masking value NEG."""
+keys) and the finite masking value NEG; and `attention_kernel_ref`,
+which also gives a query that sees no key the value the reference's
+kernel writes for it."""
 from __future__ import annotations
 
 import torch
 
 NEG = -1e30
+#: Key tile of the reference's `flash_attention` at its defaults: the
+#: keys are padded to a multiple of it before the kernel runs.
+REF_BK = 128
 
 
 def _masked_scores(q, k, causal, window):
@@ -34,6 +39,41 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p / p.sum(-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def no_key_rows(lq: int, lk: int, causal: bool) -> int:
+    """Query rows, from the first, that see no key: under a causal mask,
+    with or without a window, the rows i < Lq - Lk (position i + Lk - Lq
+    before the first key). A window alone always leaves a row its last
+    key."""
+    return max(lq - lk, 0) if causal and lk > 0 else 0
+
+
+def no_key_value(v: torch.Tensor) -> torch.Tensor:
+    """(B, H, Lk, D) -> (B, H, D) float32: what the reference's kernel
+    writes for a query that sees no key. Its masked scores are the finite
+    NEG, so a row whose every score is NEG keeps max NEG and takes
+    exp(NEG - NEG) = 1 for every key of every key tile, the zero keys
+    padding Lk to the 128-key tile among them
+    (src/repro/kernels/flash_attention/flash_attention.py:52-58 and
+    ops.py:28-31): the sum of v over the Lk keys over 128 ceil(Lk / 128).
+    The reference's oracle `attention_ref` gives the mean over Lk
+    instead."""
+    lk = v.shape[2]
+    return v.float().sum(2) / float(REF_BK * -(-lk // REF_BK))
+
+
+def attention_kernel_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True,
+                         window: int | None = None) -> torch.Tensor:
+    """`attention_ref` with the rows that see no key (`no_key_rows`) set to
+    `no_key_value`, as the reference's `flash_attention` writes them: the
+    function the kernel computes. Shapes as `attention_ref`."""
+    out = attention_ref(q, k, v, causal=causal, window=window)
+    n = no_key_rows(q.shape[2], k.shape[2], causal)
+    if n:
+        out[:, :, :n] = no_key_value(v)[:, :, None].to(out.dtype)
+    return out
 
 
 def attention_p_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,6 +21,7 @@ from repro_torch.core.forest import ObliviousForest
 from repro_torch.device import KERNEL_LAUNCHES, resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.forest import ref
+from repro_torch.kernels.forest.ref import normalize_forest_output
 
 #: Warps per block of the kernel (`WARPS` in csrc/forest.cu).
 WARPS = 4
@@ -143,20 +144,6 @@ def forest_sums(x: torch.Tensor, feat_idx: torch.Tensor, thr: torch.Tensor,
                  plan["kc"], int(plan["stage_x"]))
     KERNEL_LAUNCHES["forest"] += 1
     return out
-
-
-def normalize_forest_output(summed: torch.Tensor, kind: str,
-                            n_trees: int) -> torch.Tensor:
-    """Summed leaf values -> class probabilities: RF mean / GB softmax.
-
-    The RF divisor is a tensor on the operand's device: CUDA divides by a
-    Python scalar as a multiply by its reciprocal, which can differ from
-    the CPU's (and JAX's) correctly rounded division in the last bit."""
-    if kind == "rf":
-        return summed / summed.new_full((), float(n_trees))
-    m = summed - summed.max(-1, keepdim=True).values
-    e = torch.exp(m)
-    return e / e.sum(-1, keepdim=True)
 
 
 def predict_packed(x, feat_idx, thr, leaf, kind: str) -> torch.Tensor:

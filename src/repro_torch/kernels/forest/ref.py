@@ -4,6 +4,8 @@ stack of equally shaped forests.
 
 Mirrors `repro_torch.core.forest.ObliviousForest.leaf_index_np`: a leaf
 index packs the compare bits MSB-first (level l weighs 2^(D-1-l)).
+`forest_predict_ref` is the reference's oracle of the same name: one
+forest's leaf sums, normalized to class probabilities.
 """
 from __future__ import annotations
 
@@ -30,6 +32,35 @@ def forest_sums_ref(x: torch.Tensor, feat_idx: torch.Tensor,
     fi = torch.arange(nf, device=x.device)[None, :, None]
     ti = torch.arange(t, device=x.device)[None, None, :]
     return leaf[fi, ti, idx].sum(2)                            # (B, NF, K)
+
+
+def normalize_forest_output(summed: torch.Tensor, kind: str,
+                            n_trees: int) -> torch.Tensor:
+    """Summed leaf values -> class probabilities: RF mean / GB softmax.
+
+    The RF divisor is a tensor on the operand's device: CUDA divides by a
+    Python scalar as a multiply by its reciprocal, which can differ from
+    the CPU's (and JAX's) correctly rounded division in the last bit."""
+    if kind == "rf":
+        return summed / summed.new_full((), float(n_trees))
+    m = summed - summed.max(-1, keepdim=True).values
+    e = torch.exp(m)
+    return e / e.sum(-1, keepdim=True)
+
+
+def forest_predict_ref(x, feat_idx, thresholds, leaf_values,
+                       kind: str) -> torch.Tensor:
+    """x: (B, F); feat_idx/thresholds: (T, D); leaf_values: (T, 2**D, K),
+    tensors or arrays. Returns (B, K) class probabilities on x's device
+    (the CPU for an array): the leaf values summed over the trees, then
+    the RF mean or the GB softmax."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    dev = x.device
+    fi, thr, leaf = (torch.as_tensor(a, device=dev) for a in
+                     (feat_idx, thresholds, leaf_values))
+    summed = forest_sums_ref(x, fi[None].long(), thr[None].float(),
+                             leaf[None].float())[:, 0]
+    return normalize_forest_output(summed, kind, fi.shape[0])
 
 
 def forest_sums_lanes(x: torch.Tensor, feat_idx: torch.Tensor,

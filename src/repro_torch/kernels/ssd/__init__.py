@@ -1,1 +1,2 @@
 """Mamba2 SSD chunked-scan kernel."""
+from repro_torch.kernels.ssd.ops import ssd  # noqa: F401

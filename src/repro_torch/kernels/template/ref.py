@@ -8,9 +8,11 @@ import torch
 from repro_torch.core import criticality
 
 
-def criticality_scores_ref(series: torch.Tensor) -> torch.Tensor:
-    """(B, T) -> (B, 2) [Compare8, Compare12]."""
-    s = criticality.score(series)
+def criticality_scores_ref(series: torch.Tensor,
+                           keep_frac: float = 0.8) -> torch.Tensor:
+    """(B, T) -> (B, 2) [Compare8, Compare12], each deviation the mean of
+    the round(keep_frac T) smallest."""
+    s = criticality.score(series, keep_frac)
     return torch.stack([s.compare8, s.compare12], dim=-1)
 
 
@@ -52,3 +54,44 @@ def smallest_k_radix(dev: torch.Tensor, k: int, n_valid: int | None = None):
     lower = torch.where(u < prefix[:, None], dev, torch.zeros_like(dev))
     total = lower.sum(1) + (k - below).to(torch.float32) * kth
     return kth, below, passes, total
+
+
+def order_keys(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int64 keys in [0, 2^32) that order as the floats do: the
+    long-series path's bit patterns (negatives flipped whole, the sign bit
+    set on the rest)."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 2 ** 31, 0xFFFFFFFF - u, u | 2 ** 31)
+
+
+def _key_values(k: torch.Tensor) -> torch.Tensor:
+    u = torch.where(k >= 2 ** 31, k & 0x7FFFFFFF, 0xFFFFFFFF - k)
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32) \
+        .view(torch.float32)
+
+
+def slot_medians_radix(x: torch.Tensor, period: int) -> torch.Tensor:
+    """The long-series path's per-slot medians, emulated on the CPU (tests
+    only): x (B, T) -> (B, period). For each slot, a radix select over the
+    order keys of its T / period repetitions sets the lower middle value's
+    bits from 31 down to 0 (a bit is set while at most its rank lie under
+    the prefix with it set); for an even count the upper middle is the
+    same value when more than rank + 1 lie at or under it, else the least
+    key above it, and the two are averaged."""
+    b, t = x.shape
+    reps = t // period
+    keys = order_keys(x).reshape(b, reps, period)
+    lo_r = (reps - 1) // 2
+    prefix = torch.zeros((b, period), dtype=torch.int64)
+    for bit in range(31, -1, -1):
+        mid = prefix | (1 << bit)
+        c = (keys < mid[:, None]).sum(1)
+        prefix = torch.where(c <= lo_r, mid, prefix)
+    lo = _key_values(prefix)
+    if reps % 2:
+        return lo
+    le = (keys <= prefix[:, None]).sum(1)
+    above = torch.where(keys > prefix[:, None], keys,
+                        torch.full_like(keys, 2 ** 32 - 1)).amin(1)
+    hi = torch.where(le > lo_r + 1, lo, _key_values(above))
+    return (lo + hi) * 0.5

@@ -6,7 +6,8 @@ power-emergency plane, the ballooning rung, migration planning, the
 adaptive oversubscription controller, and sharded serving under the
 reserve/commit token protocol, the shards as a batch axis or one a device
 on a mesh."""
-from repro_torch.core.resources import RESOURCES, ResourceVector
+from repro_torch.core.resources import (RESOURCES, ResourceVector,
+                                        demand_vector, trough_ratios)
 from repro_torch.serve.adaptive import (
     REASON_NAMES, AdaptiveConfig, AdaptiveOutputs, AdaptiveState,
     adaptive_step, adaptive_step_np, decision_reason, gate_ratio_on_stale,
@@ -56,7 +57,7 @@ from repro_torch.serve.sharding import (
     shard_state, split_caps, split_departures, unshard_state)
 
 __all__ = [
-    "RESOURCES", "ResourceVector",
+    "RESOURCES", "ResourceVector", "demand_vector", "trough_ratios",
     "REASON_NAMES", "AdaptiveConfig", "AdaptiveOutputs", "AdaptiveState",
     "adaptive_step", "adaptive_step_np", "decision_reason",
     "gate_ratio_on_stale", "init_adaptive", "init_adaptive_np",

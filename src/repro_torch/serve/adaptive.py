@@ -48,6 +48,16 @@ from repro_torch.core.power_model import F_MAX, ServerPowerModel, idle_power
 from repro_torch.device import resolve_device
 from repro_torch.serve.emergency import _scalar
 
+#: The reference's names, and the numpy oracles the port keeps beside its
+#: torch twins.
+__all__ = [
+    "AdaptiveConfig", "AdaptiveState", "AdaptiveOutputs",
+    "init_adaptive", "adaptive_step", "offered_power",
+    "retarget_pool", "gate_ratio_on_stale", "decision_reason",
+    "REASON_NAMES",
+    "init_adaptive_np", "adaptive_step_np",
+]
+
 #: Names of the controller's decision reasons (`decision_reason`).
 REASON_NAMES = (
     "hold_no_history",      # 0: no chassis has enough window yet

@@ -26,6 +26,7 @@ from repro_torch.serve._segments import segment_sums
 from repro_torch.sim.telemetry import (
     VM_TYPES, ArrivalBatch, Population, arrival_batch)
 
+N_FEATURES = len(F.FEATURE_NAMES)
 N_VM_TYPES = len(VM_TYPES)
 
 #: `core.features._DEFAULT_AGG` as a flat row for unseen subscriptions.

@@ -72,7 +72,7 @@ def test_plain_template_matches_pallas_interpret(kind):
     np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-4)
 
 
-@pytest.mark.parametrize("days", [5, 10])
+@pytest.mark.parametrize("days", [5, 10, 30])
 def test_classify_labels_equal(days):
     pop = generate_population(200, seed=9)
     x = np.tile(pop.series, (1, days // 5))
@@ -85,6 +85,78 @@ def test_classify_labels_equal(days):
         PC.classify_with_length(x, n_valid, device="cpu").numpy(),
         np.asarray(RC.classify_with_length(jnp.asarray(x),
                                            jnp.asarray(n_valid))))
+
+
+@pytest.mark.parametrize("keep_frac", [0.5, 0.8, 1.0])
+def test_keep_frac_matches_pallas_interpret(keep_frac):
+    """The wrapper's `keep_frac` (its plain version on the CPU) against the
+    reference's `criticality_scores(series, keep_frac)` in interpret mode
+    at 8 x 240, at that kernel's bar."""
+    x = RNG.uniform(0, 100, (8, 240)).astype(np.float32)
+    got = ops.criticality_scores(torch.as_tensor(x), keep_frac).numpy()
+    want = np.asarray(pallas_scores(jnp.asarray(x), keep_frac=keep_frac,
+                                    block_b=8))
+    np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-4)
+    np.testing.assert_allclose(
+        got, ref.criticality_scores_ref(torch.as_tensor(x), keep_frac),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("days", [30, 50])
+@pytest.mark.parametrize("keep_frac", [0.6, 0.8])
+def test_long_series_match_reference_score(days, keep_frac):
+    """Series past the kernel's register path (T 1,440 and 2,400): the
+    wrapper's plain version against the reference's sort-based
+    `core.criticality.score` (its Pallas kernel's sorting network at 90+
+    repetitions would take minutes here). Bar rtol 3e-5 / atol 1e-6: the
+    float32 sums over 1,440 to 2,400 slots put each package up to ~1e-5
+    relative from a float64 run of the same algorithm (measured 7.7e-6
+    for the port, 7.3e-6 for the reference at 2,400 slots), on either
+    side, where `test_score_matches_reference` holds T <= 480 to
+    1e-5."""
+    rng = np.random.default_rng(days)
+    pop = generate_population(40, seed=3)
+    x = np.clip(np.tile(pop.series, (1, days // 5))
+                + rng.normal(0, 1, (40, days * 48)), 0, 100) \
+        .astype(np.float32)
+    got = ops.criticality_scores(torch.as_tensor(x), keep_frac).numpy()
+    want = RC.score(jnp.asarray(x), keep_frac)
+    np.testing.assert_allclose(got[:, 0], np.asarray(want.compare8),
+                               rtol=3e-5, atol=1e-6)
+    np.testing.assert_allclose(got[:, 1], np.asarray(want.compare12),
+                               rtol=3e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["normal", "ties", "signed_zeros",
+                                  "constant"])
+@pytest.mark.parametrize("t", [240, 1440, 4320])
+def test_radix_medians_equal_sorted_medians(case, t):
+    """The long-series path's per-slot medians (order-key radix select,
+    emulated in `ref.slot_medians_radix`) equal the sort's, for odd and
+    even repetition counts (T / 48 = 5, 30, 90; T / 16 = 15, 90, 270), on
+    negative values, ties and both zeros."""
+    rng = np.random.default_rng(t)
+    if case == "normal":
+        x = rng.normal(0, 1, (6, t))
+    elif case == "ties":
+        x = rng.choice([-1.0, 0.0, 0.5, 2.0], (6, t))
+    elif case == "signed_zeros":
+        x = rng.choice([-0.0, 0.0, -1e-30, 1e-30], (6, t))
+    else:
+        x = np.full((2, t), -3.25)
+    x = torch.as_tensor(x.astype(np.float32))
+    for p in (48, 24, 16):
+        np.testing.assert_array_equal(
+            ref.slot_medians_radix(x, p).numpy(),
+            PTS.extract_template(x, p).numpy())
+
+
+def test_keep_frac_must_keep_a_slot():
+    with pytest.raises(ValueError, match="keep_frac"):
+        ops.criticality_scores(torch.ones(2, 48), 0.0)
+    with pytest.raises(ValueError, match="keep_frac"):
+        ops.criticality_scores(torch.ones(2, 48), 1.2)
+    assert ops.MAX_T_BLOCK == 28896 and ops.MAX_T_BLOCK % 48 == 0
 
 
 def test_wrapper_rejects_bad_shapes():

@@ -107,7 +107,9 @@ def test_flash_takes_lk_below_lq_without_a_mask():
     long teacher-forced decoder attending whisper's encoder): at the
     card's edge case (2, 6, 6, 700, 300, 64) against the float32 oracle,
     at a smaller one against the Pallas kernel. A causal mask or a window
-    still needs Lk >= Lq."""
+    at Lk < Lq is taken too and matches the Pallas kernel at its default
+    tiles, the first Lq - Lk rows (no key under the causal mask)
+    included."""
     (q, k, v), (tq, tk, tv) = _inputs(6, 2, 6, 6, 700, 300, 64, "f32")
     got = ops.flash_attention(tq, tk, tv, causal=False)
     np.testing.assert_allclose(_np(got), _np(j_ref(q, k, v, causal=False)),
@@ -117,8 +119,57 @@ def test_flash_takes_lk_below_lq_without_a_mask():
         _np(ops.flash_attention(tq, tk, tv, causal=False)),
         _np(j_flash(q, k, v, causal=False, bq=32, bk=32)), atol=2e-5)
     for causal, window in ((True, None), (False, 16)):
-        with pytest.raises(ValueError, match="Lk 30 < Lq 70"):
-            ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+        np.testing.assert_allclose(
+            _np(ops.flash_attention(tq, tk, tv, causal=causal,
+                                    window=window)),
+            _np(j_flash(q, k, v, causal=causal, window=window)), atol=2e-5)
+
+
+@pytest.mark.parametrize("lq,lk", [(200, 72), (300, 200)])
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_lk_below_lq_causal_matches_reference(lq, lk, window, dtype):
+    """Causal, with and without a window, at Lk < Lq, GQA rep 2: the port
+    against the reference's `flash_attention` in interpret mode at its
+    default tiles, the rows that see no key included: those are the sum
+    of v over 128 ceil(Lk / 128) (72 keys over 128, 200 over 256), not
+    the mean the reference's oracle gives them."""
+    (q, k, v), (tq, tk, tv) = _inputs(8, 1, 4, 2, lq, lk, 16, dtype)
+    tol = DTYPES[dtype][2]
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = j_flash(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)
+    n = lq - lk
+    assert ref.no_key_rows(lq, lk, True) == n
+    empty = tv.float().sum(2) / (128 * -(-lk // 128))
+    np.testing.assert_allclose(
+        _np(got[:, :, :n]),
+        _np(empty.repeat_interleave(2, 1)[:, :, None].expand(-1, -1, n, -1)),
+        atol=tol)
+    oracle = j_ref(q.astype(jnp.float32), jnp.repeat(k, 2, 1).astype(
+        jnp.float32), jnp.repeat(v, 2, 1).astype(jnp.float32),
+        causal=True, window=window)
+    np.testing.assert_allclose(_np(got)[:, :, n:], _np(oracle)[:, :, n:],
+                               atol=tol)
+
+
+@pytest.mark.parametrize("d", [20, 100])
+def test_flash_head_dim_off_a_multiple_of_8(d):
+    """Head dims the kernel's wrapper pads to a multiple of 8: the port's
+    plain version against the Pallas kernel at the same D (the reference
+    takes any D)."""
+    (q, k, v), (tq, tk, tv) = _inputs(9, 1, 4, 2, 96, 160, d, "f32")
+    np.testing.assert_allclose(
+        _np(ops.flash_attention(tq, tk, tv, causal=True, window=64)),
+        _np(j_flash(q, k, v, causal=True, window=64)), atol=2e-5)
+
+
+def test_no_key_rows_only_under_a_causal_mask():
+    assert ref.no_key_rows(200, 72, True) == 128
+    assert ref.no_key_rows(200, 72, False) == 0
+    assert ref.no_key_rows(72, 200, True) == 0
+    assert ref.no_key_rows(5, 0, True) == 0
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 100),

@@ -23,8 +23,12 @@ Zamba2's prefill, one 4,096-token prompt, 128 chunks in one chain and N
 
 The forest kernel runs one row, ragged batches, stacks over 48 KB of
 tables (T 100 and 256 at D 6), depths 1, 8 and 12 (two tree tiles), K 1,
-4 and 10, and batches that take 16 and 8 lanes a row; the template kernel T 48 to 1,008 with constant, all-zero and
-tied rows.
+4 and 10, and batches that take 16 and 8 lanes a row; the template
+kernel T 48 to 1,008 with constant, all-zero and tied rows, and its
+block path at T 1,056, 1,440, 4,320 and its limit, at keep_frac 0.6 and
+0.8. Flash also runs causal at Lk < Lq (the rows before the first key
+written as the reference's kernel writes them) and head dims 20 and 100,
+which the wrapper pads to a multiple of 8.
 
 The streamed serving loop (`submit_to`, `depart_to`, `cap_to`, `flush`
 with the power-emergency plane) runs on the card at a small width: its
@@ -77,9 +81,12 @@ def _normal(rng, *shape):
     (300, 700, 128, 80, True), (300, 700, None, 128, False),
     (300, 300, 100, 16, True), (700, 300, None, 64, False),
     (512, 512, 64, 80, True), (300, 300, None, 40, False),
-    (300, 700, 100, 16, True), (64, 1500, None, 80, False)])
+    (300, 700, 100, 16, True), (64, 1500, None, 80, False),
+    (300, 700, 128, 20, True), (300, 200, None, 100, True)])
 def test_flash_kernel_matches_plain_version(cuda, dtype, lq, lk, window, d,
                                             causal):
+    """The last two cases: head dims the wrapper pads to a multiple of 8
+    (24, 104), the scale from the true D; the last is causal at Lk < Lq."""
     rng = np.random.default_rng(lq + lk + d)
     q = _normal(rng, 2, 4, lq, d).to(cuda, dtype)
     k = _normal(rng, 2, 2, lk, d).to(cuda, dtype)
@@ -88,9 +95,9 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, lq, lk, window, d,
     got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert KERNEL_LAUNCHES["flash_attention"] == 1
-    want = flash_ref.attention_ref(q, k.repeat_interleave(2, 1),
-                                   v.repeat_interleave(2, 1), causal=causal,
-                                   window=window)
+    want = flash_ref.attention_kernel_ref(q, k.repeat_interleave(2, 1),
+                                          v.repeat_interleave(2, 1),
+                                          causal=causal, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(),
                                atol=FLASH_ATOL[dtype], rtol=0)
@@ -119,6 +126,36 @@ def test_flash_kernel_gqa_rep6_ragged(cuda, dtype, b, hq, hkv, lq, d,
                                    v.repeat_interleave(rep, 1), causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("lq,lk", [(300, 200), (700, 72)])
+def test_flash_kernel_lk_below_lq_causal(cuda, dtype, window, lq, lk):
+    """Causal at Lk < Lq, GQA rep 6, D 128: both kernels and the small one
+    that writes the first Lq - Lk rows, which see no key, as the
+    reference's kernel does (the sum of v over 128 ceil(Lk / 128)); the
+    f32 kernel gives such rows partial sums and the bf16 one none, so
+    those rows come from the kernel for them alone."""
+    rng = np.random.default_rng(lq + lk + (window or 0))
+    q = _normal(rng, 1, 12, lq, 128).to(cuda, dtype)
+    k = _normal(rng, 1, 2, lk, 128).to(cuda, dtype)
+    v = _normal(rng, 1, 2, lk, 128).to(cuda, dtype)
+    reset_launches()
+    got = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["flash_attention"] == 1
+    kr, vr = k.repeat_interleave(6, 1), v.repeat_interleave(6, 1)
+    want = flash_ref.attention_kernel_ref(q, kr, vr, causal=True,
+                                          window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+    empty = flash_ref.no_key_value(vr)[:, :, None].to(dtype)
+    torch.testing.assert_close(got[:, :, :lq - lk].float(),
+                               empty.expand(-1, -1, lq - lk, -1).float(),
                                atol=FLASH_ATOL[dtype], rtol=0)
 
 
@@ -241,6 +278,32 @@ def test_template_kernel_matches_plain_version(cuda, t):
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-4)
     assert float(got[-2:].abs().max()) == 0.0     # constant, zero rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep_frac", [0.6, 0.8])
+@pytest.mark.parametrize("t", [1056, 1440, 4320, template_ops.MAX_T_BLOCK])
+def test_template_long_series_match_plain_version(cuda, t, keep_frac):
+    """The block path (T past the register path's 1,024 slots, up to the
+    shared-memory limit) at two keep fractions, labels equal."""
+    x = torch.from_numpy(_template_rows(np.random.default_rng(t), t)) \
+        .to(cuda)
+    reset_launches()
+    got = template_ops.criticality_scores(x, keep_frac)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["template"] == 1
+    want = template_ref.criticality_scores_ref(x, keep_frac)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-4)
+    assert torch.equal(got[:, 0] < 0.72, want[:, 0] < 0.72)
+    assert float(got[-2:].abs().max()) == 0.0     # constant, zero rows
+
+
+@pytest.mark.cuda
+def test_template_raises_past_the_shared_memory_limit(cuda):
+    t = template_ops.MAX_T_BLOCK + 48
+    with pytest.raises(ValueError, match=str(template_ops.MAX_T_BLOCK)):
+        template_ops.criticality_scores(torch.ones(2, t, device=cuda))
 
 
 def _stream_world():
