@@ -10,8 +10,9 @@ instantiation must have HGMMA and UTMALDG), holds
 each kernel against its plain torch version on the card, at the paths'
 shapes and at each kernel's edge shapes (forest:
 one row, ragged batches, stacks over 48 KB of tables, depths 1, 8 and
-12, K 1, 4 and 10; template: T 48 to 1,056, constant, zero and tied
-rows, and its block path timed at 8,000 x 1,440 and 8,000 x 4,320;
+12, K 1, 4 and 10; template: T 48 to 1,056 and 6,192 (the medians'
+digit select), constant, zero and tied rows, and its block path timed at 8,000 x 1,440 and 8,000 x 4,320, its
+static shared memory within what `MAX_T_BLOCK` leaves it;
 flash and SSD in bf16, flash also causal at Lk < Lq, whose first
 Lq - Lk rows see no key, and at head dims 20 and 100, timed at Zamba2's
 heads; SSD also on the model's strided views of one conv buffer, which
@@ -615,13 +616,13 @@ def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
 
 def template_bound_ms(b: int, t: int) -> tuple[float, str]:
     """Least time for (B, T) template scores: each series read once and
-    two ratios written, against the float32 operations of the sort-based
-    oracle (de-trend and normalize ~8 per slot; per period a median sort
-    over the repetitions, deviation, a sort of the deviations and the
-    sum of the smallest 80 %)."""
-    per_period = sum(t * math.log2(max(t // p, 2)) + 2 * t
-                     + t * math.log2(t) + 0.8 * t for p in (48, 24, 16))
-    return bound((b * t + b * 2) * 4, b * (8 * t + per_period),
+    two ratios written, against the float32 operations the function
+    needs (de-trend and normalize ~8 per slot; per period a median and a
+    k-th smallest, each a linear select at one compare a slot, the
+    deviation's subtract and absolute value, and the sum of the kept
+    slots)."""
+    per_period = t + 2 * t + t + 0.8 * t
+    return bound((b * t + b * 2) * 4, b * (8 * t + 3 * per_period),
                  FP32_OPS_PER_S)
 
 
@@ -1173,13 +1174,15 @@ def edge_sweep(seed: int, dev) -> dict:
 #: K) at F = 18 — one row, a ragged batch, stacks over the 48 KB of
 #: shared memory (T = 100 and 256 at D = 6), depths 1 and 8, K = 1, 4 and
 #: 10, and a stack of 400 trees at depth 12 that takes two tree tiles.
-#: Template: T = 48, 96, 480 and 1,008 slots, and 1,056, the block
-#: path's first (at keep_frac 0.6 too).
+#: Template: T = 48, 96, 480 and 1,008 slots, 1,056, the block path's
+#: first (at keep_frac 0.6 too), and 6,192, the first whose medians take
+#: the digit select (labels equal there).
 FOREST_EDGES = [(1, 4, 48, 6, 2), (300, 4, 48, 6, 2), (256, 4, 100, 6, 2),
                 (256, 4, 256, 6, 2), (256, 4, 48, 1, 2), (256, 4, 48, 8, 2),
                 (256, 4, 48, 6, 1), (256, 4, 48, 6, 4), (256, 4, 48, 6, 10),
                 (256, 1, 400, 12, 2)]
 TEMPLATE_EDGES = (48, 96, 480, 1008, 1056)
+TEMPLATE_DIGIT_T = 6192
 
 
 def template_edge_rows(pop, t: int, rng) -> np.ndarray:
@@ -1231,6 +1234,12 @@ def placement_edge_sweep(pop, seed: int, dev) -> dict:
                                        timed=False))
     template.append(template_phase(template_edge_rows(pop, 1056, rng), dev,
                                    timed=False, keep_frac=0.6))
+    digits = template_phase(template_edge_rows(pop, TEMPLATE_DIGIT_T, rng),
+                            dev, timed=False)
+    check(digits["label_agreement"] == 1.0,
+          f"template labels equal at T = {TEMPLATE_DIGIT_T} (the medians' "
+          "digit select)")
+    template.append(digits)
     return {"forest": forest, "template": template}
 
 
@@ -4213,6 +4222,12 @@ def main(argv=None) -> int:
         check(res_long[t]["label_agreement"] == 1.0,
               f"labels equal at T {t}")
         emit(f"template_long_{t}", **res_long[t])
+    from repro_torch.kernels.template import ops as template_ops
+    block_smem = template_ops.block_static_smem()
+    check(block_smem <= template_ops.BLOCK_STATIC_SMEM,
+          f"the block kernel's static shared memory ({block_smem} bytes) "
+          f"within the {template_ops.BLOCK_STATIC_SMEM} that MAX_T_BLOCK "
+          "leaves it")
 
     # 5. the main path, with every launch count at 0 just before it
     #    budget: each chassis may commit its share of the rho the
@@ -4479,7 +4494,9 @@ def main(argv=None) -> int:
          "edge_max_rel_err": max(r["max_rel_err"]
                                  for r in edges["template"]),
          "fleet": res_fleet,
-         **{f"long_{t}": res_long[t] for t in TEMPLATE_LONG_T}},
+         **{f"long_{t}": res_long[t] for t in TEMPLATE_LONG_T},
+         "block_static_smem": block_smem,
+         "max_t_block": template_ops.MAX_T_BLOCK},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:73",

@@ -42,6 +42,7 @@ SIGNATURES = {
                     _I, _I, _P],
     "criticality_scores": [_P, _P, _I, _I, _I, _I, _P],
     "criticality_scores_long": [_P, _P, _I, _I, _I, _P],
+    "criticality_block_static_smem": [],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _P],
     # x, dt, a, b, c, d, y; batch, L, H, P, N, bf16; the row strides of

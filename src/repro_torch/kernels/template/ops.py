@@ -16,15 +16,20 @@ from repro_torch.kernels.template import ref
 
 #: Longest series of the register path (slots): 32 registers a lane.
 MAX_T = 1024
-#: Shared memory a block may have on the H100 (227 KB), and what the
-#: block path keeps beside its two float32 buffers of T slots (the row,
-#: then the cumsum and one period's deviations): its templates and
-#: reduction slots, rounded up.
+#: Shared memory a block may have on the H100 (227 KB), and the block
+#: kernel's static arrays beside its buffer: the selection's three 256-bin
+#: histograms (3,072 bytes; the medians' eight of 32 bins reuse them),
+#: the 88 templates (352), the float64 and count reductions (192 + 96),
+#: the three selections' state (48) and the 48 columns' least and largest
+#: keys (384). `criticality_block_static_smem()` reads the compiled
+#: kernel's figure.
 SMEM_PER_BLOCK = 232448
-BLOCK_STATIC_SMEM = 1024
-#: Longest series the kernel takes (slots): whole days whose two buffers
-#: fit the block's shared memory, 28,896 (602 days).
-MAX_T_BLOCK = (SMEM_PER_BLOCK - BLOCK_STATIC_SMEM) // 8 // 48 * 48
+BLOCK_STATIC_SMEM = 4144
+#: Longest series the kernel takes (slots): whole days whose one buffer
+#: (48 columns of R = T / 48 floats, R + 1 when R is even; 192 bytes a
+#: repetition) fits beside the static arrays: R at most 1,189, so 57,072
+#: slots (1,189 days).
+MAX_T_BLOCK = 48 * (((SMEM_PER_BLOCK - BLOCK_STATIC_SMEM) // 192 - 1) | 1)
 #: Share of the smallest deviations the template score averages, the
 #: reference's default.
 KEEP_FRAC = 0.8
@@ -39,6 +44,14 @@ def keep_count(t: int, keep_frac: float) -> int:
         raise ValueError(f"keep_frac {keep_frac} keeps {k} of {t} slots: "
                          "it must keep between 1 and T")
     return k
+
+
+def block_static_smem() -> int:
+    """The compiled block kernel's static shared memory in bytes (needs
+    the card); BLOCK_STATIC_SMEM must cover it."""
+    n = build.load().criticality_block_static_smem()
+    build.check(-n if n < 0 else 0, "criticality_block_static_smem")
+    return n
 
 
 def criticality_scores(series: torch.Tensor,
@@ -59,8 +72,8 @@ def criticality_scores(series: torch.Tensor,
         raise ValueError("series must be contiguous float32")
     if t > MAX_T_BLOCK:
         raise ValueError(f"series of {t} slots exceed the kernel's "
-                         f"{MAX_T_BLOCK}: a block holds a row and one "
-                         "buffer of T slots in its shared memory")
+                         f"{MAX_T_BLOCK}: a block holds the row in its "
+                         "shared memory")
     out = torch.empty((b, 2), dtype=torch.float32, device=series.device)
     if b == 0:
         return out

@@ -127,28 +127,77 @@ def test_long_series_match_reference_score(days, keep_frac):
                                rtol=3e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("case", ["normal", "ties", "signed_zeros",
-                                  "constant"])
-@pytest.mark.parametrize("t", [240, 1440, 4320])
-def test_radix_medians_equal_sorted_medians(case, t):
-    """The long-series path's per-slot medians (order-key radix select,
-    emulated in `ref.slot_medians_radix`) equal the sort's, for odd and
-    even repetition counts (T / 48 = 5, 30, 90; T / 16 = 15, 90, 270), on
-    negative values, ties and both zeros."""
-    rng = np.random.default_rng(t)
+#: Cases of the long-series path's selects: normal values, ties, both
+#: zeros (tiny values beside them), constant rows, and infinities.
+DIGIT_CASES = ["normal", "ties", "signed_zeros", "constant", "with_inf"]
+
+
+def _digit_rows(case, shape, rng):
+    """float32 rows of `shape` for a case of DIGIT_CASES: for the medians
+    the normalized row (any sign), for the selection (`abs`) the
+    deviations, non-negative as |x - template| makes them."""
     if case == "normal":
-        x = rng.normal(0, 1, (6, t))
+        x = rng.normal(0, 1, shape)
     elif case == "ties":
-        x = rng.choice([-1.0, 0.0, 0.5, 2.0], (6, t))
+        x = rng.choice([-1.0, 0.0, 0.5, 2.0], shape)
     elif case == "signed_zeros":
-        x = rng.choice([-0.0, 0.0, -1e-30, 1e-30], (6, t))
+        x = rng.choice([-0.0, 0.0, -1e-30, 1e-30], shape)
+    elif case == "constant":
+        x = np.full(shape, -3.25)
     else:
-        x = np.full((2, t), -3.25)
-    x = torch.as_tensor(x.astype(np.float32))
+        x = rng.normal(0, 1, shape)
+        x[..., ::7] = np.inf
+        x[..., 3::11] = -np.inf
+    return torch.as_tensor(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", DIGIT_CASES)
+@pytest.mark.parametrize("t", [240, 1440, 4320, 6144, 6192,
+                               ops.MAX_T_BLOCK])
+def test_radix_medians_equal_sorted_medians(case, t):
+    """The long-series path's per-slot medians over the 48-column layout's
+    1 to 3 runs a slot, both ways the kernel takes them (a register radix
+    walk that stops on one key, `ref.slot_medians_walk`, up to 128
+    repetitions a column; 5-bit digit selects, `ref.slot_medians_digits`,
+    past them; `ref.slot_medians_block` picks as the kernel does), equal
+    the sort's bit for bit, for odd and even repetition counts (T / 48 =
+    5, 30, 90, 128, 129, 1,189; T / 16 = 15, 90, 270, 384, 387, 3,567),
+    on negative values, ties, both zeros, constant slots and infinities;
+    6,144 and 6,192 are the last walk and the first digit select."""
+    rng = np.random.default_rng(t)
+    x = _digit_rows(case, (6 if t <= 6192 else 2, t), rng)
     for p in (48, 24, 16):
-        np.testing.assert_array_equal(
-            ref.slot_medians_radix(x, p).numpy(),
-            PTS.extract_template(x, p).numpy())
+        want = PTS.extract_template(x, p).numpy()
+        for fn in (ref.slot_medians_walk, ref.slot_medians_digits,
+                   ref.slot_medians_block):
+            np.testing.assert_array_equal(fn(x, p).numpy(), want,
+                                          err_msg=fn.__name__)
+
+
+@pytest.mark.parametrize("case", DIGIT_CASES)
+@pytest.mark.parametrize("t", [1440, 4320, ops.MAX_T_BLOCK])
+@pytest.mark.parametrize("keep", ["one", "all", 0.6, 0.8])
+def test_digit_selection_picks_the_k_smallest(case, t, keep):
+    """The long-series path's selection of the three periods' k-th
+    smallest deviations in the same 8-bit digit rounds
+    (`ref.smallest_k_digits`) against a sort: v_k and the count under it
+    bit for bit, so sum(d < v_k) + (k - below) v_k sums the k values the
+    sort-based oracle sums (to float64 rounding: another order); at most
+    four rounds, all four on a constant row."""
+    k = {"one": 1, "all": t}.get(keep) or ops.keep_count(t, keep)
+    rng = np.random.default_rng(t + k)
+    dev = _digit_rows(case, (4 if t <= 4320 else 2, 3, t), rng).abs()
+    kth, below, rounds, total = ref.smallest_k_digits(dev, k)
+    srt = torch.sort(dev, dim=-1).values
+    assert torch.equal(kth, srt[..., k - 1])
+    assert torch.equal(below, (dev < kth[..., None]).sum(-1))
+    assert bool((below < k).all())
+    assert bool((rounds <= 4).all())
+    if case == "constant":
+        assert bool((rounds == 4).all())
+    np.testing.assert_allclose(total.numpy(),
+                               srt[..., :k].double().sum(-1).numpy(),
+                               rtol=1e-12, atol=0)
 
 
 def test_keep_frac_must_keep_a_slot():
@@ -156,7 +205,7 @@ def test_keep_frac_must_keep_a_slot():
         ops.criticality_scores(torch.ones(2, 48), 0.0)
     with pytest.raises(ValueError, match="keep_frac"):
         ops.criticality_scores(torch.ones(2, 48), 1.2)
-    assert ops.MAX_T_BLOCK == 28896 and ops.MAX_T_BLOCK % 48 == 0
+    assert ops.MAX_T_BLOCK == 57072 and ops.MAX_T_BLOCK % 48 == 0
 
 
 def test_wrapper_rejects_bad_shapes():

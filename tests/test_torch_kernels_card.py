@@ -25,10 +25,12 @@ The forest kernel runs one row, ragged batches, stacks over 48 KB of
 tables (T 100 and 256 at D 6), depths 1, 8 and 12 (two tree tiles), K 1,
 4 and 10, and batches that take 16 and 8 lanes a row; the template
 kernel T 48 to 1,008 with constant, all-zero and tied rows, and its
-block path at T 1,056, 1,440, 4,320 and its limit, at keep_frac 0.6 and
-0.8. Flash also runs causal at Lk < Lq (the rows before the first key
-written as the reference's kernel writes them) and head dims 20 and 100,
-which the wrapper pads to a multiple of 8.
+block path at T 1,056, 1,440, 4,320 and its limit (57,072), at
+keep_frac 0.6 and 0.8, with rows in which every deviation ties (the
+hot bin of every digit round). Flash also runs causal at Lk < Lq (the
+rows before the first key written as the reference's kernel writes
+them) and head dims 20 and 100, which the wrapper pads to a multiple of
+8.
 
 The streamed serving loop (`submit_to`, `depart_to`, `cap_to`, `flush`
 with the power-emergency plane) runs on the card at a small width: its
@@ -280,9 +282,16 @@ def test_template_kernel_matches_plain_version(cuda, t):
     assert float(got[-2:].abs().max()) == 0.0     # constant, zero rows
 
 
+#: Slots of the block path's tests: its first, 30 and 90 days, the
+#: medians' register walk at each of its register tiles (1,056 / 1,440
+#: one, 2,880 two, 4,320 three, 6,144 four), the first digit select
+#: (6,192) and the shared-memory limit.
+LONG_T = [1056, 1440, 2880, 4320, 6144, 6192, template_ops.MAX_T_BLOCK]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("keep_frac", [0.6, 0.8])
-@pytest.mark.parametrize("t", [1056, 1440, 4320, template_ops.MAX_T_BLOCK])
+@pytest.mark.parametrize("t", LONG_T)
 def test_template_long_series_match_plain_version(cuda, t, keep_frac):
     """The block path (T past the register path's 1,024 slots, up to the
     shared-memory limit) at two keep fractions, labels equal."""
@@ -300,10 +309,32 @@ def test_template_long_series_match_plain_version(cuda, t, keep_frac):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("keep_frac", [0.6, 0.8])
+@pytest.mark.parametrize("t", LONG_T)
+def test_template_long_series_all_ties(cuda, t, keep_frac):
+    """Rows whose every deviation ties (constant rows: each template is
+    the row, each deviation 0), beside one random row: every digit round
+    of the selection puts the whole row in one bin."""
+    rng = np.random.default_rng(t + 1)
+    x = torch.from_numpy(np.concatenate(
+        [np.full((1, t), v) for v in (25.0, 0.0, 100.0, 0.5)]
+        + [rng.uniform(0, 100, (1, t))]).astype(np.float32)).to(cuda)
+    reset_launches()
+    got = template_ops.criticality_scores(x, keep_frac)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["template"] == 1
+    want = template_ref.criticality_scores_ref(x, keep_frac)
+    torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-4)
+    assert float(got[:4].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
 def test_template_raises_past_the_shared_memory_limit(cuda):
     t = template_ops.MAX_T_BLOCK + 48
     with pytest.raises(ValueError, match=str(template_ops.MAX_T_BLOCK)):
         template_ops.criticality_scores(torch.ones(2, t, device=cuda))
+    assert 0 < template_ops.block_static_smem() \
+        <= template_ops.BLOCK_STATIC_SMEM
 
 
 def _stream_world():

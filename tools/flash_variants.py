@@ -40,25 +40,26 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY = [_P] * 4 + [_I] * 10 + [_F]
 
 
-def nvcc_lib(src: Path, out: Path, include: Path) -> ctypes.CDLL:
+def nvcc_lib(src: Path, out: Path, include: Path,
+             kernel: str = "flash_kernel_bf16") -> ctypes.CDLL:
     """`src` compiled and linked alone into `out` with the port's flags;
-    prints ptxas's registers and spills for each bf16 flash kernel."""
+    prints ptxas's registers, shared memory and spills for each function
+    whose name holds `kernel`, and its performance advisories."""
     from repro_torch.kernels import build
     out.parent.mkdir(parents=True, exist_ok=True)
     log = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
                           str(include), "-shared", str(src), "-o", str(out)],
                          check=True, capture_output=True, text=True)
+    text = log.stdout + log.stderr
     fn, regs = None, {}
-    for ln in (log.stdout + log.stderr).splitlines():
+    for ln in text.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
             fn = m.group(1)
-        elif fn and "flash_kernel_bf16" in fn and ("spill" in ln
-                                                   or "registers" in ln):
+        elif fn and kernel in fn and ("spill" in ln or "registers" in ln):
             regs[fn] = (regs.get(fn, "") + " " + ln.split(":")[-1].strip())
-    notes = sorted({re.sub(r"around line \\d+ ", "", ln.strip())
-                    for ln in (log.stdout + log.stderr).splitlines()
-                    if "(C75" in ln})
+    notes = sorted({re.sub(r"around line \d+ ", "", ln.strip())
+                    for ln in text.splitlines() if "(C75" in ln})
     print(json.dumps({"library": out.name, "ptxas": regs,
                       "advisories": notes}), flush=True)
     return ctypes.CDLL(str(out))

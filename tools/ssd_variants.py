@@ -32,11 +32,12 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+from flash_variants import nvcc_lib
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -48,31 +49,6 @@ ATOL, RTOL = 2e-2, 2.0 ** -7
 _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_uint64
 ENTRY = [_P] * 7 + [_I] * 5 + [_L] * 7 + [_P, _U]
-
-
-def nvcc_lib(src: Path, out: Path, include: Path) -> ctypes.CDLL:
-    """`src` compiled and linked alone into `out` with the port's flags;
-    prints ptxas's registers and spills for each bf16 SSD kernel and its
-    performance advisories."""
-    from repro_torch.kernels import build
-    out.parent.mkdir(parents=True, exist_ok=True)
-    log = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
-                          str(include), "-shared", str(src), "-o", str(out)],
-                         check=True, capture_output=True, text=True)
-    text = log.stdout + log.stderr
-    fn, regs = None, {}
-    for ln in text.splitlines():
-        m = re.search(r"Function properties for (\S+)", ln)
-        if m:
-            fn = m.group(1)
-        elif fn and "ssd_kernel_bf16" in fn and ("spill" in ln
-                                                 or "registers" in ln):
-            regs[fn] = (regs.get(fn, "") + " " + ln.split(":")[-1].strip())
-    notes = sorted({re.sub(r"around line \d+ ", "", ln.strip())
-                    for ln in text.splitlines() if "(C75" in ln})
-    print(json.dumps({"library": out.name, "ptxas": regs,
-                      "advisories": notes}), flush=True)
-    return ctypes.CDLL(str(out))
 
 
 def device_ms(fn, calls: int = 20, runs: int = 7) -> float:
@@ -245,7 +221,7 @@ def main(argv=None) -> int:
     csrc = ROOT / "src" / "repro_torch" / "csrc"
     out_dir = ROOT / "build" / "ssd_variants"
     lib = nvcc_lib(ROOT / "tools" / "ssd_variants.cu",
-                   out_dir / "libssd_variants.so", csrc)
+                   out_dir / "libssd_variants.so", csrc, "ssd_kernel_bf16")
     lib.ssd_variant.argtypes = ENTRY + [_I] * 4 + [_P]
     lib.ssd_variant.restype = _I
     lib.ssd_scratch_bytes.argtypes = [_I, _I, _I]
@@ -257,14 +233,14 @@ def main(argv=None) -> int:
     if args.parent is not None:
         psrc = args.parent / "src" / "repro_torch" / "csrc"
         parent = nvcc_lib(psrc / "ssd.cu", out_dir / "libssd_parent.so",
-                          psrc)
+                          psrc, "ssd_kernel_bf16")
         parent.ssd_scan.argtypes = [_P] * 7 + [_I] * 6 + [_P]
         parent.ssd_scan.restype = _I
     against = {}
     for i, tree in enumerate(args.against):
         asrc = tree / "src" / "repro_torch" / "csrc"
         alt = nvcc_lib(asrc / "ssd.cu", out_dir / f"libssd_against{i}.so",
-                       asrc)
+                       asrc, "ssd_kernel_bf16")
         alt.ssd_scan.argtypes = [_P] * 7 + [_I] * 6 + [_L] * 7 + [_P, _U,
                                                                    _P]
         alt.ssd_scan.restype = _I
