@@ -929,10 +929,14 @@ def flash_phase(b: int, l: int, seed: int, dev) -> dict:
 
 #: Flash shapes no model path gives the kernel, which the reference's
 #: wrapper takes: (B, Hq, Hkv, Lq, Lk, D, window), causal, bf16 —
-#: Zamba2's heads at Lk 200 < Lq 512 (312 rows see no key), and Zamba2's
-#: prefill at head dim 100, which the wrapper pads to 104.
+#: Zamba2's heads at Lk 200 < Lq 512 (312 rows see no key), Zamba2's
+#: prefill at head dim 100, which the wrapper pads to 104, and d_model
+#: 4,096 in heads of 256 (Gemma 7B's head dim; the Hopper kernel's 256
+#: tiling) and of 320 (past the tilings: the kernel that splits D).
 FLASH_GAPS = {"lk_below_lq": (8, 32, 32, 512, 200, 80, None),
-              "d100": (8, 32, 32, 512, 512, 100, None)}
+              "d100": (8, 32, 32, 512, 512, 100, None),
+              "d256": (8, 16, 16, 512, 512, 256, None),
+              "d320": (8, 16, 16, 512, 512, 320, None)}
 
 
 def flash_gaps(seed: int, dev) -> dict:
@@ -971,9 +975,11 @@ def flash_gaps(seed: int, dev) -> dict:
             q, kr, vr, causal=True, window=window))
         out["library_ms"] = None
         if lq == lk:
-            out["library_ms"] = cuda_ms(
-                lambda: F.scaled_dot_product_attention(q, kr, vr,
-                                                       is_causal=True))
+            def sdpa():
+                return F.scaled_dot_product_attention(q, kr, vr,
+                                                      is_causal=True)
+            out["library_ms"] = cuda_ms(sdpa)
+            out["library_device_ms"] = device_ms(sdpa)
         out["device_ms"] = device_ms(call)
         out["bound_ms"], out["bound_by"] = flash_bound_ms(b, hq, lq, lk, d,
                                                           2, hkv)
@@ -983,6 +989,7 @@ def flash_gaps(seed: int, dev) -> dict:
         # with no key, the wrapper's pads and slice (per call, 20 calls)
         prof = device_profile(lambda: [call() for _ in range(20)],
                               kernels=("flash_kernel_bf16",
+                                       "flash_kernel_wide",
                                        "no_key_rows_kernel"))
         out["profile_per_call"] = {
             "device_busy_ms": prof["device_busy_ms"] / 20,
@@ -1084,13 +1091,17 @@ def ssd_phase(b: int, l: int, seed: int, dev, exact: bool) -> dict:
 #: 16 by the maps' zero fill; Lq 64 over Lk 1,500 non-causal, a block
 #: whose second warpgroup has no row; causal at Lk < Lq (GQA rep 6, D
 #: 128, with a window of 16 too), whose first Lq - Lk rows see no key;
-#: D 20 and 100, which the wrapper pads to 24 and 104. SSD: (B, L, H, P,
-#: N) — ragged L,
+#: D 20 and 100, which the wrapper pads to 24 and 104; then head dims
+#: past 128: 192 and 256 (the tilings that read Q in place; with a
+#: window, and at Lk < Lq), 136 (padded to 192) over 1,500 keys, and 320
+#: (the kernel that splits D). SSD: (B, L, H, P, N) — ragged L,
 #: N 128, P 16, and P, N the wrapper pads to multiples of 8; then the
 #: Hopper kernel's work tiles (chunks of 64 steps, 2 heads): a hand-over
 #: chain of 128 chunks (1 x 8,192 at 4 heads), a partial head group (81
 #: heads), L 100 (two chunks, the second ragged) and L 40 (shorter than
-#: one chunk).
+#: one chunk); then P past 64 (two slices; 96, a partial one) with N 256
+#: and 136 (four atoms), and N 320 (the state in device memory). Cases
+#: past D 128, P 64 or N 128 run in float32 too, at its bar.
 FLASH_EDGES = [(2, 4, 2, 300, 300, 80, True, None),
                (2, 4, 2, 300, 700, 80, True, None),
                (2, 4, 2, 512, 512, 80, True, 128),
@@ -1110,11 +1121,18 @@ FLASH_EDGES = [(2, 4, 2, 300, 300, 80, True, None),
                (1, 12, 2, 300, 200, 128, True, None),
                (1, 12, 2, 700, 72, 128, True, 16),
                (2, 4, 2, 300, 700, 20, True, 128),
-               (2, 4, 2, 300, 300, 100, True, None)]
+               (2, 4, 2, 300, 300, 100, True, None),
+               (2, 4, 2, 300, 300, 192, True, None),
+               (2, 4, 2, 300, 700, 256, True, 128),
+               (1, 12, 2, 300, 200, 256, True, None),
+               (2, 4, 4, 64, 1500, 136, False, None),
+               (2, 4, 2, 300, 300, 320, True, None)]
 SSD_EDGES = [(2, 200, 80, 64, 64), (2, 200, 4, 64, 128),
              (2, 200, 4, 16, 64), (2, 300, 3, 40, 20),
              (1, 8192, 4, 64, 64), (2, 512, 81, 64, 64),
-             (2, 100, 80, 64, 64), (2, 40, 80, 64, 64)]
+             (2, 100, 80, 64, 64), (2, 40, 80, 64, 64),
+             (2, 200, 4, 128, 256), (2, 300, 3, 96, 136),
+             (1, 200, 2, 160, 320)]
 
 
 def edge_sweep(seed: int, dev) -> dict:
@@ -1134,30 +1152,38 @@ def edge_sweep(seed: int, dev) -> dict:
 
     flash = []
     for b, hq, hkv, lq, lk, d, causal, window in FLASH_EDGES:
-        q = randn(b, hq, lq, d).bfloat16()
-        k, v = randn(b, hkv, lk, d).bfloat16(), randn(b, hkv, lk, d).bfloat16()
+        q32 = randn(b, hq, lq, d)
+        k32, v32 = randn(b, hkv, lk, d), randn(b, hkv, lk, d)
         rep = hq // hkv
-        got = fops.flash_attention(q, k, v, causal=causal, window=window)
-        want = fref.attention_kernel_ref(q, k.repeat_interleave(rep, 1),
-                                         v.repeat_interleave(rep, 1),
-                                         causal=causal, window=window)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
         case = [b, hq, hkv, lq, lk, d, causal, window]
-        check(bool(torch.isfinite(got).all()), f"flash edge {case} finite")
-        check(err <= FLASH_ATOL["bfloat16"], f"flash edge {case} within "
-              f"{FLASH_ATOL['bfloat16']} of its plain version: {err}")
-        flash.append({"case": case, "max_abs_err": err})
+        rec = {"case": case}
+        for dt in (torch.bfloat16, torch.float32)[:1 + (d > 128)]:
+            name = str(dt).split(".")[1]
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            got = fops.flash_attention(q, k, v, causal=causal, window=window)
+            want = fref.attention_kernel_ref(q, k.repeat_interleave(rep, 1),
+                                             v.repeat_interleave(rep, 1),
+                                             causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(bool(torch.isfinite(got).all()),
+                  f"flash edge {case} {name} finite")
+            check(err <= FLASH_ATOL[name], f"flash edge {case} {name} "
+                  f"within {FLASH_ATOL[name]} of its plain version: {err}")
+            rec["max_abs_err" if dt == torch.bfloat16
+                else "max_abs_err_float32"] = err
+        flash.append(rec)
     ssd = []
     for b, l, h, p, n in SSD_EDGES:
-        x = randn(b, l, h, p).bfloat16()
+        x32 = randn(b, l, h, p)
         dt = torch.nn.functional.softplus(randn(b, l, h))
         a = -torch.linspace(1.0, 16.0, h, device=dev)
-        bm, cm = randn(b, l, n).bfloat16(), randn(b, l, n).bfloat16()
+        bm32, cm32 = randn(b, l, n), randn(b, l, n)
         d = torch.ones(h, device=dev)
+        x, bm, cm = x32.bfloat16(), bm32.bfloat16(), cm32.bfloat16()
+        ch = min(sops.CHUNK, max(l, 8))
         got = sops.ssd(x, dt, a, bm, cm, d).float()
-        want = sref.ssd_chunked(x, dt, a, bm, cm, d,
-                                chunk=min(sops.CHUNK, max(l, 8))).float()
+        want = sref.ssd_chunked(x, dt, a, bm, cm, d, chunk=ch).float()
         torch.cuda.synchronize()
         err = (got - want).abs()
         case = [b, l, h, p, n]
@@ -1165,9 +1191,76 @@ def edge_sweep(seed: int, dev) -> dict:
         check(bool((err <= SSD_BF16_ATOL + SSD_BF16_RTOL * want.abs()).all()),
               f"SSD edge {case} within {SSD_BF16_ATOL} + {SSD_BF16_RTOL} "
               "relative of its plain version")
-        ssd.append({"case": case, "max_abs_err": err.max().item(),
-                    "max_abs_y": want.abs().max().item()})
+        rec = {"case": case, "max_abs_err": err.max().item(),
+               "max_abs_y": want.abs().max().item()}
+        if p > 64 or n > 128:
+            got = sops.ssd(x32, dt, a, bm32, cm32, d)
+            want = sref.ssd_chunked(x32, dt, a, bm32, cm32, d, chunk=ch)
+            torch.cuda.synchronize()
+            e32 = (got - want).abs().max().item()
+            check(e32 <= SSD_ATOL, f"SSD edge {case} float32 within "
+                  f"{SSD_ATOL} of its plain version: {e32}")
+            rec["max_abs_err_float32"] = e32
+        ssd.append(rec)
     return {"flash": flash, "ssd": ssd}
+
+
+#: SSD past Zamba2's widths (P 64, N 64), bf16, B 8 x 512: mamba2-2.7b's
+#: d_inner of 5,120 as 40 heads of P 128 with N 256 (the Hopper kernel's
+#: two P slices and four atoms of N), and the same at N 320 (the kernel
+#: that keeps the state in device memory); Zamba2's decays.
+SSD_WIDE = {"p128_n256": (8, 512, 40, 128, 256),
+            "p128_n320": (8, 512, 40, 128, 320)}
+
+
+def ssd_widths(seed: int, dev) -> dict:
+    """The SSD kernel at SSD_WIDE against its plain version at the bf16
+    bar, on the model's strided views bit-equal to the contiguous call
+    and to a repeat; timed beside the plain version and the bound."""
+    import torch
+    from repro_torch.kernels.ssd import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = {}
+    for name, (b, l, h, p, n) in SSD_WIDE.items():
+        buf = torch.randn((b, l, h * p + 2 * n), generator=gen,
+                          device=dev).bfloat16()
+        xs, bm, cm = torch.split(buf, [h * p, n, n], dim=-1)
+        xv = xs.reshape(b, l, h, p)
+        x = xv.contiguous()
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, l, h), generator=gen, device=dev))
+        a = -torch.linspace(1.0, 16.0, h, device=dev)
+        d = torch.ones(h, device=dev)
+        ch = min(ops.CHUNK, max(l, 8))
+        got = ops.ssd(x, dt, a, bm, cm, d)
+        want = ref.ssd_chunked(x, dt, a, bm, cm, d, chunk=ch).float()
+        one, two = ops.ssd(xv, dt, a, bm, cm, d), ops.ssd(xv, dt, a, bm, cm, d)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        check(bool(torch.isfinite(got).all()), f"SSD {name} finite")
+        check(bool((err <= SSD_BF16_ATOL + SSD_BF16_RTOL * want.abs()).all()),
+              f"SSD {name} within {SSD_BF16_ATOL} + {SSD_BF16_RTOL} "
+              "relative of its plain version")
+        check(torch.equal(one, got) and torch.equal(one, two),
+              f"SSD {name} on strided views bit-equal to the contiguous "
+              "call and to a repeat")
+        out = {"shape": [b, l, h, p, n], "plan": ops.plan(p, n, x.dtype),
+               "max_abs_err": err.max().item(),
+               "max_abs_y": want.abs().max().item(),
+               "strided_bit_equal": True, "repeat_bit_equal": True}
+        out["ms"] = cuda_ms(lambda: ops.ssd(x, dt, a, bm, cm, d))
+        out["device_ms"] = device_ms(lambda: ops.ssd(x, dt, a, bm, cm, d))
+        out["strided_device_ms"] = device_ms(
+            lambda: ops.ssd(xv, dt, a, bm, cm, d))
+        out["plain_ms"] = cuda_ms(
+            lambda: ref.ssd_chunked(x, dt, a, bm, cm, d, chunk=ch))
+        out["library_ms"] = None
+        out["bound_ms"], out["bound_by"] = ssd_bound_ms(b, l, h, p, n, 2)
+        out["bound_peaks"] = BF16_PEAKS
+        rates(out, ssd_ops(b, l, h, p, n))
+        res[name] = out
+    return res
+
 
 
 #: Edge shapes of the forest and template kernels. Forest: (B, NF, T, D,
@@ -4347,6 +4440,9 @@ def main(argv=None) -> int:
     gaps = flash_gaps(args.seed, dev)
     for name, res in gaps.items():
         emit(f"flash_attention_{name}", **res)
+    ssd_wide = ssd_widths(args.seed, dev)
+    for name, res in ssd_wide.items():
+        emit(f"ssd_{name}", **res)
 
     # the LM serving path: prefill through the kernels, serve_batch
     # through the cache path, each read from counts at 0
@@ -4521,7 +4617,7 @@ def main(argv=None) -> int:
          **{k: ssd["prefill"][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "shape", "tflops", "bound_share", "device_ms")},
-         "library_ms": None, "long": ssd["long"]},
+         "library_ms": None, "long": ssd["long"], **ssd_wide},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

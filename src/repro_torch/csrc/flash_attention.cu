@@ -18,15 +18,17 @@
 // row of a block (beyond the causal diagonal or before the window) are
 // skipped, which is exact for the same reason. With Lk < Lq the offset is
 // negative and, under a causal mask, the first Lq - Lk rows see no key:
-// the reference's kernel gives them the sum of v over 128 ceil(Lk / 128)
-// (its NEG makes every key of every 128-key tile weigh 1), and a second
-// small kernel (`no_key_rows_kernel`) writes them so after either design.
+// the reference's kernel gives them the sum of v over bk ceil(Lk / bk)
+// (its NEG makes every key of every tile of bk keys weigh 1; bk is its
+// keyword, 128 by default), and a second small kernel
+// (`no_key_rows_kernel`) writes them so after any design.
 //
 // What bounds it on the H100: at Zamba2's prefill (B*Hq = 256, L = 512,
 // D = 80, causal) the function needs ~10.8 GFLOP against ~84 MB of q, k,
 // v and o: 0.025 ms at 3.35 TB/s, 0.011 ms on the bf16 tensor cores, so
 // bytes bound it; at one 4,096-token prompt the products bound it
-// (0.087 ms). Two designs, by input type.
+// (0.087 ms). Two designs, by input type, up to D 256, and one for any D
+// past it (`flash_kernel_wide`, below).
 //
 // bf16 (the LM path): `flash_kernel_bf16<DP, WGS, BK, ST, MINB>`, built
 // for Hopper (sm_90a) after FlashAttention-3.
@@ -73,8 +75,16 @@
 //   bound can cut is not masked at all; one that can is masked by two
 //   compares a score against each row's column range.
 // - Tilings (DP, WGS, BK, ST): (16..80, 2, 128, 4), (96, 2, 128, 3),
-//   (128, 2, 64, 5). O leaves through a staging tile and a TMA store,
-//   which drops rows past Lq and columns past D.
+//   (128, 2, 64, 5), (192, 2, 64, 3), (256, 2, 64, 2); the wrapper picks
+//   the least DP >= D (`ops.tiling`). O leaves through a staging tile and
+//   a TMA store, which drops rows past Lq and columns past D.
+// - Past DP 128 a consumer's O alone takes DP / 2 = 128 registers a
+//   thread, and Q's fragments another DP / 4: Q stays in its tile and S
+//   = Q K^T reads both operands from shared memory; O is staged through
+//   Q's tile, which goes back to the producer once O's store has read it
+//   (the next work tile's Q loads after the last one's store, not
+//   ahead). Shared memory at DP 256: Q 64 KB, two stages of 64-key K and
+//   V 128 KB; at 192: 48 + 144 KB (three stages).
 // Measured by tools/flash_variants.py on an NVIDIA H100 80GB HBM3 at
 // 700.00 W (device ms a call, back-to-back, beside SDPA and the previous
 // mma.sync kernel in the same run, in turns): 8 x 32 heads x 512, D 80,
@@ -113,8 +123,12 @@
 // float32: `flash_kernel`, the CUDA-core design of the first port. Its
 // 2e-5 bar is beyond TF32's ~1e-3, so its products stay float32 FFMA
 // from shared memory (8 warps x 8 rows, a lane scoring keys lane and
-// lane + 32, the key tile padded to D + 1 floats): the rate of FFMA and
-// shared loads bounds it, not the card's bytes.
+// lane + 32, the key tile padded to D + 1 floats, D up to 128 or 256 in
+// 4 or 8 accumulator slots a lane): the rate of FFMA and shared loads
+// bounds it, not the card's bytes.
+//
+// Past D 256, either type: `flash_kernel_wide`, the float32 design with
+// D cut into passes for S and slices of O over blocks (below).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,8 +142,6 @@
 #define F32_THREADS 256
 #define N_WARPS (F32_THREADS / 32)
 #define RPW (F32_BQ / N_WARPS)  // query rows per warp
-#define MAX_D 128
-#define DSLOTS (MAX_D / 32)
 #define NEG (-1e30f)
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -151,6 +163,8 @@ static size_t smem_bytes(int d) {
                            (size_t)F32_BK * d + F32_BQ * F32_BK);
 }
 
+// DSLOTS columns of 32 a lane accumulates: D up to 32 DSLOTS (128 or 256)
+template <int DSLOTS>
 __global__ void __launch_bounds__(F32_THREADS)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int hq,
@@ -295,20 +309,28 @@ struct FlashMaps {
 // A head dim padded to DP (a multiple of 16): A atoms of 64 columns
 // (128-byte rows) and a tail of R columns (R * 2-byte rows); a tile of
 // `rows` rows keeps atom j at j * rows * 128 bytes and the tail after
-// the atoms. Every part starts on a 1,024-byte boundary.
+// the atoms. Every part starts on a 1,024-byte boundary. Up to DP 128 a
+// consumer holds its Q rows in registers (Q_REG) and O leaves through a
+// staging tile of its own; past it (192, 256: whole atoms) O's
+// accumulators alone take DP / 2 registers a thread, so S = Q K^T reads
+// Q's tile in place (both operands from shared memory) and O leaves
+// through Q's tile once the work tile's last S is done.
 template <int DP_, int WGS, int BK, int ST_, int MINB_>
 struct FlashCfg {
   static constexpr int DP = DP_, ST = ST_, MINB = MINB_;
   static constexpr int A = DP / 64, R = DP % 64, RB = 2 * R;
-  static_assert(DP % 16 == 0 && DP <= 128 && (R == 0 || R == 16 || R == 32),
-                "DP must be 16, 32, 64, 80, 96 or 128");
+  static constexpr bool Q_REG = DP <= 128;
+  static_assert(DP % 16 == 0 && DP <= 256 &&
+                    (R == 0 || (Q_REG && (R == 16 || R == 32))),
+                "DP must be 16, 32, 64, 80, 96, 128, 192 or 256");
   static_assert(BK == 64 || BK == 128, "BK must be 64 or 128");
+  static_assert(Q_REG || BK == 64, "Q read in place takes 64-key tiles");
   static constexpr int RSW = R == 16 ? 3 : 2;  // tail descriptor swizzle
   static constexpr int BQ = 64 * WGS;
   static constexpr int THREADS = 128 * (WGS + 1);  // and the producer's
   static constexpr int Q_BYTES = 64 * DP * 2;    // one warpgroup's rows
   static constexpr int KV_BYTES = BK * DP * 2;
-  static constexpr int OFF_O = WGS * Q_BYTES;  // O staging, Q's size
+  static constexpr int OFF_O = Q_REG ? WGS * Q_BYTES : 0;  // O staging
   static constexpr int OFF_K = OFF_O + WGS * Q_BYTES;
   static constexpr int OFF_V = OFF_K + ST * KV_BYTES;
   static constexpr int OFF_BAR = OFF_V + ST * KV_BYTES;
@@ -405,6 +427,17 @@ __device__ __forceinline__ void qk_issue(float (&sc)[BK / 2],
 #pragma unroll
   for (int kk = 0; kk < C::DP / 16; ++kk)
     wgmma_rs_k<BK>(sc, qf + 4 * kk, desc_k<C, BK>(k_addr, kk), kk > 0);
+}
+
+// the same with Q's tile (64 rows, K-major like K's) read in place
+template <class C, int BK>
+__device__ __forceinline__ void qk_issue_ss(float (&sc)[BK / 2],
+                                            uint32_t q_addr,
+                                            uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < C::DP / 16; ++kk)
+    wgmma_ss_k<BK>(sc, desc_k<C, 64>(q_addr, kk), desc_k<C, BK>(k_addr, kk),
+                   kk > 0);
 }
 
 // O += P V, issued: V (keys x D) is MN-major, a k-step 16 keys; each
@@ -605,7 +638,8 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
             work_tile<C::BQ, BK>(w, n_bh, n_qt, group, hq, rep, lq, q_offset,
                                  valid_lk, causal, window);
         // Q's tile is free once the consumers hold the last one in
-        // registers
+        // registers (Q_REG), or have stored the last work tile's O
+        // through it
         if (j > 0) mbar_wait(q_empty, (j - 1) & 1);
         mbar_expect_tx(q_full, WGS * C::Q_BYTES);
         for (int g = 0; g < WGS; ++g)
@@ -631,6 +665,7 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
     unsigned char* os = sm + C::OFF_O + wg * C::Q_BYTES;  // O staging
+    const uint32_t q_addr = smem_u32(sm + wg * C::Q_BYTES);
     constexpr int NO = DP / 2, NS = BK / 2;
     int ring = 0, j = 0;
     for (int k = 0; k * G < n_work; ++k) {
@@ -657,12 +692,15 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
       for (int i = 0; i < NO; ++i) o[i] = 0.0f;
       Rows st{NEG, NEG, 0.0f, 0.0f};
       const Mask mk{valid_lk, causal, window, wlo, whi, pos_a, pos_b, 2 * t};
-      // Q into registers, and its buffer back to the producer
-      uint32_t qf[DP / 4];
+      // Q into registers, and its buffer back to the producer (Q_REG);
+      // else Q's tile stays until O has left through it
+      uint32_t qf[C::Q_REG ? DP / 4 : 1];
       mbar_wait(q_full, j & 1);
-      load_q<C>(qf, sm + wg * C::Q_BYTES);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(q_empty);
+      if constexpr (C::Q_REG) {
+        load_q<C>(qf, sm + wg * C::Q_BYTES);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_empty);
+      }
       ++j;
 
       // The consumers take turns at issuing their products, in a ring
@@ -699,14 +737,18 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
         turn_begin();
         mbar_wait(&k_full[r % ST], (r / ST) & 1);
         reg_fence(sc);
-        reg_fence(qf);
+        if constexpr (C::Q_REG) reg_fence(qf);
         wgmma_fence();
-        qk_issue<C, BK>(sc, qf, k_tile<C>(sm, r % ST));
+        if constexpr (C::Q_REG)
+          qk_issue<C, BK>(sc, qf, k_tile<C>(sm, r % ST));
+        else
+          qk_issue_ss<C, BK>(sc, q_addr, k_tile<C>(sm, r % ST));
         wgmma_commit();
         turn_end();
         wgmma_wait<0>();
         reg_fence(sc);
-        reg_fence(qf);  // Q's registers stay Q's until S retires
+        // Q's registers stay Q's until S retires
+        if constexpr (C::Q_REG) reg_fence(qf);
         softmax_tile<BK>(sc, st, mk, kfirst + lo * BK, scale_log2, al_a,
                          al_b);
         pack_p<BK>(sc, pa);
@@ -718,16 +760,19 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
           reg_fence(sc);
           reg_fence(o);
           reg_fence(pa);
-          reg_fence(qf);
+          if constexpr (C::Q_REG) reg_fence(qf);
           wgmma_fence();  // from here to the commits: no branch
-          qk_issue<C, BK>(sc, qf, k_tile<C>(sm, rc % ST));
+          if constexpr (C::Q_REG)
+            qk_issue<C, BK>(sc, qf, k_tile<C>(sm, rc % ST));
+          else
+            qk_issue_ss<C, BK>(sc, q_addr, k_tile<C>(sm, rc % ST));
           wgmma_commit();
           pv_issue<C, BK>(o, pa, v_tile<C>(sm, rp % ST));
           wgmma_commit();
           turn_end();
           wgmma_wait<1>();  // S of tile it
           reg_fence(sc);
-          reg_fence(qf);
+          if constexpr (C::Q_REG) reg_fence(qf);
           softmax_tile<BK>(sc, st, mk, kfirst + it * BK, scale_log2, al_a,
                            al_b);
           wgmma_wait<0>();  // P V of tile it - 1
@@ -809,6 +854,13 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
                          wk.bh);
           tma_store_commit();
         }
+      }
+      if constexpr (!C::Q_REG) {
+        // Q's tile back to the producer once O's store has read it (every
+        // warp is past its last product: the barrier)
+        if (tid == 0 && wrows > 0) tma_store_wait_read();
+        named_sync(1 + wg, 128);
+        if (lane == 0) mbar_arrive(q_empty);
       }
     }
     if (tid == 0) tma_store_wait_read();  // before the block's smem goes
@@ -896,20 +948,183 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // ---- float32: CUDA cores -------------------------------------------------
 
+template <int DSLOTS>
 static int launch_f32(const void* q, const void* k, const void* v, void* o,
                       int bh, int hq, int rep, int lq, int lk, int d,
                       int q_offset, int valid_lk, int causal, int window,
                       float scale, cudaStream_t stream) {
+  // 213,248 bytes at D 256, of the 232,448 a block may have
   const size_t smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<DSLOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, (lq + F32_BQ - 1) / F32_BQ);
-  flash_kernel<<<grid, F32_THREADS, smem, stream>>>(
+  flash_kernel<DSLOTS><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), hq, rep, lq, lk,
       d, q_offset, valid_lk, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---- any D: CUDA cores, the output's columns in slices over blocks ------
+
+#define WIDE_DC 64   // columns of D a pass of S = Q K^T takes
+#define WIDE_DS 128  // columns of O a block owns
+
+static size_t wide_smem_bytes() {
+  return sizeof(float) * ((size_t)F32_BQ * WIDE_DC + F32_BK * (WIDE_DC + 1) +
+                          F32_BK * WIDE_DS + F32_BQ * F32_BK);
+}
+
+// Head dims past the tiled kernels' (256), in either type: the float32
+// kernel's loops (8 warps x 8 rows, a lane scoring keys lane and lane +
+// 32, float32 sums and probabilities, output rounded to T), with D cut
+// two ways. Block (head, query tile, slice) owns O's columns [128 slice,
+// + 128); for each key tile it rebuilds the whole S = Q K^T in passes of
+// 64 columns of D through shared memory, then adds P V over its own
+// columns of V. Every slice repeats S: slow, and right at any D (82,176
+// bytes of shared memory whatever D is).
+template <typename T>
+__global__ void __launch_bounds__(F32_THREADS)
+    flash_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int hq,
+                      int rep, int lq, int lk, int d, int q_offset,
+                      int valid_lk, int causal, int window, float scale) {
+  extern __shared__ float smem[];
+  constexpr int DK = WIDE_DC + 1, SLOTS = WIDE_DS / 32;
+  float* qs = smem;                   // F32_BQ x WIDE_DC
+  float* ks = qs + F32_BQ * WIDE_DC;  // F32_BK x (WIDE_DC + 1)
+  float* vs = ks + F32_BK * DK;       // F32_BK x WIDE_DS
+  float* ps = vs + F32_BK * WIDE_DS;  // F32_BQ x F32_BK probabilities
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x, q0 = blockIdx.y * F32_BQ;
+  const int s0 = blockIdx.z * WIDE_DS, ds = min(WIDE_DS, d - s0);
+  const int hkv = hq / rep;
+  const size_t kvh = (size_t)(bh / hq) * hkv + (bh % hq) / rep;
+  const T* qp = q + (size_t)bh * lq * d;
+  const T* kp = k + kvh * lk * d;
+  const T* vp = v + kvh * lk * d;
+
+  // keys any row of this block can attend
+  const int rows = min(F32_BQ, lq - q0);
+  const int qlo = q_offset + q0, qhi = qlo + rows - 1;
+  int kend = valid_lk;
+  if (causal) kend = min(kend, qhi + 1);
+  const int kstart = window > 0 ? max(0, qlo - window + 1) : 0;
+
+  float m[RPW], l[RPW], acc[RPW][SLOTS];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    m[r] = NEG;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < SLOTS; ++c) acc[r][c] = 0.0f;
+  }
+
+  for (int t0 = (kstart / F32_BK) * F32_BK; t0 < kend; t0 += F32_BK) {
+    float s[RPW][2];
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) s[r][0] = s[r][1] = 0.0f;
+    for (int c0 = 0; c0 < d; c0 += WIDE_DC) {
+      const int dc = min(WIDE_DC, d - c0);
+      __syncthreads();  // every warp is done with the previous pass
+      for (int i = tid; i < F32_BQ * WIDE_DC; i += F32_THREADS) {
+        const int r = i / WIDE_DC, c = i - r * WIDE_DC;
+        const bool col = c < dc;
+        qs[i] = col && q0 + r < lq
+                    ? to_f32(qp[(size_t)(q0 + r) * d + c0 + c])
+                    : 0.0f;
+        ks[r * DK + c] = col && t0 + r < lk
+                             ? to_f32(kp[(size_t)(t0 + r) * d + c0 + c])
+                             : 0.0f;
+      }
+      __syncthreads();
+      for (int c = 0; c < dc; ++c) {
+        const float k0 = ks[lane * DK + c], k1 = ks[(lane + 32) * DK + c];
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+          const float qv = qs[(warp * RPW + r) * WIDE_DC + c];
+          s[r][0] = fmaf(qv, k0, s[r][0]);
+          s[r][1] = fmaf(qv, k1, s[r][1]);
+        }
+      }
+    }
+    // this block's columns of V (every warp's P V of the previous tile
+    // is done: the passes' barriers)
+    for (int i = tid; i < F32_BK * WIDE_DS; i += F32_THREADS) {
+      const int r = i / WIDE_DS, c = i - r * WIDE_DS;
+      vs[i] = c < ds && t0 + r < lk
+                  ? to_f32(vp[(size_t)(t0 + r) * d + s0 + c])
+                  : 0.0f;
+    }
+
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int qpos = qlo + warp * RPW + r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kpos = t0 + lane + 32 * j;
+        bool ok = kpos < valid_lk;
+        if (causal) ok = ok && qpos >= kpos;
+        if (window > 0) ok = ok && qpos - kpos < window;
+        s[r][j] = ok ? s[r][j] * scale : NEG;
+      }
+      const float m_new = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
+      const float p0 = expf(s[r][0] - m_new), p1 = expf(s[r][1] - m_new);
+      const float alpha = expf(m[r] - m_new);
+      l[r] = alpha * l[r] + warp_sum(p0 + p1);
+      m[r] = m_new;
+      ps[(warp * RPW + r) * F32_BK + lane] = p0;
+      ps[(warp * RPW + r) * F32_BK + lane + 32] = p1;
+#pragma unroll
+      for (int c = 0; c < SLOTS; ++c) acc[r][c] *= alpha;
+    }
+    __syncthreads();  // V's columns are in
+
+    for (int j = 0; j < F32_BK; ++j) {
+      float vv[SLOTS];
+#pragma unroll
+      for (int c = 0; c < SLOTS; ++c) vv[c] = vs[j * WIDE_DS + lane + 32 * c];
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const float p = ps[(warp * RPW + r) * F32_BK + j];
+#pragma unroll
+        for (int c = 0; c < SLOTS; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int row = q0 + warp * RPW + r;
+    if (row >= lq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < SLOTS; ++c) {
+      const int col = lane + 32 * c;
+      if (col < ds)
+        from_f32(&o[((size_t)bh * lq + row) * d + s0 + col],
+                 acc[r][c] / denom);
+    }
+  }
+}
+
+template <typename T>
+static int launch_wide(const void* q, const void* k, const void* v, void* o,
+                       int bh, int hq, int rep, int lq, int lk, int d,
+                       int q_offset, int valid_lk, int causal, int window,
+                       float scale, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(bh, (lq + F32_BQ - 1) / F32_BQ, (d + WIDE_DS - 1) / WIDE_DS);
+  flash_kernel_wide<T><<<grid, F32_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), hq, rep, lq, lk, d,
+      q_offset, valid_lk, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -918,27 +1133,19 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o,
 // Under a causal mask with Lk < Lq the rows i < Lq - Lk sit before the
 // first key. The reference's kernel writes them as its finite NEG makes
 // them: a row whose every score is NEG keeps max NEG, so each key of each
-// 128-key tile, the zero keys padding Lk to that tile among them, takes
-// exp(NEG - NEG) = 1, and the row is the sum of v over the Lk keys over
-// 128 ceil(Lk / 128) (flash_attention.py:52-58 and ops.py:28-31 of the
-// reference's kernel package). The main kernels leave these rows to this
-// one, launched after them on the same stream: one block a query head.
-// The column sums go in 16-byte units of E values: thread (g, u) sums unit
+// key tile of bk keys, the zero keys padding Lk to that tile among them,
+// takes exp(NEG - NEG) = 1, and the row is the sum of v over the Lk keys
+// over bk ceil(Lk / bk) (flash_attention.py:52-58 and ops.py:28-31 of the
+// reference's kernel package; bk is its keyword, 128 by default). The
+// main kernels leave these rows to this one, launched after them on the
+// same stream: block (query head, slice) takes up to NK_THREADS 16-byte
+// units of E values of the row. The column sums: thread (g, u) sums unit
 // u of keys g, g + G, ... (G = NK_THREADS / units groups, a few keys
-// each), the groups add up in group order in shared memory, and the row
-// value goes out to every row as 16-byte stores.
+// each), the groups add up in group order in shared memory, and the
+// slice's value goes out to every row as 16-byte stores.
 #define NK_THREADS 256
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// d a multiple of 8 (so of E) up to 128; v, o and their rows at 16 bytes
+// d a multiple of 8 (so of E); v, o and their rows at 16 bytes
 template <typename T>
 __global__ void __launch_bounds__(NK_THREADS)
     no_key_rows_kernel(const T* __restrict__ v, T* __restrict__ o, int hq,
@@ -946,95 +1153,116 @@ __global__ void __launch_bounds__(NK_THREADS)
                        float n_keys) {
   constexpr int E = 16 / sizeof(T);  // values a 16-byte unit
   __shared__ float part[NK_THREADS * E];
-  __shared__ __align__(16) T val[128];
+  __shared__ __align__(16) T val[NK_THREADS * E];
   const int bh = blockIdx.x, tid = threadIdx.x;
   const size_t kvh = (size_t)(bh / hq) * (hq / rep) + (bh % hq) / rep;
   const T* vp = v + kvh * lk * d;
-  const int units = d / E, groups = NK_THREADS / units;
-  if (tid < groups * units) {
-    const int u = tid % units, g = tid / units;
+  const int units = d / E, u0 = blockIdx.y * NK_THREADS;
+  const int us = min(NK_THREADS, units - u0);  // this block's units
+  const int groups = NK_THREADS / us, w = us * E;
+  if (tid < groups * us) {
+    const int u = tid % us, g = tid / us;
     float acc[E];
 #pragma unroll
     for (int j = 0; j < E; ++j) acc[j] = 0.0f;
     for (int r = g; r < lk; r += groups) {
-      const uint4 w =
-          __ldg(reinterpret_cast<const uint4*>(vp + (size_t)r * d) + u);
-      const T* e = reinterpret_cast<const T*>(&w);
+      const uint4 x =
+          __ldg(reinterpret_cast<const uint4*>(vp + (size_t)r * d) + u0 + u);
+      const T* e = reinterpret_cast<const T*>(&x);
 #pragma unroll
       for (int j = 0; j < E; ++j) acc[j] += to_f32(e[j]);
     }
 #pragma unroll
-    for (int j = 0; j < E; ++j) part[g * d + u * E + j] = acc[j];
+    for (int j = 0; j < E; ++j) part[g * w + u * E + j] = acc[j];
   }
   __syncthreads();
-  if (tid < d) {
+  for (int c = tid; c < w; c += NK_THREADS) {
     float acc = 0.0f;
-    for (int g = 0; g < groups; ++g) acc += part[g * d + tid];
-    from_f32(&val[tid], acc / n_keys);
+    for (int g = 0; g < groups; ++g) acc += part[g * w + c];
+    from_f32(&val[c], acc / n_keys);
   }
   __syncthreads();
   const uint4* src = reinterpret_cast<const uint4*>(val);
   uint4* op = reinterpret_cast<uint4*>(o + (size_t)bh * lq * d);
-  for (int i = tid; i < n_rows * units; i += NK_THREADS)
-    op[i] = src[i % units];
+  for (long long i = tid; i < (long long)n_rows * us; i += NK_THREADS) {
+    const long long row = i / us;
+    const int u = (int)(i - row * us);
+    op[row * units + u0 + u] = src[u];
+  }
 }
 
 static int launch_no_key_rows(const void* v, void* o, int bh, int hq,
                               int rep, int lq, int lk, int d, int n_rows,
-                              int bf16, cudaStream_t stream) {
-  const float n_keys = (float)(128 * ((lk + 127) / 128));
+                              int bk, int bf16, cudaStream_t stream) {
+  const float n_keys = (float)((long long)bk * ((lk + bk - 1) / bk));
+  const int units = d / (bf16 ? 8 : 4);
+  dim3 grid(bh, (units + NK_THREADS - 1) / NK_THREADS);
   if (bf16)
-    no_key_rows_kernel<__nv_bfloat16><<<bh, NK_THREADS, 0, stream>>>(
+    no_key_rows_kernel<__nv_bfloat16><<<grid, NK_THREADS, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
         hq, rep, lq, lk, d, n_rows, n_keys);
   else
-    no_key_rows_kernel<float><<<bh, NK_THREADS, 0, stream>>>(
+    no_key_rows_kernel<float><<<grid, NK_THREADS, 0, stream>>>(
         static_cast<const float*>(v), static_cast<float*>(o), hq, rep, lq,
         lk, d, n_rows, n_keys);
   return (int)cudaGetLastError();
 }
 
+// the kernel for `tiling` (the wrapper's `ops.tiling`): bf16 DP of the
+// Hopper kernel's table, float32 128 or 256 (4 or 8 slots a lane), 0 the
+// wide kernel at any D
 static int launch_main(const void* q, const void* k, const void* v, void* o,
                        int bh, int hq, int rep, int lq, int lk, int d,
                        int q_offset, int valid_lk, int causal, int window,
-                       float scale, int bf16, cudaStream_t s) {
-  if (!bf16)
-    return launch_f32(q, k, v, o, bh, hq, rep, lq, lk, d, q_offset, valid_lk,
-                      causal, window, scale, s);
-#define FLASH_BF16(DP, WGS, BK, ST, MINB)                                  \
-  if (d <= DP)                                                             \
-    return launch_bf16<DP, WGS, BK, ST, MINB>(q, k, v, o, bh, hq, rep, lq, \
-                                              lk, d, q_offset, valid_lk,   \
-                                              causal, window, scale, s);
+                       float scale, int bf16, int tiling, cudaStream_t s) {
+  if (tiling > 0 && d > tiling) return (int)cudaErrorInvalidValue;
+#define FLASH_ARGS \
+  q, k, v, o, bh, hq, rep, lq, lk, d, q_offset, valid_lk, causal, window, \
+      scale, s
+  if (!bf16) {
+    if (tiling == 128) return launch_f32<4>(FLASH_ARGS);
+    if (tiling == 256) return launch_f32<8>(FLASH_ARGS);
+    if (tiling == 0) return launch_wide<float>(FLASH_ARGS);
+    return (int)cudaErrorInvalidValue;
+  }
+#define FLASH_BF16(DP, WGS, BK, ST, MINB) \
+  if (tiling == DP) return launch_bf16<DP, WGS, BK, ST, MINB>(FLASH_ARGS);
   FLASH_BF16(16, 2, 128, 4, 1)
   FLASH_BF16(32, 2, 128, 4, 1)
   FLASH_BF16(64, 2, 128, 4, 1)
   FLASH_BF16(80, 2, 128, 4, 1)
   FLASH_BF16(96, 2, 128, 3, 1)
   FLASH_BF16(128, 2, 64, 5, 1)
+  FLASH_BF16(192, 2, 64, 3, 1)
+  FLASH_BF16(256, 2, 64, 2, 1)
 #undef FLASH_BF16
+  if (tiling == 0) return launch_wide<__nv_bfloat16>(FLASH_ARGS);
+#undef FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // q (bh, lq, d), k/v (bh / rep, lk, d), o like q; bf16 != 0 means
 // __nv_bfloat16 operands, else float32. window <= 0 means none; scale is
 // D^-1/2 as the caller rounds it (from the true head dim where the caller
-// padded d). d must be a multiple of 8 and at most 128 and, for bf16, the
-// pointers 16-byte aligned (checked by the wrapper). q_offset = lk - lq
-// may be negative: with a causal mask the rows before the first key then
-// get the reference kernel's value (`no_key_rows_kernel`).
+// padded d). d must be a multiple of 8 and, for bf16, the pointers 16-byte
+// aligned (checked by the wrapper); `tiling` names the kernel (see
+// launch_main). q_offset = lk - lq may be negative: with a causal mask the
+// rows before the first key then get the reference kernel's value at key
+// tiles of `no_key_bk` (`no_key_rows_kernel`).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int bh, int hq, int rep, int lq,
                                int lk, int d, int q_offset, int valid_lk,
                                int causal, int window, float scale, int bf16,
-                               void* stream) {
+                               int tiling, int no_key_bk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lk == 0)  // no key: the output is zero, as with every key masked
     return (int)cudaMemsetAsync(o, 0, (size_t)bh * lq * d * (bf16 ? 2 : 4),
                                 s);
   const int err = launch_main(q, k, v, o, bh, hq, rep, lq, lk, d, q_offset,
-                              valid_lk, causal, window, scale, bf16, s);
+                              valid_lk, causal, window, scale, bf16, tiling,
+                              s);
   if (err != (int)cudaSuccess || !causal || q_offset >= 0) return err;
   return launch_no_key_rows(v, o, bh, hq, rep, lq, lk, d,
-                            q_offset < -lq ? lq : -q_offset, bf16, s);
+                            q_offset < -lq ? lq : -q_offset, no_key_bk, bf16,
+                            s);
 }

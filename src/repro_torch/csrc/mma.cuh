@@ -46,6 +46,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// a float32 or bf16 value to float32 and back (rounded to nearest), for
+// kernels templated on their element type
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
 // v = hi + lo with hi = bf16(v) and lo = bf16(v - hi): a float32 operand
 // as two bf16 passes through the tensor cores, exact to ~2^-17 relative.
 __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,

@@ -24,37 +24,40 @@
 // P = N = 64, bf16) the kernel moves ~88 MB (x and y dominate): 0.026 ms
 // at 3.35 TB/s. Its dual-form products (~2.1 MFLOP per chunk of 128 and
 // head) are ~11 GFLOP, 0.011 ms on the bf16 tensor cores, so bytes bound
-// the function. Two designs, by input type:
+// the function. Two designs, by input type, up to N 256, and one for any
+// N past it (`ssd_kernel_wide`, below). Every design cuts P into slices of
+// 64 over its blocks or work tiles: y's columns depend only on x's, while
+// C B^T and the decays, which each slice repeats, depend on neither.
 //
 // bf16 (the LM path): `ssd_kernel_bf16<G, NA, WGS, ST, MINB>`, built for
 // Hopper (sm_90a).
 // - Work. Chunks of SQ = 64 steps run in parallel: a work tile is (batch,
-//   chunk, G heads), numbered chunk major and taken from an atomic counter
-//   by persistent blocks (one an SM: WGS consumer warpgroups and a
-//   producer warp for each). Each tile computes its chunk's y_intra and
-//   its own state S_loc = x^T (w o B) (the products that take the time)
-//   without waiting; then it waits for chunk c - 1's final state of the
-//   same (batch, head), adds exp(cum) o (C S^T) to y and publishes S_c =
-//   exp(total) S + S_loc. Only that hand-over is serial along a sequence.
-// - Hand-over. S goes out in float32 to scratch in device memory, one
-//   slot per (batch, head): chunk c + 1 alone reads chunk c's state, and
-//   rewrites the slot after. Each thread writes its own accumulator
-//   fragments (thread-major, so a warp's accesses are whole 512-byte
-//   rows) as 16-byte units of two floats and a 64-bit tag (epoch << 32) |
-//   (chunk + 1), one relaxed vector store each: the hardware moves an
-//   aligned 16-byte access as one, so a reader that sees its tag has the
-//   floats stored with it, and no fence or flag sits on the chain (a
-//   flag published after a GPU-scope fence cost ~2.6 us a hop). The
-//   reader's warps each wait on their own: lane 0 spins on the warp's
-//   first unit, then the warp loads its units, again while a tag is
-//   missing. The epoch is new each call, so a unit an earlier call left
-//   never reads as ready and no memset is launched; the last block
-//   resets the counter. Forward progress: a tile waits only for a tile
-//   handed out before it (the counter runs in chunk order), and a
-//   consumer's next tile is taken only when it starts the last head of
-//   its current one: a tile taken earlier could wait behind it, and the
-//   chain whose next chunk it is would wait too. The sum order is fixed,
-//   so calls on the same inputs are bit-equal.
+//   chunk, G heads, P slice), numbered chunk major and taken from an
+//   atomic counter by persistent blocks (one an SM: WGS consumer
+//   warpgroups and a producer warp for each). Each tile computes its
+//   chunk's y_intra and its own state S_loc = x^T (w o B) (the products
+//   that take the time) without waiting; then it waits for chunk c - 1's
+//   final state of the same (batch, head, P slice), adds exp(cum) o
+//   (C S^T) to y and publishes S_c = exp(total) S + S_loc. Only that
+//   hand-over is serial along a sequence.
+// - Hand-over. S goes out in float32 to scratch in device memory, one slot per
+//   (batch, head, P slice): chunk c + 1 alone reads chunk c's state, and
+//   rewrites the slot after. Each thread writes its own accumulator fragments
+//   (thread-major, so a warp's accesses are whole 512-byte rows) as 16-byte
+//   units of two floats and a 64-bit tag (epoch << 32) | (chunk + 1), one
+//   relaxed vector store each: the hardware moves an aligned 16-byte access as
+//   one, so a reader that sees its tag has the floats stored with it, and no
+//   fence or flag sits on the chain (a flag published after a GPU-scope fence
+//   cost ~2.6 us a hop). The reader's warps each wait on their own: lane 0
+//   spins on the warp's first unit, then the warp loads its units, again while
+//   a tag is missing. The epoch is new each call, so a unit an earlier call
+//   left never reads as ready and no memset is launched; the last block resets
+//   the counter. Forward progress: a tile waits only for a tile handed out
+//   before it (the counter runs in chunk order), and a consumer's next tile is
+//   taken only when it starts the last head of its current one: a tile taken
+//   earlier could wait behind it, and the chain whose next chunk it is would
+//   wait too. The sum order is fixed, so calls on the same inputs are
+//   bit-equal.
 // - C B^T once a tile, for its G heads, float32 from exact bf16 C and B,
 //   parked in shared memory; each head applies its own M o dt_j to it.
 // - Loads. The producer warp issues TMA (cp.async.bulk.tensor) over
@@ -77,12 +80,16 @@
 //   element). y + D_h x is rounded to bf16 over x's tile and each warp's
 //   16 rows leave by its own TMA store (steps past L, columns past P
 //   dropped).
-// - P and N up to 64 and 128 (NA 64-column atoms of N); the wrapper pads
-//   them to multiples of 8.
+// - Any P (slices of 64) and N up to 256 (NA 1, 2 or 4 64-column atoms of
+//   N); the wrapper pads them to multiples of 8. Past N 128 S_loc and the
+//   previous S of all four m-blocks would hold 256 registers a thread, so
+//   the hand-over goes an m-block at a time (its S_loc, the wait, the
+//   store), and a consumer's S^T hi and lo tiles take 64 KB.
 // - Tiling: G 2, two consumers with two stages each, one block an SM
 //   (168 registers; ptxas holds the whole kernel to the launch bound, so
 //   two blocks of 256 threads an SM left 128 and spilled). N 128: one
-//   consumer.
+//   consumer. N 256: one consumer with one stage (a stage's B and C are
+//   64 KB: 169 KB of shared memory in all).
 // Measured by tools/ssd_variants.py on an NVIDIA H100 80GB HBM3 at
 // 700.00 W (device ms a call, back-to-back, in turns with the previous
 // mma.sync kernel): 8 x 512 x 80 heads 0.134 ms (previous 0.147), the
@@ -111,7 +118,8 @@
 // 128 registers, 0.162 | 0.289.
 //
 // float32: `ssd_kernel`, the CUDA-core design of the first port: one
-// block a (batch, head) walking the sequence in tiles of 64 steps. Its
+// block a (batch, head, P slice) walking the sequence in tiles of 64
+// steps, N up to 256 (the state in shared memory). Its
 // 2e-4 bar against the recurrence at |y| ~ 200 is beyond TF32's ~1e-3,
 // so its products stay float32 FFMA from shared memory (4 x 4 or 4 x 8
 // register tiles, rows of B, C and the state padded to N + 1 floats),
@@ -126,43 +134,50 @@
 
 #define TQ 64
 #define THREADS 256
-#define MAX_P 64
-#define MAX_N 128
+#define P_SLICE 64  // columns of P a block or work tile takes
+#define F32_MAX_N 256
 
-static size_t smem_bytes(int p, int n) {
+// pw: the widest P slice (min(P, 64))
+static size_t smem_bytes(int pw, int n) {
   const size_t nk = n + 1;
   return sizeof(double) * TQ                     // cum
          + sizeof(float) * (2 * TQ * nk          // B, C tiles
                             + TQ * (TQ + 1)      // decay-masked C B^T
-                            + (size_t)TQ * p     // dt x
-                            + (size_t)p * nk     // state
+                            + (size_t)TQ * pw    // dt x
+                            + (size_t)pw * nk    // state
                             + 3 * TQ);           // dt, exp(cum), exp(tot - cum)
 }
 
+// Block (batch, head, P slice): y's columns depend only on x's, so P is
+// cut into slices of 64 over the grid (exact), each repeating C B^T and
+// the decays. N up to 256 (231,680 bytes of shared memory at P 64).
 __global__ void __launch_bounds__(THREADS)
     ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ a, const float* __restrict__ bm,
                const float* __restrict__ cm, const float* __restrict__ dskip,
                float* __restrict__ y, int L, int H, int P, int N) {
   extern __shared__ double sm[];
-  const int nk = N + 1, gk = TQ + 1;
+  const int nk = N + 1, gk = TQ + 1, pw = min(P, P_SLICE);
   double* cum = sm;             // TQ: inclusive cumsum of A_h dt
   float* bs = reinterpret_cast<float*>(cum + TQ);  // TQ x (N + 1)
   float* cs = bs + TQ * nk;     // TQ x (N + 1)
   float* g = cs + TQ * nk;      // TQ x (TQ + 1)
-  float* xd = g + TQ * gk;      // TQ x P: dt * x
-  float* st = xd + TQ * P;      // P x (N + 1): the carried state
-  float* dts = st + P * nk;     // TQ
+  float* xd = g + TQ * gk;      // TQ x pw: dt * x
+  float* st = xd + TQ * pw;     // pw x (N + 1): the carried state
+  float* dts = st + pw * nk;    // TQ
   float* ecum = dts + TQ;       // TQ: exp(cum)
   float* eout = ecum + TQ;      // TQ: exp(cum_last - cum)
   const int tid = threadIdx.x, lane = tid & 31;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int nps = (P + P_SLICE - 1) / P_SLICE;
+  const int bh = blockIdx.x / nps, p0 = blockIdx.x % nps * P_SLICE;
+  const int b = bh / H, h = bh % H, ps_n = min(P_SLICE, P - p0);
   const float ah = a[h], dh = dskip[h];
   const size_t xrow = (size_t)H * P;   // x and y stride along L
+  const size_t xcol = (size_t)h * P + p0;
   // register-tile coordinates: 16 x 16 threads, 4 (or 8) strided items each
   const int ti = tid >> 4, tj = tid & 15;
 
-  for (int i = tid; i < P * nk; i += THREADS) st[i] = 0.0f;
+  for (int i = tid; i < pw * nk; i += THREADS) st[i] = 0.0f;
 
   for (int t0 = 0; t0 < L; t0 += TQ) {
     const int q = min(TQ, L - t0);
@@ -194,11 +209,11 @@ __global__ void __launch_bounds__(THREADS)
       ecum[tid] = expf((float)cum[tid]);
       eout[tid] = expf((float)(total - cum[tid]));
     }
-    for (int i = tid; i < TQ * P; i += THREADS) {
-      const int j = i / P, p = i - j * P;
-      xd[i] = j < q ? x[((size_t)b * L + t0 + j) * xrow + (size_t)h * P + p] *
-                          dts[j]
-                    : 0.0f;
+    for (int i = tid; i < TQ * pw; i += THREADS) {
+      const int j = i / pw, p = i - j * pw;
+      xd[i] = j < q && p < ps_n
+                  ? x[((size_t)b * L + t0 + j) * xrow + xcol + p] * dts[j]
+                  : 0.0f;
     }
 
     // g = (C B^T) o M, lower triangle
@@ -236,7 +251,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int p = tj + 16 * c;
-          xv[c] = p < P ? xd[j * P + p] : 0.0f;
+          xv[c] = p < ps_n ? xd[j * pw + p] : 0.0f;
         }
 #pragma unroll
         for (int r = 0; r < 4; ++r)
@@ -250,7 +265,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int p = tj + 16 * c;
-          sv[c] = p < P ? st[p * nk + n] : 0.0f;
+          sv[c] = p < ps_n ? st[p * nk + n] : 0.0f;
         }
 #pragma unroll
         for (int r = 0; r < 4; ++r)
@@ -261,11 +276,11 @@ __global__ void __launch_bounds__(THREADS)
       for (int r = 0; r < 4; ++r) {
         const int i = ti + 16 * r;
         if (i >= q) continue;
-        const size_t row = ((size_t)b * L + t0 + i) * xrow + (size_t)h * P;
+        const size_t row = ((size_t)b * L + t0 + i) * xrow + xcol;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int p = tj + 16 * c;
-          if (p >= P) continue;
+          if (p >= ps_n) continue;
           const float out = yi[r][c] + ecum[i] * ys[r][c];
           y[row + p] = out + dh * x[row + p];
         }
@@ -274,8 +289,9 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // every read of the old state is done
 
     // S = exp(total) S + (exp(total - cum) o dt x)^T B; rows ti + 16r of
-    // P, columns tj + 16c of N
-    {
+    // the P slice, columns n0 + tj + 16c of N, 128 columns a pass
+    const float decay = expf((float)total);
+    for (int n0 = 0; n0 < N; n0 += 128) {
       float acc[4][8] = {};
       for (int j = 0; j < TQ; ++j) {
         float wv[4], bv[8];
@@ -283,11 +299,11 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int p = ti + 16 * r;
-          wv[r] = p < P ? e * xd[j * P + p] : 0.0f;
+          wv[r] = p < ps_n ? e * xd[j * pw + p] : 0.0f;
         }
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-          const int n = tj + 16 * c;
+          const int n = n0 + tj + 16 * c;
           bv[c] = n < N ? bs[j * nk + n] : 0.0f;
         }
 #pragma unroll
@@ -295,14 +311,13 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
           for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(wv[r], bv[c], acc[r][c]);
       }
-      const float decay = expf((float)total);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int p = ti + 16 * r;
-        if (p >= P) continue;
+        if (p >= ps_n) continue;
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-          const int n = tj + 16 * c;
+          const int n = n0 + tj + 16 * c;
           if (n < N) st[p * nk + n] = decay * st[p * nk + n] + acc[r][c];
         }
       }
@@ -323,8 +338,8 @@ __device__ __forceinline__ float ex2f(float x) {
 }
 
 // The tensor maps of one call: x and y as (P, H, L, B), boxes of one
-// head's (64, 1, SQ, 1) and of a warp's 16 rows (64, 1, 16, 1); B and C
-// as (N, L, B), boxes of (64, SQ, 1);
+// head's (64, 1, SQ, 1) and of a warp's 16 rows (64, 1, 16, 1), at a P
+// slice's first column; B and C as (N, L, B), boxes of (64, SQ, 1);
 // every box 64 columns wide with the 128-byte swizzle, P and N
 // zero-filled past their ends (and dropped on store).
 struct SsdMaps {
@@ -333,8 +348,9 @@ struct SsdMaps {
 
 // The scratch of one call, in device memory the wrapper keeps: the work
 // counter and the count of blocks done (reset by the last block), then
-// for each (batch, head) the state a chunk hands to the next: its S^T
-// fragments, thread-major, two floats and the chunk's tag a 16-byte unit.
+// for each (batch, head, P slice) the state a chunk hands to the next:
+// its S^T fragments, thread-major, two floats and the chunk's tag a
+// 16-byte unit, NA * 2,048 units a slot (`ops.scratch_bytes`).
 struct SsdScratch {
   unsigned int* counters;
   uint64_t* states;  // pairs: (two floats, tag)
@@ -352,7 +368,7 @@ constexpr size_t SCRATCH_STATES = 64;
 template <int G_, int NA_, int WGS_, int ST_, int MINB_>
 struct SsdCfg {
   static constexpr int G = G_, NA = NA_, WGS = WGS_, ST = ST_, MINB = MINB_;
-  static_assert(NA == 1 || NA == 2, "N up to 128");
+  static_assert(NA == 1 || NA == 2 || NA == 4, "N up to 256");
   static_assert(ST % WGS == 0, "each consumer its own stages");
   static constexpr int BLOCK_THREADS = 128 * (WGS + 1);
   static constexpr int X_BYTES = G * SQ * 128;
@@ -381,14 +397,17 @@ struct SsdCfg {
   static constexpr int MMA_REGS = MMA_REGS_ < 240 ? MMA_REGS_ : 240;
 };
 
-// work tile w, chunk major: (chunk, batch, head group)
+// work tile w, chunk major: (chunk, batch, head group, P slice)
 struct SsdWork {
-  int c, b, h0;
+  int c, b, h0, ps;
 };
 
 template <int G>
-__device__ __forceinline__ SsdWork ssd_work(int w, int batch, int n_groups) {
+__device__ __forceinline__ SsdWork ssd_work(int w, int batch, int n_groups,
+                                            int nps) {
   SsdWork wk;
+  wk.ps = w % nps;
+  w /= nps;
   wk.c = w / (batch * n_groups);
   const int r = w - wk.c * batch * n_groups;
   wk.b = r / n_groups;
@@ -457,7 +476,7 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
     ssd_kernel_bf16(const __grid_constant__ SsdMaps maps,
                     const float* __restrict__ dt, const float* __restrict__ a,
                     const float* __restrict__ dskip, SsdScratch scr, int L,
-                    int H, int batch, int n_groups, int n_chunks,
+                    int H, int batch, int n_groups, int nps, int n_chunks,
                     unsigned long long epoch, long long* trace) {
   using C = SsdCfg<G, NA, WGS, ST, MINB>;
   constexpr int D = ST / WGS;  // stages of each consumer
@@ -469,7 +488,7 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
   uint64_t* want = empty + ST;  // a consumer is ready for its next tile
   // the warpgroup, uniform across each warp as the compiler sees it
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-  const int n_work = n_chunks * batch * n_groups;
+  const int n_work = n_chunks * batch * n_groups * nps;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -503,15 +522,15 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
           mbar_arrive(&full[s]);
           break;
         }
-        const SsdWork wk = ssd_work<G>(w, batch, n_groups);
+        const SsdWork wk = ssd_work<G>(w, batch, n_groups, nps);
         const int t0 = wk.c * SQ, ng = min(G, H - wk.h0);
         // the TMA loads first, then dt, whose loads overlap them
         if (lane == 0) {
           *reinterpret_cast<int*>(stage + C::OFF_W) = w;
           mbar_add_tx(&full[s], ng * SQ * 128 + 2 * C::BC_BYTES);
           for (int g = 0; g < ng; ++g)
-            tma_load_4d(stage + g * SQ * 128, &maps.x, &full[s], 0,
-                        wk.h0 + g, t0, wk.b);
+            tma_load_4d(stage + g * SQ * 128, &maps.x, &full[s],
+                        P_SLICE * wk.ps, wk.h0 + g, t0, wk.b);
 #pragma unroll
           for (int at = 0; at < NA; ++at) {
             tma_load_3d(stage + C::OFF_B + at * SQ * 128, &maps.b, &full[s],
@@ -553,7 +572,7 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
       const int w = __shfl_sync(
           0xffffffffu, *reinterpret_cast<const int*>(stage + C::OFF_W), 0);
       if (w < 0) break;
-      const SsdWork wk = ssd_work<G>(w, batch, n_groups);
+      const SsdWork wk = ssd_work<G>(w, batch, n_groups, nps);
       const int c = wk.c, t0 = c * SQ;
       const uint32_t x_addr = smem_u32(stage);
       const uint32_t b_addr = smem_u32(stage + C::OFF_B);
@@ -604,10 +623,11 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
         if (g == ng - 1 && tid == 0) mbar_arrive(&want[wg]);
 
         // the previous chunk's state S: this thread's units of the one slot
-        // of its (batch, head) (chunk c + 1 alone reads chunk c's state,
-        // and rewrites the slot)
+        // of its (batch, head, P slice) (chunk c + 1 alone reads chunk c's
+        // state, and rewrites the slot)
         uint64_t* slot =
-            scr.states + ((size_t)wk.b * H + h) * (NA * 4096);
+            scr.states +
+            (((size_t)wk.b * H + h) * nps + wk.ps) * (NA * 4096);
 
         // cum = inclusive cumsum of A_h dt over the chunk in float64 (each
         // warp its own copy; a lane owns steps 2 lane and 2 lane + 1),
@@ -685,118 +705,127 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
 
         // the chunk's own state, summed from zero: S_loc^T = (w o B)^T x
         // (N x P), A from B's ldmatrix.trans fragments as hi + lo, one
-        // 64-row m-block of N at a time
-        float sl[NA][32];
-#pragma unroll
-        for (int mb = 0; mb < NA; ++mb) {
-#pragma unroll
-          for (int i = 0; i < 32; ++i) sl[mb][i] = 0.0f;
-          uint32_t wh[16], wl[16];
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const int kr = 16 * kk + (lane & 7) + ((lane >> 4) << 3);
-            const int mc = 16 * warp + ((lane >> 3) & 1) * 8;
-            uint32_t bf[4];
-            ldsm_x4_t(bf, btile + mb * SQ * 128 + swz(kr, mc / 8));
-            const int j = 16 * kk + 2 * t4;
-            const float w0 = aw[j], w1 = aw[j + 1], w8 = aw[j + 8],
-                        w9 = aw[j + 9];
-            scale_split(bf[0], w0, w1, wh[4 * kk], wl[4 * kk]);
-            scale_split(bf[1], w0, w1, wh[4 * kk + 1], wl[4 * kk + 1]);
-            scale_split(bf[2], w8, w9, wh[4 * kk + 2], wl[4 * kk + 2]);
-            scale_split(bf[3], w8, w9, wh[4 * kk + 3], wl[4 * kk + 3]);
-          }
-          reg_fence(sl[mb]);
-          reg_fence(wh);
-          reg_fence(wl);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            wgmma_rs<64>(sl[mb], wh + 4 * kk, desc_mn(xg, kk));
-            wgmma_rs<64>(sl[mb], wl + 4 * kk, desc_mn(xg, kk));
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          reg_fence(sl[mb]);
-          reg_fence(wh);
-          reg_fence(wl);
-        }
-        reg_fence(yacc);
-        reg_fence(ph);
-        reg_fence(pl);
-        if (TRACE && tid == 0) tr[g * TR_N + TR_PRE] = clock64();
-
-        // the hand-over, each warp on its own: the previous chunk's state
-        // S (zero for the first chunk) as each thread's units tagged with
-        // chunk c - 1 (lane 0 waits for the warp's first, then the warp
-        // loads its units, again while a tag is not yet there), S_c =
-        // exp(total) S + S_loc out tagged with chunk c, and S into S^T's
-        // hi and lo tiles for C S^T
-        float sp[NA][32];
-        if (!first) {
-          const long long t_start = clock64();  // trap, not hang, if lost
-          if (lane == 0) {
-            uint64_t v, t;
-            do {
-              ld_tagged(slot + 2 * tid, v, t);
-              if (clock64() - t_start > (1LL << 34)) __trap();
-            } while (t != tag_in);
-          }
-          __syncwarp();
-          bool ok;
-          do {
-            ok = true;
-#pragma unroll
-            for (int u = 0; u < NA * 16; ++u) {
-              uint64_t v, t;
-              ld_tagged(slot + 2 * (u * 128 + tid), v, t);
-              ok = ok && t == tag_in;
-              sp[u / 16][2 * (u % 16)] = __uint_as_float((uint32_t)v);
-              sp[u / 16][2 * (u % 16) + 1] =
-                  __uint_as_float((uint32_t)(v >> 32));
-            }
-            if (clock64() - t_start > (1LL << 34)) __trap();
-          } while (!ok);
-        } else {
-#pragma unroll
-          for (int mb = 0; mb < NA; ++mb)
-#pragma unroll
-            for (int i = 0; i < 32; ++i) sp[mb][i] = 0.0f;
-        }
-        if (TRACE && tid == 0) {
-          tr[g * TR_N + TR_FLAG] = clock64();
-          tr[g * TR_N + TR_FLAG_NS] = global_ns();
-        }
+        // 64-row m-block of N at a time; and the hand-over, each warp on
+        // its own: the previous chunk's state S (zero for the first chunk)
+        // as each thread's units tagged with chunk c - 1 (lane 0 waits for
+        // the warp's first, then the warp loads its units, again while a
+        // tag is not yet there), S_c = exp(total) S + S_loc out tagged with
+        // chunk c, and S into S^T's hi and lo tiles for C S^T. Both go in
+        // passes of HB m-blocks: the whole of N up to 128 (S_loc before
+        // the wait, which its products overlap), one m-block a pass past
+        // it, where S_loc and S of all four would not fit in registers.
+        constexpr int HB = NA <= 2 ? NA : 1;
         const float decay = ex2f(th + tl);
-        if (!last) {
 #pragma unroll
-          for (int u = 0; u < NA * 16; ++u) {
-            const float* q = sp[u / 16] + 2 * (u % 16);
-            const float* l = sl[u / 16] + 2 * (u % 16);
-            st_tagged(slot + 2 * (u * 128 + tid),
-                      (uint64_t)__float_as_uint(decay * q[0] + l[0]) |
-                          ((uint64_t)__float_as_uint(decay * q[1] + l[1])
-                           << 32),
-                      tag_out);
+        for (int m0 = 0; m0 < NA; m0 += HB) {
+          float sl[HB][32];
+#pragma unroll
+          for (int i = 0; i < HB; ++i) {
+            const int mb = m0 + i;
+#pragma unroll
+            for (int e = 0; e < 32; ++e) sl[i][e] = 0.0f;
+            uint32_t wh[16], wl[16];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const int kr = 16 * kk + (lane & 7) + ((lane >> 4) << 3);
+              const int mc = 16 * warp + ((lane >> 3) & 1) * 8;
+              uint32_t bf[4];
+              ldsm_x4_t(bf, btile + mb * SQ * 128 + swz(kr, mc / 8));
+              const int j = 16 * kk + 2 * t4;
+              const float w0 = aw[j], w1 = aw[j + 1], w8 = aw[j + 8],
+                          w9 = aw[j + 9];
+              scale_split(bf[0], w0, w1, wh[4 * kk], wl[4 * kk]);
+              scale_split(bf[1], w0, w1, wh[4 * kk + 1], wl[4 * kk + 1]);
+              scale_split(bf[2], w8, w9, wh[4 * kk + 2], wl[4 * kk + 2]);
+              scale_split(bf[3], w8, w9, wh[4 * kk + 3], wl[4 * kk + 3]);
+            }
+            reg_fence(sl[i]);
+            reg_fence(wh);
+            reg_fence(wl);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              wgmma_rs<64>(sl[i], wh + 4 * kk, desc_mn(xg, kk));
+              wgmma_rs<64>(sl[i], wl + 4 * kk, desc_mn(xg, kk));
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            reg_fence(sl[i]);
+            reg_fence(wh);
+            reg_fence(wl);
           }
-          if (TRACE && tid == 0) {
-            tr[g * TR_N + TR_PUB] = clock64();
-            tr[g * TR_N + TR_PUB_NS] = global_ns();
+          if (m0 == 0) {
+            reg_fence(yacc);
+            reg_fence(ph);
+            reg_fence(pl);
+            if (TRACE && tid == 0) tr[g * TR_N + TR_PRE] = clock64();
+          }
+
+          float sp[HB][32];
+          if (!first) {
+            const long long t_start = clock64();  // trap, not hang, if lost
+            if (m0 == 0 && lane == 0) {
+              uint64_t v, t;
+              do {
+                ld_tagged(slot + 2 * tid, v, t);
+                if (clock64() - t_start > (1LL << 34)) __trap();
+              } while (t != tag_in);
+            }
+            __syncwarp();
+            bool ok;
+            do {
+              ok = true;
+#pragma unroll
+              for (int u = 0; u < HB * 16; ++u) {
+                uint64_t v, t;
+                ld_tagged(slot + 2 * ((m0 * 16 + u) * 128 + tid), v, t);
+                ok = ok && t == tag_in;
+                sp[u / 16][2 * (u % 16)] = __uint_as_float((uint32_t)v);
+                sp[u / 16][2 * (u % 16) + 1] =
+                    __uint_as_float((uint32_t)(v >> 32));
+              }
+              if (clock64() - t_start > (1LL << 34)) __trap();
+            } while (!ok);
+          } else {
+#pragma unroll
+            for (int i = 0; i < HB; ++i)
+#pragma unroll
+              for (int e = 0; e < 32; ++e) sp[i][e] = 0.0f;
+          }
+          if (TRACE && tid == 0 && m0 == 0) {
+            tr[g * TR_N + TR_FLAG] = clock64();
+            tr[g * TR_N + TR_FLAG_NS] = global_ns();
+          }
+          if (!last) {
+#pragma unroll
+            for (int u = 0; u < HB * 16; ++u) {
+              const float* q = sp[u / 16] + 2 * (u % 16);
+              const float* l = sl[u / 16] + 2 * (u % 16);
+              st_tagged(slot + 2 * ((m0 * 16 + u) * 128 + tid),
+                        (uint64_t)__float_as_uint(decay * q[0] + l[0]) |
+                            ((uint64_t)__float_as_uint(decay * q[1] + l[1])
+                             << 32),
+                        tag_out);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < HB; ++i) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int n0 = 64 * (m0 + i) + ra, n1 = n0 + 8;
+              uint32_t hi, lo;
+              split_bf16(sp[i][4 * e], sp[i][4 * e + 1], hi, lo);
+              *reinterpret_cast<uint32_t*>(s_hi + swz(n0, e) + 4 * t4) = hi;
+              *reinterpret_cast<uint32_t*>(s_lo + swz(n0, e) + 4 * t4) = lo;
+              split_bf16(sp[i][4 * e + 2], sp[i][4 * e + 3], hi, lo);
+              *reinterpret_cast<uint32_t*>(s_hi + swz(n1, e) + 4 * t4) = hi;
+              *reinterpret_cast<uint32_t*>(s_lo + swz(n1, e) + 4 * t4) = lo;
+            }
           }
         }
-#pragma unroll
-        for (int mb = 0; mb < NA; ++mb) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int n0 = 64 * mb + ra, n1 = n0 + 8;
-            uint32_t hi, lo;
-            split_bf16(sp[mb][4 * i], sp[mb][4 * i + 1], hi, lo);
-            *reinterpret_cast<uint32_t*>(s_hi + swz(n0, i) + 4 * t4) = hi;
-            *reinterpret_cast<uint32_t*>(s_lo + swz(n0, i) + 4 * t4) = lo;
-            split_bf16(sp[mb][4 * i + 2], sp[mb][4 * i + 3], hi, lo);
-            *reinterpret_cast<uint32_t*>(s_hi + swz(n1, i) + 4 * t4) = hi;
-            *reinterpret_cast<uint32_t*>(s_lo + swz(n1, i) + 4 * t4) = lo;
-          }
+        if (TRACE && tid == 0 && !last) {
+          tr[g * TR_N + TR_PUB] = clock64();
+          tr[g * TR_N + TR_PUB_NS] = global_ns();
         }
         fence_async_shared();  // S^T's tiles, for the wgmma below
         named_sync(bar, 128);  // and every warp's products have read x
@@ -845,8 +874,8 @@ __global__ void __launch_bounds__(128 * (WGS + 1), MINB)
         fence_async_shared();
         __syncwarp();
         if (lane == 0) {
-          tma_store_4d(&maps.y, xt + warp * 16 * 128, 0, h, t0 + 16 * warp,
-                       wk.b);
+          tma_store_4d(&maps.y, xt + warp * 16 * 128, P_SLICE * wk.ps, h,
+                       t0 + 16 * warp, wk.b);
           tma_store_commit();
           if (TRACE && tid == 0) tr[g * TR_N + TR_END] = clock64();
         }
@@ -941,7 +970,9 @@ static int launch_bf16(const void* x, const void* dt, const void* a,
     if (err != cudaSuccess) return (int)err;
   }
   const int n_groups = (H + G - 1) / G, n_chunks = (L + SQ - 1) / SQ;
-  const long n_work = (long)n_chunks * batch * n_groups;
+  const int nps = (P + P_SLICE - 1) / P_SLICE;
+  const long n_work = (long)n_chunks * batch * n_groups * nps;
+  if (n_work > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   // persistent: MINB blocks an SM, each consumer taking work tiles in
   // chunk order from the counter
   const long cap = (long)sms * MINB;
@@ -951,7 +982,7 @@ static int launch_bf16(const void* x, const void* dt, const void* a,
                                                static_cast<const float*>(a),
                                                static_cast<const float*>(d),
                                                scr, L, H, batch, n_groups,
-                                               n_chunks, epoch, trace);
+                                               nps, n_chunks, epoch, trace);
   return (int)cudaGetLastError();
 }
 
@@ -961,12 +992,15 @@ static int launch_f32(const void* x, const void* dt, const void* a,
                       const void* b, const void* c, const void* d, void* y,
                       int batch, int L, int H, int P, int N,
                       cudaStream_t stream) {
-  const size_t smem = smem_bytes(P, N);
+  if (N > F32_MAX_N) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(P < P_SLICE ? P : P_SLICE, N);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ssd_kernel<<<batch * H, THREADS, smem, stream>>>(
+  const long blocks = (long)batch * H * ((P + P_SLICE - 1) / P_SLICE);
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  ssd_kernel<<<(int)blocks, THREADS, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(c), static_cast<const float*>(d),
@@ -974,40 +1008,304 @@ static int launch_f32(const void* x, const void* dt, const void* a,
   return (int)cudaGetLastError();
 }
 
-// Bytes of scratch a bf16 call needs: the counters and, for each (batch,
-// head), one state (N rounded up to 64 or 128 rows of 64 columns) as
-// 16-byte units of two floats and a tag. The wrapper keeps it (zeroed
-// once) and passes a new epoch each call; units are tagged (epoch << 32)
-// | (chunk + 1), so a unit an earlier call left never reads as ready.
-extern "C" long long ssd_scratch_bytes(int batch, int H, int N) {
-  const int na = N <= 64 ? 1 : 2;
-  return (long long)SCRATCH_STATES +
-         (long long)batch * H * na * 2048 * 16;
+// ---- any N: CUDA cores, the state in device memory -------------------------
+
+#define WIDE_NC 64  // columns of N a pass takes
+
+// the sums and carried state of the wide kernel: float64 for float32
+// operands, float32 for bf16
+template <typename T>
+struct WideAcc {
+  using type = float;
+};
+template <>
+struct WideAcc<float> {
+  using type = double;
+};
+
+template <typename T>
+static size_t wide_smem_bytes() {
+  using A = typename WideAcc<T>::type;
+  const size_t nk = WIDE_NC + 1;
+  return sizeof(double) * TQ                      // cum
+         + sizeof(float) * (2 * TQ * nk           // a pass of B, C
+                            + TQ * (TQ + 1)       // decay-masked C B^T
+                            + TQ * P_SLICE        // dt x
+                            + 3 * TQ)  // dt, exp(cum), exp(tot - cum)
+         + sizeof(A) * P_SLICE * nk;   // a pass of the state
+}
+
+// States past N 256, in either type: the float32 kernel's steps, with the
+// carried state of block (batch, head, P slice) in device memory (`state`,
+// (batch, H, P, N) in the sums' type, the wrapper's; the first chunk reads
+// none, so it needs no zeroing) and N taken in passes of 64 columns
+// through shared memory: C B^T summed over the passes, C S^T likewise
+// (C's pass read again), and the state updated a pass at a time, each
+// thread its own (p, n) items. x, B and C are read over their strides
+// (elements); y is contiguous. Sums in float32 for bf16, y rounded to it.
+// For float32 operands the sums over N and the carried state are float64:
+// at N 320 and Zamba2's decays |y| reaches ~350, where the plain version's
+// float32 sums alone sit ~1.2e-4 from float64's, so a second float32
+// order could differ from it by more than the 2e-4 bar. Slow, and right
+// at any N (84,224 bytes of shared memory whatever N is; 100,864 for
+// float32).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    ssd_kernel_wide(const T* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ a, const T* __restrict__ bm,
+                    const T* __restrict__ cm, const float* __restrict__ dskip,
+                    T* __restrict__ y,
+                    typename WideAcc<T>::type* __restrict__ state, int L,
+                    int H, int P, int N, long long x_sb, long long x_sl,
+                    long long x_sh, long long b_sb, long long b_sl,
+                    long long c_sb, long long c_sl) {
+  using A = typename WideAcc<T>::type;
+  extern __shared__ double sm[];
+  constexpr int nk = WIDE_NC + 1, gk = TQ + 1;
+  double* cum = sm;             // TQ: inclusive cumsum of A_h dt
+  A* sts = reinterpret_cast<A*>(cum + TQ);  // P_SLICE x nk: state's pass
+  float* bs = reinterpret_cast<float*>(sts + P_SLICE * nk);  // TQ x nk: B
+  float* cs = bs + TQ * nk;     // TQ x nk: a pass of C
+  float* g = cs + TQ * nk;      // TQ x (TQ + 1)
+  float* xd = g + TQ * gk;      // TQ x P_SLICE: dt * x
+  float* dts = xd + TQ * P_SLICE;  // TQ
+  float* ecum = dts + TQ;       // TQ: exp(cum)
+  float* eout = ecum + TQ;      // TQ: exp(cum_last - cum)
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nps = (P + P_SLICE - 1) / P_SLICE;
+  const int bh = blockIdx.x / nps, p0 = blockIdx.x % nps * P_SLICE;
+  const int b = bh / H, h = bh % H, ps_n = min(P_SLICE, P - p0);
+  const float ah = a[h], dh = dskip[h];
+  const T* xp = x + b * x_sb + h * x_sh + p0;
+  const T* bp = bm + b * b_sb;
+  const T* cp = cm + b * c_sb;
+  A* stp = state + ((size_t)bh * P + p0) * N;  // rows p0.. of (P, N)
+  const int ti = tid >> 4, tj = tid & 15;
+
+  // a pass of B and (with `want_c`) C: steps [t0, t0 + q), columns n0..
+  auto load_pass = [&](int t0, int q, int n0, int nc, bool want_c) {
+    for (int i = tid; i < TQ * WIDE_NC; i += THREADS) {
+      const int j = i / WIDE_NC, n = i - j * WIDE_NC;
+      const bool ok = j < q && n < nc;
+      bs[j * nk + n] = ok ? to_f32(bp[(t0 + j) * b_sl + n0 + n]) : 0.0f;
+      if (want_c)
+        cs[j * nk + n] = ok ? to_f32(cp[(t0 + j) * c_sl + n0 + n]) : 0.0f;
+    }
+  };
+
+  for (int t0 = 0; t0 < L; t0 += TQ) {
+    const int q = min(TQ, L - t0);
+    const bool first = t0 == 0;
+    __syncthreads();  // the previous tile is done with every buffer
+
+    if (tid < TQ) {
+      const float d = tid < q ? dt[((size_t)b * L + t0 + tid) * H + h] : 0.0f;
+      double v = ah * d;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const double u = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += u;
+      }
+      dts[tid] = d;
+      cum[tid] = v;
+    }
+    __syncthreads();
+    if (tid >= 32 && tid < TQ) cum[tid] += cum[31];
+    __syncthreads();
+    const double total = cum[TQ - 1];
+    if (tid < TQ) {
+      ecum[tid] = expf((float)cum[tid]);
+      eout[tid] = expf((float)(total - cum[tid]));
+    }
+    for (int i = tid; i < TQ * P_SLICE; i += THREADS) {
+      const int j = i / P_SLICE, p = i - j * P_SLICE;
+      xd[i] = j < q && p < ps_n ? to_f32(xp[(t0 + j) * x_sl + p]) * dts[j]
+                                : 0.0f;
+    }
+
+    // g = (C B^T) o M, lower triangle, C B^T summed over the passes
+    {
+      A acc[4][4] = {};
+      for (int n0 = 0; n0 < N; n0 += WIDE_NC) {
+        const int nc = min(WIDE_NC, N - n0);
+        __syncthreads();  // the previous pass is done with bs, cs
+        load_pass(t0, q, n0, nc, true);
+        __syncthreads();
+        for (int n = 0; n < nc; ++n) {
+          A cv[4], bv[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) cv[r] = cs[(ti + 16 * r) * nk + n];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) bv[c] = bs[(tj + 16 * c) * nk + n];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[r][c] += cv[r] * bv[c];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = ti + 16 * r, j = tj + 16 * c;
+          g[i * gk + j] =
+              i >= j ? (float)acc[r][c] * expf((float)(cum[i] - cum[j]))
+                     : 0.0f;
+        }
+    }
+    __syncthreads();
+
+    // y = g (dt x) + exp(cum) o (C S^T) + D_h x, rows ti + 16r, cols
+    // tj + 16c of the slice; C S^T summed over the passes
+    {
+      A yi[4][4] = {}, ys[4][4] = {};
+      for (int j = 0; j < TQ; ++j) {
+        A gv[4], xv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) gv[r] = g[(ti + 16 * r) * gk + j];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xv[c] = xd[j * P_SLICE + tj + 16 * c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) yi[r][c] += gv[r] * xv[c];
+      }
+      for (int n0 = 0; !first && n0 < N; n0 += WIDE_NC) {
+        const int nc = min(WIDE_NC, N - n0);
+        __syncthreads();
+        load_pass(t0, q, n0, nc, true);
+        for (int i = tid; i < P_SLICE * WIDE_NC; i += THREADS) {
+          const int p = i / WIDE_NC, n = i - p * WIDE_NC;
+          sts[p * nk + n] =
+              p < ps_n && n < nc ? stp[(size_t)p * N + n0 + n] : A(0);
+        }
+        __syncthreads();
+        for (int n = 0; n < nc; ++n) {
+          A cv[4], sv[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) cv[r] = cs[(ti + 16 * r) * nk + n];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sv[c] = sts[(tj + 16 * c) * nk + n];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) ys[r][c] += cv[r] * sv[c];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = ti + 16 * r;
+        if (i >= q) continue;
+        const size_t row = (((size_t)b * L + t0 + i) * H + h) * P + p0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int p = tj + 16 * c;
+          if (p >= ps_n) continue;
+          const float xv = to_f32(xp[(t0 + i) * x_sl + p]);
+          from_f32(&y[row + p],
+                   (float)(yi[r][c] + ecum[i] * ys[r][c] + dh * xv));
+        }
+      }
+    }
+
+    // S = exp(total) S + (exp(total - cum) o dt x)^T B, a pass of N at a
+    // time; rows ti + 16r of the slice, columns n0 + tj + 16c
+    const float decay = expf((float)total);
+    for (int n0 = 0; n0 < N; n0 += WIDE_NC) {
+      const int nc = min(WIDE_NC, N - n0);
+      __syncthreads();  // every read of the old state and of bs is done
+      load_pass(t0, q, n0, nc, false);
+      __syncthreads();
+      A acc[4][4] = {};
+      for (int j = 0; j < TQ; ++j) {
+        A wv[4], bv[4];
+        const A e = eout[j];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) wv[r] = e * xd[j * P_SLICE + ti + 16 * r];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bv[c] = bs[j * nk + tj + 16 * c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] += wv[r] * bv[c];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int p = ti + 16 * r;
+        if (p >= ps_n) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int n = tj + 16 * c;
+          if (n >= nc) continue;
+          A* sp = stp + (size_t)p * N + n0 + n;
+          *sp = (first ? A(0) : decay * *sp) + acc[r][c];
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+static int launch_wide(const void* x, const void* dt, const void* a,
+                       const void* b, const void* c, const void* d, void* y,
+                       void* state, int batch, int L, int H, int P, int N,
+                       const long long* xs, const long long* bs,
+                       const long long* cs, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_kernel_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)batch * H * ((P + P_SLICE - 1) / P_SLICE);
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  ssd_kernel_wide<T><<<(int)blocks, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(a), static_cast<const T*>(b),
+      static_cast<const T*>(c), static_cast<const float*>(d),
+      static_cast<T*>(y), static_cast<typename WideAcc<T>::type*>(state), L,
+      H, P, N, xs[0],
+      xs[1], xs[2], bs[0], bs[1], cs[0], cs[1]);
+  return (int)cudaGetLastError();
 }
 
 // x, y (batch, L, H, P); dt (batch, L, H) float32 contiguous; a, d (H,)
 // float32; b, c (batch, L, N). x, b, c, y are bf16 when bf16 != 0, else
-// float32. P <= 64 and N <= 128. float32: every tensor contiguous. bf16:
-// x, b, c may be strided views whose last dim is contiguous — xs their
-// (batch, step, head) strides, bs and cs (batch, step), in elements, each
-// a multiple of 8 — P and N multiples of 8, the pointers 16-byte aligned,
-// y contiguous, and `scratch` ssd_scratch_bytes(batch, H, N) bytes that
-// only this stream uses (the wrapper checks and pads).
+// float32; y contiguous. `na` names the kernel (the wrapper's `ops.plan`):
+// bf16 na 1, 2 or 4, the Hopper kernel with N in na 64-column atoms, and
+// `scratch` ops.scratch_bytes(batch, H, P, N) bytes that only this stream
+// uses, tagged by `epoch`; float32 na > 0, the shared-memory kernel (N up
+// to 256, every tensor contiguous); na 0, either type, the wide kernel,
+// `scratch` the (batch, H, P, N) state, float64 for float32 operands and
+// float32 for bf16. x, b, c are read over
+// their strides, in elements — xs (batch, step, head), bs and cs (batch,
+// step) — which for bf16 must be multiples of 8, with P and N multiples of
+// 8 and the pointers 16-byte aligned (the wrapper checks and pads).
+// Every route cuts P into slices of 64.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* a,
                         const void* b, const void* c, const void* d, void* y,
                         int batch, int L, int H, int P, int N, int bf16,
-                        long long x_sb, long long x_sl, long long x_sh,
-                        long long b_sb, long long b_sl, long long c_sb,
-                        long long c_sl, void* scratch,
+                        int na, long long x_sb, long long x_sl,
+                        long long x_sh, long long b_sb, long long b_sl,
+                        long long c_sb, long long c_sl, void* scratch,
                         unsigned long long epoch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16)
-    return launch_f32(x, dt, a, b, c, d, y, batch, L, H, P, N, s);
   const long long xs[3] = {x_sb, x_sl, x_sh}, bs[2] = {b_sb, b_sl},
                   cs[2] = {c_sb, c_sl};
-  if (N <= 64)
+  if (na == 0)
+    return bf16 ? launch_wide<__nv_bfloat16>(x, dt, a, b, c, d, y, scratch,
+                                             batch, L, H, P, N, xs, bs, cs, s)
+                : launch_wide<float>(x, dt, a, b, c, d, y, scratch, batch, L,
+                                     H, P, N, xs, bs, cs, s);
+  if (!bf16) return launch_f32(x, dt, a, b, c, d, y, batch, L, H, P, N, s);
+  if (N > 64 * na) return (int)cudaErrorInvalidValue;
+  if (na == 1)
     return launch_bf16<2, 1, 2, 4, 1>(x, dt, a, b, c, d, y, batch, L, H, P,
                                       N, xs, bs, cs, scratch, epoch, s);
-  return launch_bf16<2, 2, 1, 2, 1>(x, dt, a, b, c, d, y, batch, L, H, P, N,
-                                    xs, bs, cs, scratch, epoch, s);
+  if (na == 2)
+    return launch_bf16<2, 2, 1, 2, 1>(x, dt, a, b, c, d, y, batch, L, H, P,
+                                      N, xs, bs, cs, scratch, epoch, s);
+  if (na == 4)
+    return launch_bf16<2, 4, 1, 1, 1>(x, dt, a, b, c, d, y, batch, L, H, P,
+                                      N, xs, bs, cs, scratch, epoch, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -35,22 +35,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _U64 = ctypes.c_uint64
-#: C entry points: name -> argument types. Each returns cudaGetLastError()
-#: unless RESTYPES names another result.
+#: C entry points: name -> argument types. Each returns cudaGetLastError().
 SIGNATURES = {
     "forest_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _P],
     "criticality_scores": [_P, _P, _I, _I, _I, _I, _P],
     "criticality_scores_long": [_P, _P, _I, _I, _I, _P],
     "criticality_block_static_smem": [],
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _F, _I, _P],
-    # x, dt, a, b, c, d, y; batch, L, H, P, N, bf16; the row strides of
-    # x (batch, step, head), b and c (batch, step); scratch, epoch; stream
-    "ssd_scan": [_P] * 7 + [_I] * 6 + [_L] * 7 + [_P, _U64, _P],
-    "ssd_scratch_bytes": [_I, _I, _I],
+    # q, k, v, o; bh, hq, rep, lq, lk, d, q_offset, valid_lk, causal,
+    # window; scale; bf16, tiling, no-key rows' key tile; stream
+    "flash_attention": [_P] * 4 + [_I] * 10 + [_F, _I, _I, _I, _P],
+    # x, dt, a, b, c, d, y; batch, L, H, P, N, bf16, na (`ssd.ops.plan`);
+    # the row strides of x (batch, step, head), b and c (batch, step);
+    # scratch, epoch; stream
+    "ssd_scan": [_P] * 7 + [_I] * 7 + [_L] * 7 + [_P, _U64, _P],
 }
-RESTYPES = {"ssd_scratch_bytes": _L}
 
 
 def nvcc() -> str:
@@ -115,7 +114,7 @@ def load() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, ctypes.c_int)
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -3,14 +3,15 @@ oracle of `repro.kernels.flash_attention.ref`, float32 throughout, with
 the kernel's end alignment (queries sit at the last Lq positions of the
 keys) and the finite masking value NEG; and `attention_kernel_ref`,
 which also gives a query that sees no key the value the reference's
-kernel writes for it."""
+kernel writes for it at its key tile `bk`."""
 from __future__ import annotations
 
 import torch
 
 NEG = -1e30
-#: Key tile of the reference's `flash_attention` at its defaults: the
-#: keys are padded to a multiple of it before the kernel runs.
+#: Key tile of the reference's `flash_attention` at its defaults (its
+#: keyword `bk`): the keys are padded to a multiple of it before the
+#: kernel runs.
 REF_BK = 128
 
 
@@ -49,30 +50,31 @@ def no_key_rows(lq: int, lk: int, causal: bool) -> int:
     return max(lq - lk, 0) if causal and lk > 0 else 0
 
 
-def no_key_value(v: torch.Tensor) -> torch.Tensor:
+def no_key_value(v: torch.Tensor, bk: int = REF_BK) -> torch.Tensor:
     """(B, H, Lk, D) -> (B, H, D) float32: what the reference's kernel
-    writes for a query that sees no key. Its masked scores are the finite
-    NEG, so a row whose every score is NEG keeps max NEG and takes
-    exp(NEG - NEG) = 1 for every key of every key tile, the zero keys
-    padding Lk to the 128-key tile among them
+    writes for a query that sees no key, at key tiles of `bk`. Its masked
+    scores are the finite NEG, so a row whose every score is NEG keeps
+    max NEG and takes exp(NEG - NEG) = 1 for every key of every key tile,
+    the zero keys padding Lk to a multiple of bk among them
     (src/repro/kernels/flash_attention/flash_attention.py:52-58 and
-    ops.py:28-31): the sum of v over the Lk keys over 128 ceil(Lk / 128).
+    ops.py:28-31): the sum of v over the Lk keys over bk ceil(Lk / bk).
     The reference's oracle `attention_ref` gives the mean over Lk
     instead."""
     lk = v.shape[2]
-    return v.float().sum(2) / float(REF_BK * -(-lk // REF_BK))
+    return v.float().sum(2) / float(bk * -(-lk // bk))
 
 
 def attention_kernel_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True,
-                         window: int | None = None) -> torch.Tensor:
+                         causal: bool = True, window: int | None = None,
+                         bk: int = REF_BK) -> torch.Tensor:
     """`attention_ref` with the rows that see no key (`no_key_rows`) set to
-    `no_key_value`, as the reference's `flash_attention` writes them: the
-    function the kernel computes. Shapes as `attention_ref`."""
+    `no_key_value` at key tiles of `bk`, as the reference's
+    `flash_attention` writes them: the function the kernel computes.
+    Shapes as `attention_ref`."""
     out = attention_ref(q, k, v, causal=causal, window=window)
     n = no_key_rows(q.shape[2], k.shape[2], causal)
     if n:
-        out[:, :, :n] = no_key_value(v)[:, :, None].to(out.dtype)
+        out[:, :, :n] = no_key_value(v, bk)[:, :, None].to(out.dtype)
     return out
 
 

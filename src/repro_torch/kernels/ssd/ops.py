@@ -18,6 +18,13 @@ to the next through scratch in device memory that the wrapper keeps,
 one buffer per (device, stream), zeroed once when allocated; each call
 passes a new epoch, which tags the states' units, so a unit that an
 earlier call left never reads as ready and no call needs a memset.
+
+Any P and N: every kernel cuts P into slices of 64 (`plan`); the bf16
+Hopper kernel holds N up to 256 and the float32 kernel's shared tiles
+256; past 256 both types go to a plain CUDA-core kernel that keeps the
+carried state in device memory (a (B, H, P, N) buffer the wrapper
+allocates each call, float64 for float32 operands, whose sums there are
+float64 too).
 """
 from __future__ import annotations
 
@@ -29,13 +36,41 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref
 
 CHUNK = 128
-#: Largest head dim and state size the kernel's shared tiles hold.
-MAX_P, MAX_N = 64, 128
+#: Columns of P a block or work tile of every kernel takes.
+P_SLICE = 64
+#: Bytes of the bf16 kernel's scratch ahead of its states (the work
+#: counter and the count of blocks done), and of one 16-byte unit.
+SCRATCH_COUNTERS, UNIT_BYTES = 64, 16
 
 #: (device index, raw stream) -> [scratch tensor, last epoch]. The
 #: scratch outlives a call (zeroed once, so no call launches a memset);
 #: a stream runs its calls in order, so one buffer a stream is enough.
 _SCRATCH: dict = {}
+
+
+def plan(p: int, n: int, dtype: torch.dtype) -> dict:
+    """How the kernel takes head dim `p` and state `n` (for bf16 the
+    wrapper's multiples of 8): `na`, the kernel `ssd_scan` launches —
+    bf16 the Hopper kernel with N in na = 1, 2 or 4 atoms of 64 columns,
+    float32 the shared-memory kernel (na = ceil(n / 64), N up to 256);
+    0 past N 256, either type, the kernel with the state in device
+    memory — and `p_slices`, the slices of 64 columns of P."""
+    if n <= 256:
+        na = next(a for a in (1, 2, 4) if n <= 64 * a) \
+            if dtype == torch.bfloat16 else -(-n // 64)
+    else:
+        na = 0
+    return {"na": na, "p_slices": -(-p // P_SLICE)}
+
+
+def scratch_bytes(batch: int, h: int, p: int, n: int) -> int:
+    """Bytes of scratch the bf16 Hopper kernel needs at (p, n): the
+    counters, then one state slot a (batch, head, P slice), its S^T
+    fragments as na x 2,048 16-byte units (two floats and a tag) for the
+    128 threads of a consumer warpgroup."""
+    pl = plan(p, n, torch.bfloat16)
+    return SCRATCH_COUNTERS + batch * h * pl["p_slices"] * pl["na"] \
+        * 2048 * UNIT_BYTES
 
 
 def _check(x, dt, a, b, c, d) -> None:
@@ -120,9 +155,6 @@ def ssd(x, dt, a, b, c, d=None, chunk: int = CHUNK):
         raise ValueError("dt, a and d must be float32")
     bsz, _, h, p = x.shape
     n = b.shape[-1]
-    if p > MAX_P or n > MAX_N:
-        raise ValueError(f"head dim {p} and state {n}: the kernel takes "
-                         f"up to {MAX_P} and {MAX_N}")
     if x.numel() == 0:
         return torch.empty_like(x)
     if x.dtype == torch.float32:
@@ -134,13 +166,25 @@ def ssd(x, dt, a, b, c, d=None, chunk: int = CHUNK):
     c, cs = kernel_operand(c, nn)
     dt, a, d = (build.aligned(t) for t in (dt, a, d))
     y = torch.empty((bsz, l, h, pp), dtype=x.dtype, device=x.device)
-    lib = build.load()
-    scratch, epoch = _scratch(x.device, lib.ssd_scratch_bytes(bsz, h, nn))
+    na = plan(pp, nn, x.dtype)["na"]
+    if na:
+        scratch, epoch = _scratch(x.device, scratch_bytes(bsz, h, pp, nn))
+    else:
+        scratch, epoch = _wide_state(bsz, h, pp, nn, x.dtype, x.device), 0
     build.launch("ssd_scan", x, x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                  b.data_ptr(), c.data_ptr(), d.data_ptr(), y.data_ptr(), bsz,
-                 l, h, pp, nn, 1, *xs, *bs, *cs, scratch.data_ptr(), epoch)
+                 l, h, pp, nn, 1, na, *xs, *bs, *cs, scratch.data_ptr(),
+                 epoch)
     KERNEL_LAUNCHES["ssd"] += 1
     return y[..., :p]
+
+
+def _wide_state(bsz, h, p, n, dtype, dev):
+    """The carried state of the kernel past N 256 for operands of `dtype`:
+    (B, H, P, N), float64 for float32 and float32 for bf16, written by
+    each sequence's first chunk before any read."""
+    st = torch.float64 if dtype == torch.float32 else torch.float32
+    return torch.empty((bsz, h, p, n), dtype=st, device=dev)
 
 
 def _ssd_f32(x, dt, a, b, c, d, ch):
@@ -155,8 +199,12 @@ def _ssd_f32(x, dt, a, b, c, d, ch):
         c = F.pad(c, (0, 0, 0, pad))
     x, dt, a, b, c, d = (build.aligned(t) for t in (x, dt, a, b, c, d))
     y = torch.empty_like(x)
+    lp = l + pad
+    na = plan(p, n, x.dtype)["na"]
+    state = None if na else _wide_state(bsz, h, p, n, x.dtype, x.device)
     build.launch("ssd_scan", x, x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                  b.data_ptr(), c.data_ptr(), d.data_ptr(), y.data_ptr(), bsz,
-                 l + pad, h, p, n, 0, 0, 0, 0, 0, 0, 0, 0, None, 0)
+                 lp, h, p, n, 0, na, lp * h * p, h * p, p, lp * n, n,
+                 lp * n, n, None if state is None else state.data_ptr(), 0)
     KERNEL_LAUNCHES["ssd"] += 1
     return y[:, :l]

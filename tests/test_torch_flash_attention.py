@@ -189,3 +189,82 @@ def test_flash_bf16_rounding_design(causal, window):
         jnp.float32), jnp.repeat(v, 2, 1).astype(jnp.float32),
         causal=causal, window=window)
     np.testing.assert_allclose(_np(got), _np(oracle), atol=2e-2)
+
+
+@pytest.mark.parametrize("d", [136, 192, 256, 320])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_wide_head_dims_match_reference(d, dtype):
+    """Head dims past 128, which the reference's kernel takes: 136 (the
+    bf16 kernel pads it to its 192 tiling), 192 and 256 (the Hopper
+    tilings that read Q in place), 320 (past them: the kernel that splits
+    D); GQA rep 2, causal with a window, a ragged Lk > Lq. The port's
+    plain version against the Pallas kernel and the float32 oracle."""
+    (q, k, v), (tq, tk, tv) = _inputs(10 + d, 1, 4, 2, 80, 112, d, dtype)
+    tol = DTYPES[dtype][2]
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=48)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = j_flash(q, k, v, causal=True, window=48, bq=32, bk=32)
+    oracle = j_ref(q.astype(jnp.float32), jnp.repeat(k, 2, 1).astype(
+        jnp.float32), jnp.repeat(v, 2, 1).astype(jnp.float32),
+        causal=True, window=48)
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=tol)
+
+
+@pytest.mark.parametrize("d", [192, 320])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_wide_head_dims_lk_below_lq(d, dtype):
+    """Causal at Lk 72 < Lq 150, GQA rep 2, at a Hopper tiling past 128
+    and past them: the rows that see no key as the reference's kernel
+    writes them at its default tiles."""
+    (q, k, v), (tq, tk, tv) = _inputs(20 + d, 1, 4, 2, 150, 72, d, dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(_np(got), _np(j_flash(q, k, v, causal=True)),
+                               atol=DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("lk", [40, 72])
+@pytest.mark.parametrize("bk", [64, 128, 256])
+def test_flash_no_key_rows_follow_bk(bk, lk):
+    """The reference's key tile `bk` sets what a row that sees no key
+    gets, the sum of v over bk ceil(Lk / bk) (at Lk 72 the same at bk 64
+    and 128, half of it at 256); `bq` changes no value. The port against
+    the reference in interpret mode at each bk, causal, Lq = Lk + 56, GQA
+    rep 2."""
+    (q, k, v), (tq, tk, tv) = _inputs(30 + lk, 1, 4, 2, lk + 56, lk, 16,
+                                      "f32")
+    got = ops.flash_attention(tq, tk, tv, causal=True, bk=bk)
+    np.testing.assert_allclose(
+        _np(got), _np(j_flash(q, k, v, causal=True, bk=bk)), atol=2e-5)
+    np.testing.assert_allclose(
+        _np(got), _np(j_flash(q, k, v, causal=True, bq=32, bk=bk)),
+        atol=2e-5)
+    empty = tv.float().sum(2) / (bk * -(-lk // bk))
+    np.testing.assert_allclose(
+        _np(got[:, :, :56]),
+        _np(empty.repeat_interleave(2, 1)[:, :, None].expand(-1, -1, 56, -1)),
+        atol=2e-5)
+    assert torch.equal(
+        ops.flash_attention(tq, tk, tv, causal=True, bq=32, bk=bk), got)
+    torch.testing.assert_close(ref.no_key_value(tv, bk), empty)
+
+
+def test_tiling_picks_the_least_that_holds_d():
+    """The kernel a padded head dim launches: the bf16 Hopper tilings up
+    to 256, the float32 kernel's 4 or 8 slots a lane up to 256, and 0
+    (the kernel that splits D) past them."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    ds = (8, 16, 24, 40, 64, 72, 80, 88, 96, 104, 128, 136, 192, 200, 256,
+          264, 320)
+    assert [ops.tiling(d, bf16) for d in ds] == [
+        16, 16, 32, 64, 64, 80, 80, 96, 96, 128, 128, 192, 192, 256, 256,
+        0, 0]
+    assert [ops.tiling(d, f32) for d in (8, 128, 136, 256, 264, 320)] == [
+        128, 128, 256, 256, 0, 0]
+
+
+def test_bad_tiles_raise():
+    q = torch.zeros(1, 2, 8, 16)
+    for kw in ({"bq": 0}, {"bk": 0}):
+        with pytest.raises(ValueError, match="bq and bk"):
+            ops.flash_attention(q, q, q, **kw)

@@ -30,7 +30,10 @@ keep_frac 0.6 and 0.8, with rows in which every deviation ties (the
 hot bin of every digit round). Flash also runs causal at Lk < Lq (the
 rows before the first key written as the reference's kernel writes
 them) and head dims 20 and 100, which the wrapper pads to a multiple of
-8.
+8. Past the widths of the repo's configurations, flash runs head dims
+136, 192, 256 and 320 in both types, with the no-key rows at the
+reference's key tiles of 64 and 256, and SSD P 96, 128 and 160 with N
+136, 256, 264 and 320, the model's strided operands at P 128 and N 256.
 
 The streamed serving loop (`submit_to`, `depart_to`, `cap_to`, `flush`
 with the power-emergency plane) runs on the card at a small width: its
@@ -166,8 +169,14 @@ def test_flash_kernel_lk_below_lq_causal(cuda, dtype, window, lq, lk):
 @pytest.mark.parametrize("l,h,p,n", [(100, 3, 16, 8), (512, 4, 64, 64),
                                      (200, 2, 64, 128), (5, 2, 8, 4),
                                      (200, 3, 16, 128), (300, 2, 40, 24),
-                                     (100, 81, 64, 64), (40, 3, 64, 64)])
+                                     (100, 81, 64, 64), (40, 3, 64, 64),
+                                     (100, 3, 96, 128), (200, 2, 128, 256),
+                                     (130, 3, 64, 136), (150, 2, 160, 320),
+                                     (70, 2, 40, 264)])
 def test_ssd_kernel_matches_plain_version(cuda, dtype, l, h, p, n):
+    """The last five: P past 64 (slices of 64, the last partial), N in
+    four atoms (256, and 136 padded to them), N past 256 (the state in
+    device memory)."""
     rng = np.random.default_rng(l + p + n)
     x = _normal(rng, 2, l, h, p).to(cuda, dtype)
     dt = torch.from_numpy(rng.uniform(0.001, 0.2, (2, l, h))
@@ -224,6 +233,93 @@ def test_ssd_kernel_strided_views_and_repeats_bit_equal(cuda, b, l, h, n):
                                chunk=min(128, max(l, 8)))
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,p,n", [(2, 512, 8, 128, 256),
+                                       (2, 300, 3, 96, 128),
+                                       (1, 200, 2, 160, 320)])
+def test_ssd_kernel_wide_strided_views_and_repeats_bit_equal(cuda, b, l, h,
+                                                             p, n):
+    """P past 64 and N past 128 through the model's operands (x, B and C
+    sliced from one (B, L, H P + 2N) buffer, `kernel_operand` reading them
+    in place): bit-equal to the contiguous call and to a repeat, within
+    the bf16 bar of the plain version. P 128 at N 256 (mamba2's P 64
+    doubled, two slices, four atoms), P 96 (a partial slice), N 320 (the
+    state in device memory)."""
+    rng = np.random.default_rng(b + l + h + p + n)
+    buf = _normal(rng, b, l, h * p + 2 * n).to(cuda, torch.bfloat16)
+    xs, bs, cs = torch.split(buf, [h * p, n, n], dim=-1)
+    xh = xs.reshape(b, l, h, p)
+    assert ssd_ops.kernel_operand(xh, p)[0].data_ptr() == xh.data_ptr()
+    dt = torch.nn.functional.softplus(_normal(rng, b, l, h)).to(cuda)
+    a = -torch.linspace(1.0, 16.0, h, device=cuda)
+    d = torch.ones(h, device=cuda)
+    reset_launches()
+    got = ssd_ops.ssd(xh, dt, a, bs, cs, d)
+    again = ssd_ops.ssd(xh, dt, a, bs, cs, d)
+    contig = ssd_ops.ssd(xh.contiguous(), dt, a, bs.contiguous(),
+                         cs.contiguous(), d)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["ssd"] == 3
+    assert torch.equal(got, again) and torch.equal(got, contig)
+    want = ssd_ref.ssd_chunked(xh, dt, a, bs, cs, d,
+                               chunk=min(128, max(l, 8)))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [136, 192, 256, 320])
+@pytest.mark.parametrize("lq,lk,window,causal", [
+    (300, 300, None, True), (300, 700, 128, True), (300, 200, None, True),
+    (64, 1500, None, False)])
+def test_flash_kernel_wide_head_dims(cuda, dtype, d, lq, lk, window,
+                                     causal):
+    """Head dims past 128: bf16 136 (padded to the 192 tiling), 192 and
+    256 (Q read in place, O staged through Q's tile), float32 up to 256
+    (8 slots a lane), 320 in both types (D split over passes and slices);
+    GQA rep 2, ragged Lq, a window, causal at Lk < Lq (the no-key rows'
+    kernel at D 320 too), non-causal over 1,500 keys; a repeated call
+    bit-equal."""
+    rng = np.random.default_rng(lq + lk + d)
+    q = _normal(rng, 2, 4, lq, d).to(cuda, dtype)
+    k = _normal(rng, 2, 2, lk, d).to(cuda, dtype)
+    v = _normal(rng, 2, 2, lk, d).to(cuda, dtype)
+    reset_launches()
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["flash_attention"] == 2
+    assert torch.equal(got, again)
+    want = flash_ref.attention_kernel_ref(q, k.repeat_interleave(2, 1),
+                                          v.repeat_interleave(2, 1),
+                                          causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 320])
+@pytest.mark.parametrize("bk", [64, 256])
+def test_flash_kernel_no_key_rows_follow_bk(cuda, dtype, d, bk):
+    """The rows that see no key (causal, Lk 40 < Lq 300) at the
+    reference's key tiles of 64 and 256: the sum of v over bk
+    ceil(Lk / bk), GQA rep 2."""
+    rng = np.random.default_rng(d + bk)
+    q = _normal(rng, 1, 4, 300, d).to(cuda, dtype)
+    k = _normal(rng, 1, 2, 40, d).to(cuda, dtype)
+    v = _normal(rng, 1, 2, 40, d).to(cuda, dtype)
+    got = flash_ops.flash_attention(q, k, v, causal=True, bk=bk)
+    torch.cuda.synchronize()
+    want = flash_ref.attention_kernel_ref(q, k.repeat_interleave(2, 1),
+                                          v.repeat_interleave(2, 1),
+                                          causal=True, bk=bk)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
 
 
 @pytest.mark.cuda

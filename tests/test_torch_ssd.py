@@ -207,7 +207,9 @@ def _strong(seed, b, l, h, p, n):
     (2, 40, 4, 64, 64),      # L shorter than one chunk
     (1, 1100, 4, 64, 64),    # a chain of 18 chunks at Zamba2's decays
     (1, 300, 3, 16, 32),     # H not a multiple of the head group
-    (1, 100, 81, 16, 16)])
+    (1, 100, 81, 16, 16),
+    (1, 200, 2, 128, 256),   # two P slices, N in four atoms
+    (1, 150, 3, 96, 136)])   # a partial P slice, N padded to four atoms
 def test_ssd_bf16_emulation_matches_chunked_and_reference(b, l, h, p, n):
     """The kernel's rounding design (`ref.ssd_bf16_emulated`: chunks of
     64, each chunk's state summed from zero and handed over as
@@ -289,3 +291,40 @@ def test_ssd_strided_views_equal_contiguous_on_cpu():
     want = ops.ssd(xh.contiguous(), dt, a, bs.contiguous(),
                    cs.contiguous(), d)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p,n", [(96, 128), (128, 256), (160, 320)])
+def test_ssd_wide_heads_and_states_match_reference(p, n):
+    """Head dims past 64 and states past 128, which the reference's
+    kernel takes: P 96 (one slice and a partial one), 128 with N 256 (the
+    bf16 kernel's four atoms), 160 with N 320 (past them: the kernel that
+    keeps the state in device memory); a ragged L. The port's plain
+    version against the Pallas kernel and the recurrence."""
+    arrs = _inputs(20 + p + n, 1, 100, 2, p, n)
+    got = ops.ssd(*_t(arrs))
+    assert got.shape == (1, 100, 2, p) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_ssd(*_j(arrs))),
+                               atol=2e-4)
+    oracle, _ = j_ssd_ref(*_j(arrs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=2e-4)
+
+
+def test_plan_and_scratch_bytes():
+    """The kernel a (P, N) launches and the bf16 kernel's scratch: P in
+    slices of 64; bf16 N in 1, 2 or 4 atoms of 64 columns up to 256,
+    float32 up to 256 in shared memory, 0 (the state in device memory)
+    past 256 in both; 64 bytes of counters, then a slot of na x 2,048
+    16-byte units a (batch, head, P slice)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert ops.plan(64, 64, bf16) == {"na": 1, "p_slices": 1}
+    assert ops.plan(16, 128, bf16) == {"na": 2, "p_slices": 1}
+    assert ops.plan(96, 136, bf16) == {"na": 4, "p_slices": 2}
+    assert ops.plan(160, 256, bf16) == {"na": 4, "p_slices": 3}
+    assert ops.plan(128, 264, bf16) == {"na": 0, "p_slices": 2}
+    assert ops.plan(40, 20, f32) == {"na": 1, "p_slices": 1}
+    assert ops.plan(128, 256, f32) == {"na": 4, "p_slices": 2}
+    assert ops.plan(160, 320, f32) == {"na": 0, "p_slices": 3}
+    assert ops.scratch_bytes(8, 80, 64, 64) == 64 + 8 * 80 * 2048 * 16
+    assert ops.scratch_bytes(2, 4, 64, 128) == 64 + 2 * 4 * 2 * 2048 * 16
+    assert ops.scratch_bytes(8, 40, 128, 256) \
+        == 64 + 8 * 40 * 2 * 4 * 2048 * 16

@@ -224,8 +224,6 @@ def main(argv=None) -> int:
                    out_dir / "libssd_variants.so", csrc, "ssd_kernel_bf16")
     lib.ssd_variant.argtypes = ENTRY + [_I] * 4 + [_P]
     lib.ssd_variant.restype = _I
-    lib.ssd_scratch_bytes.argtypes = [_I, _I, _I]
-    lib.ssd_scratch_bytes.restype = _L
     rows = (ctypes.c_int * 400)()
     n_var = lib.ssd_variant_list(rows, 100)
     variants = [tuple(rows[4 * i:4 * i + 4]) for i in range(n_var)]
@@ -241,11 +239,9 @@ def main(argv=None) -> int:
         asrc = tree / "src" / "repro_torch" / "csrc"
         alt = nvcc_lib(asrc / "ssd.cu", out_dir / f"libssd_against{i}.so",
                        asrc, "ssd_kernel_bf16")
-        alt.ssd_scan.argtypes = [_P] * 7 + [_I] * 6 + [_L] * 7 + [_P, _U,
+        alt.ssd_scan.argtypes = [_P] * 7 + [_I] * 7 + [_L] * 7 + [_P, _U,
                                                                    _P]
         alt.ssd_scan.restype = _I
-        alt.ssd_scratch_bytes.argtypes = [_I, _I, _I]
-        alt.ssd_scratch_bytes.restype = _L
         against[tree.name] = alt
 
     dev = torch.device("cuda")
@@ -257,7 +253,7 @@ def main(argv=None) -> int:
         want = ref.ssd_chunked(x, dt, a, bm, cm, d,
                                chunk=min(128, max(l, 8))).float()
         y = torch.empty((b, l, h, p), dtype=torch.bfloat16, device=dev)
-        scratch = torch.zeros(lib.ssd_scratch_bytes(b, h, n),
+        scratch = torch.zeros(ops.scratch_bytes(b, h, p, n),
                               dtype=torch.uint8, device=dev)
         xs, bs, cs = (ops.tma_strides(t) for t in (x, bm, cm))
 
@@ -301,7 +297,7 @@ def main(argv=None) -> int:
             rec["parent"] = checked(par)
         fns = {"parent": par, "port": port}
         for name_, alt in against.items():
-            ascr = torch.zeros(alt.ssd_scratch_bytes(b, h, n),
+            ascr = torch.zeros(ops.scratch_bytes(b, h, p, n),
                                dtype=torch.uint8, device=dev)
 
             def alt_call(alt=alt, ascr=ascr):
@@ -309,7 +305,8 @@ def main(argv=None) -> int:
                 err = alt.ssd_scan(
                     x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
                     cm.data_ptr(), d.data_ptr(), y.data_ptr(), b, l, h, p, n,
-                    1, *xs, *bs, *cs, ascr.data_ptr(), epoch[0],
+                    1, ops.plan(p, n, x.dtype)["na"], *xs, *bs, *cs,
+                    ascr.data_ptr(), epoch[0],
                     torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed: cudaError_t {err}")
