@@ -19,6 +19,7 @@ import torch
 from repro_torch.launch import sharding as shd
 from repro_torch.models import transformer as T
 from repro_torch.models.loss import chunked_ce
+from repro_torch.obs.tracing import STEP_TRACER, step_span
 from repro_torch.optim import get_optimizer
 from repro_torch.optim.grad_compress import compress_decompress
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -160,14 +161,29 @@ def make_eval_step(cfg, impl: str = "chunked"):
     return eval_step
 
 
-def make_prefill_step(cfg, impl: str = "chunked"):
+def make_prefill_step(cfg, impl: str = "chunked", tracer=STEP_TRACER):
     """(params, batch) -> last-token logits (B, vocab). The batch goes to
     `forward` whole: "tokens", and "frames" (audio) or "patch_embeds"
-    (vlm) where the family reads them."""
+    (vlm) where the family reads them. Each call is a batch of `tracer`
+    (an `obs.tracing.StepTracer`; None records nothing): a root span
+    "prefill_step" with count `tokens` = B*L, the spans the model opens
+    under it (`transformer.forward`), and "lm_head", the head on the
+    last positions (the final norm is `forward`'s, in the root's own
+    time)."""
     def prefill_step(params, batch):
-        hidden = T.forward(cfg, params, batch, impl=impl)
-        return T.logits_from_hidden(cfg, params, hidden[:, -1:])[:, 0]
+        if tracer is None:
+            return _prefill(cfg, params, batch, impl)
+        tokens = batch["tokens"]
+        with tracer.span("prefill_step", device=tokens.device,
+                         tokens=tokens.numel()):
+            return _prefill(cfg, params, batch, impl)
     return prefill_step
+
+
+def _prefill(cfg, params, batch, impl):
+    hidden = T.forward(cfg, params, batch, impl=impl)
+    with step_span("lm_head"):
+        return T.logits_from_hidden(cfg, params, hidden[:, -1:])[:, 0]
 
 
 def make_serve_step(cfg, impl: str = "naive", return_logits: bool = True):
@@ -215,7 +231,7 @@ def step_for_shape(cfg, shape, impl: str = "chunked", n_data: int = 16,
                 input_specs(cfg, shape))
         return step, args, ("params", "opt_state", "batch")
     if shape.kind == "prefill":
-        step = make_prefill_step(cfg, impl=impl)
+        step = make_prefill_step(cfg, impl=impl, tracer=None)
         args = (params_spec(cfg), input_specs(cfg, shape))
         return step, args, ("params", "batch")
     step = make_serve_step(cfg, return_logits=False)

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.launch import sharding as shd
 from repro_torch.models.layers import apply_mrope, apply_rope, dense, dense_init
+from repro_torch.obs.tracing import step_span
 
 NEG = -1e30
 IMPLS = ("naive", "chunked", "cuda")
@@ -213,7 +214,8 @@ def attention_apply(params, x, cfg, positions, causal=True, impl="chunked",
         from repro_torch.kernels.flash_attention.ops import flash_attention
         if not q.is_cuda:
             raise ValueError(f"impl='cuda' needs CUDA tensors, got {q.device}")
-        out = flash_attention(q, k, v, causal=causal, window=window)
+        with step_span("attn_core"):
+            out = flash_attention(q, k, v, causal=causal, window=window)
     else:
         rep = cfg.n_heads // cfg.n_kv_heads
         if rep > 1:
@@ -221,8 +223,10 @@ def attention_apply(params, x, cfg, positions, causal=True, impl="chunked",
             v = v.repeat_interleave(rep, 1)
         core = _naive_attention if impl == "naive" else _chunked_attention
         # independent along (batch, head): on a mesh, each rank's shards
-        out = shd.local_map(lambda q, k, v: core(q, k, v, causal, window),
-                            (q, k, v), [(0, 1)] * 3, (0, 1))
+        with step_span("attn_core"):
+            out = shd.local_map(lambda q, k, v: core(q, k, v, causal,
+                                                     window),
+                                (q, k, v), [(0, 1)] * 3, (0, 1))
     out = shd.constrain(_merge_heads(out), "attn_out")
     return dense(params["wo"], out), None
 

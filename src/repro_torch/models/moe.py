@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.launch import sharding as shd
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, normal
+from repro_torch.obs.tracing import step_span
 
 #: Token counts above this are dispatched in chunks along the length, and
 #: the capacity is taken per chunk (`moe_apply`).
@@ -124,43 +125,53 @@ def moe_apply(params, x, cfg, capacity_factor: float | None = 1.25,
 
 
 def _moe_dispatch(params, x, cfg, capacity_factor):
-    """The dispatch over one (b, lc, d) slab; returns (b, lc, d)."""
+    """The dispatch over one (b, lc, d) slab; returns (b, lc, d). Its
+    steps run under step spans "route", "dispatch", "experts" (counts
+    `rows`, the E*C rows its products compute, and `kept`, the
+    assignments kept under the capacity) and "combine"."""
     b, lc, d = x.shape
     t, e, k = b * lc, cfg.n_experts, cfg.experts_per_token
     xf = x.reshape(t, d)
-    r = route(params, xf, cfg, capacity_factor)
+    with step_span("route"):
+        r = route(params, xf, cfg, capacity_factor)
     c = r.capacity
-    # row e*c is the spare row the dropped assignments go to
-    rows = torch.where(r.keep, r.expert_ids.reshape(-1) * c + r.pos, e * c)
-    # each token k times in (token, slot) order: its backward sums the k
-    # rows by a reshape, in a fixed order, not by an index_add
-    contrib = shd.constrain(xf[:, None].expand(t, k, d).reshape(t * k, d),
-                            "moe_tokens")
-    # the buffer write has no DTensor sharding rule: on a mesh every rank
-    # writes the whole buffer from the gathered rows
-    buf = shd.local_map(lambda src, rows: _write_rows(src, rows, e * c + 1),
-                        (contrib, rows), [(), ()], ())
-    buf = shd.constrain(buf[:e * c].view(e, c, d), "moe_buffer")
+    with step_span("dispatch"):
+        # row e*c is the spare row the dropped assignments go to
+        rows = torch.where(r.keep, r.expert_ids.reshape(-1) * c + r.pos,
+                           e * c)
+        # each token k times in (token, slot) order: its backward sums
+        # the k rows by a reshape, in a fixed order, not by an index_add
+        contrib = shd.constrain(
+            xf[:, None].expand(t, k, d).reshape(t * k, d), "moe_tokens")
+        # the buffer write has no DTensor sharding rule: on a mesh every
+        # rank writes the whole buffer from the gathered rows
+        buf = shd.local_map(
+            lambda src, rows: _write_rows(src, rows, e * c + 1),
+            (contrib, rows), [(), ()], ())
+        buf = shd.constrain(buf[:e * c].view(e, c, d), "moe_buffer")
 
     gate, up, down = (shd.fsdp_weight(params[n]) for n in ("gate", "up",
                                                            "down"))
-    h = F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
-    h = shd.constrain(h, "moe_hidden")
-    out_buf = shd.constrain(torch.bmm(h, down), "moe_buffer")
-    # the spare row of zeros is what a dropped assignment reads back; on
-    # a mesh the buffer is gathered whole (it is read whole below, and a
-    # capacity dim split over 'data' cannot be flattened into E*C)
-    out = torch.cat([shd.replicate(out_buf).view(e * c, d),
-                     x.new_zeros((1, d))])
-    # each rank reads its own assignments' rows of the whole buffer
-    gathered = shd.local_map(lambda rows, out: out[rows], (rows, out),
-                             [(0,), (None,)], (0,))
-    gathered = shd.constrain(gathered, "moe_tokens")
-    w = r.gates.reshape(-1, 1).to(x.dtype)
-    parts = (gathered * w).reshape(t, k, d)
-    y = parts[:, 0]
-    for j in range(1, k):                        # the reference's adds
-        y = y + parts[:, j]
+    with step_span("experts", rows=e * c, kept=r.keep):
+        h = F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
+        h = shd.constrain(h, "moe_hidden")
+        out_buf = shd.constrain(torch.bmm(h, down), "moe_buffer")
+    with step_span("combine"):
+        # the spare row of zeros is what a dropped assignment reads back;
+        # on a mesh the buffer is gathered whole (it is read whole below,
+        # and a capacity dim split over 'data' cannot be flattened into
+        # E*C)
+        out = torch.cat([shd.replicate(out_buf).view(e * c, d),
+                         x.new_zeros((1, d))])
+        # each rank reads its own assignments' rows of the whole buffer
+        gathered = shd.local_map(lambda rows, out: out[rows], (rows, out),
+                                 [(0,), (None,)], (0,))
+        gathered = shd.constrain(gathered, "moe_tokens")
+        w = r.gates.reshape(-1, 1).to(x.dtype)
+        parts = (gathered * w).reshape(t, k, d)
+        y = parts[:, 0]
+        for j in range(1, k):                    # the reference's adds
+            y = y + parts[:, j]
     return shd.constrain(y, "moe_tokens").reshape(b, lc, d)
 
 

@@ -32,6 +32,7 @@ from repro_torch.models.attention import (attention_apply, attention_init,
                                           check_impl)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import init_ssm_state, ssm_apply, ssm_init
+from repro_torch.obs.tracing import step_span
 from repro_torch.tree import leaves
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -93,23 +94,28 @@ def _block_init(gen, cfg, dtype, device, lead):
     return p
 
 
-def _ffn(params, x, cfg, capacity_factor):
-    """The block's feed-forward half on the normed input x."""
+def _ffn(params, x, cfg, capacity_factor, layer=-1):
+    """The block's feed-forward half on the normed input x; the MoE under
+    a step span "moe" of `layer`."""
     if cfg.n_experts > 0:
-        return moe_apply(params["moe"], x, cfg, capacity_factor)
+        with step_span("moe", layer):
+            return moe_apply(params["moe"], x, cfg, capacity_factor)
     return L.mlp_apply(params["mlp"], x, cfg.mlp)
 
 
-def _block_apply(params, x, cfg, positions, impl, causal=True):
+def _block_apply(params, x, cfg, positions, impl, causal=True, layer=-1):
     _, norm = L.make_norm(cfg.norm)
     if cfg.family in ("ssm", "hybrid"):
         h, _ = ssm_apply(params["ssm"], norm(params["norm"], x), cfg,
                          impl="chunked" if impl == "naive" else impl)
         return x + h
-    a, _ = attention_apply(params["attn"], norm(params["norm1"], x), cfg,
-                           positions, causal=causal, impl=impl)
+    # the input norm inside the span: a name bound out here would hold
+    # the normed activations through the MoE half
+    with step_span("attention", layer):
+        a, _ = attention_apply(params["attn"], norm(params["norm1"], x),
+                               cfg, positions, causal=causal, impl=impl)
     x = x + a
-    x = x + _ffn(params, norm(params["norm2"], x), cfg, 1.25)
+    x = x + _ffn(params, norm(params["norm2"], x), cfg, 1.25, layer)
     return shd.constrain(x, "residual")
 
 
@@ -193,12 +199,13 @@ def forward(cfg, params, batch, impl="chunked"):
     _, norm = L.make_norm(cfg.norm)
     per_group = cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
     for li, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
-        x = _remat(cfg, lambda h, lp=lp: _block_apply(lp, h, cfg, positions,
-                                                      impl), x, lp)
+        x = _remat(cfg, lambda h, lp=lp, li=li: _block_apply(
+            lp, h, cfg, positions, impl, layer=li), x, lp)
         if cfg.family == "hybrid" and (li + 1) % per_group == 0:
-            a, _ = attention_apply(
-                params["shared_attn"], norm(params["shared_norm"], x), cfg,
-                positions, causal=True, impl=impl)
+            with step_span("attention", li):
+                a, _ = attention_apply(
+                    params["shared_attn"], norm(params["shared_norm"], x),
+                    cfg, positions, causal=True, impl=impl)
             x = x + a
     return norm(params["final_norm"], x)
 

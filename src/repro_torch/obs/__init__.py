@@ -12,7 +12,9 @@ Pillars, one bundle:
     capped critical VM can be explained post-hoc.
   * `tracer` — a `SpanTracer` timing each pipeline stage per batch
     (ingest -> merge -> featurize -> infer -> place -> commit, plus
-    emergency sweeps and migrations) with a ``torch.profiler`` hook.
+    emergency sweeps and migrations) on the host clock, into a ring and
+    the ``serve_span_seconds`` histograms that `launch.monitor` reads,
+    with a ``torch.profiler`` hook.
   * `windows` — a `WindowPlane` of watermark-aligned tumbling/rolling
     time windows and fixed-bucket histograms (`obs.windows`).
   * `quality` — a `PredictionScorecard` joining predictions recorded
@@ -29,6 +31,18 @@ All of it lives on the host side of the device boundary: it folds
 outputs the device calls already returned and never adds an input to
 one, so an instrumented run is decision-bit-identical to an
 uninstrumented one (asserted in ``tests/test_torch_obs_pipeline.py``).
+
+Outside the bundle, `tracing.StepTracer` records the spans of a model
+step: `launch.steps.make_prefill_step` records each batch into the
+process's `tracing.STEP_TRACER` by default (a root span a batch, and
+attention, MoE and LM-head spans under it, stamped on `time.time_ns`,
+the profiler's clock), with device times from CUDA events and the
+experts' row counts summed on the card, all read back only when the
+ring is read (`StepTracer.resolve`, `batches`); it records nothing in
+decode, training or evaluation, or under CUDA graph capture. The
+benchmark's MoE metrics read it. It adds timing events and a count
+kernel to the device's stream and changes no value
+(``tests/test_torch_step_trace.py``).
 Construct one `Observability` per pipeline and pass it as
 ``PlaneBundle(obs=...)`` of `serve.pipeline.ServePipeline` /
 `ShardedServePipeline`, or as the ``obs=`` keyword of
