@@ -1,8 +1,7 @@
 """Mixture-of-Experts FFN, as `repro.models.moe` has it: token-choice
 top-k routing with a per-expert capacity, scatter into an (E, C, d)
-buffer, the expert SwiGLUs as batched matrix products over E, and a
-gather back weighted by the router gates; Arctic adds a dense SwiGLU
-residual branch.
+buffer, the expert SwiGLUs, and a gather back weighted by the router
+gates; Arctic adds a dense SwiGLU residual branch.
 
 The router is float32 whatever the model's dtype. An assignment's slot
 in its expert's buffer is its rank among the assignments to that expert
@@ -15,6 +14,18 @@ slot order, so nothing here depends on the order in which the card's
 atomics land. Every step is differentiable, and the backward keeps that
 rule: a token's k copies are summed by a reshape, and the only rows
 read more than once are the spare row's, whose gradient is dropped.
+
+The expert products take one of two paths, by what the dispatch sees.
+An expert's kept assignments fill the first n_e = min(count_e, C) rows
+of its block, so where a capacity factor is given (a prefill) and the
+buffer is a plain tensor, the E counts are read to the host once and
+each expert's SwiGLU runs on its kept rows alone, skipping an expert
+with none; the combine reads the outputs packed, with no padding rows.
+The decode call (dropless, no capacity factor), which a CUDA graph of
+the decode step must keep free of host reads, a dispatch captured into
+a CUDA graph, and a buffer on a mesh (a DTensor: its per-expert slices
+have no sharding rule) run three batched products over the whole
+(E, C, d) buffer.
 
 On a mesh the reference's eight sharding constraints apply (the routing
 as its (T*k, E) transpose), and the buffer write and the gather back,
@@ -127,18 +138,31 @@ def moe_apply(params, x, cfg, capacity_factor: float | None = 1.25,
 def _moe_dispatch(params, x, cfg, capacity_factor):
     """The dispatch over one (b, lc, d) slab; returns (b, lc, d). Its
     steps run under step spans "route", "dispatch", "experts" (counts
-    `rows`, the E*C rows its products compute, and `kept`, the
-    assignments kept under the capacity) and "combine"."""
+    `rows`, the buffer rows its products compute: the kept rows, or E*C
+    on the batched path, and `kept`, the assignments kept under the
+    capacity) and "combine"."""
     b, lc, d = x.shape
     t, e, k = b * lc, cfg.n_experts, cfg.experts_per_token
     xf = x.reshape(t, d)
     with step_span("route"):
         r = route(params, xf, cfg, capacity_factor)
     c = r.capacity
+    flat_e = r.expert_ids.reshape(-1)
     with step_span("dispatch"):
+        by_expert = _by_expert(capacity_factor, xf)
+        if by_expert:
+            # the kept rows an expert, min(count, C): read to the host
+            # after the buffer write is launched, which covers the wait
+            n_kept = torch.zeros(e, dtype=torch.int64, device=x.device) \
+                .index_add_(0, flat_e, r.keep.to(torch.int64))
+            read_kept = _read_counts(n_kept)
+            # a kept assignment's row among the experts' packed outputs,
+            # the spare row of zeros after them
+            start = n_kept.cumsum(0) - n_kept
+            packed = torch.where(r.keep, start[flat_e] + r.pos,
+                                 n_kept.sum())
         # row e*c is the spare row the dropped assignments go to
-        rows = torch.where(r.keep, r.expert_ids.reshape(-1) * c + r.pos,
-                           e * c)
+        rows = torch.where(r.keep, flat_e * c + r.pos, e * c)
         # each token k times in (token, slot) order: its backward sums
         # the k rows by a reshape, in a fixed order, not by an index_add
         contrib = shd.constrain(
@@ -148,22 +172,32 @@ def _moe_dispatch(params, x, cfg, capacity_factor):
         buf = shd.local_map(
             lambda src, rows: _write_rows(src, rows, e * c + 1),
             (contrib, rows), [(), ()], ())
-        buf = shd.constrain(buf[:e * c].view(e, c, d), "moe_buffer")
+        if by_expert:
+            n = read_kept()
+        else:
+            buf = shd.constrain(buf[:e * c].view(e, c, d), "moe_buffer")
 
-    gate, up, down = (shd.fsdp_weight(params[n]) for n in ("gate", "up",
-                                                           "down"))
-    with step_span("experts", rows=e * c, kept=r.keep):
-        h = F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
-        h = shd.constrain(h, "moe_hidden")
-        out_buf = shd.constrain(torch.bmm(h, down), "moe_buffer")
+    gate, up, down = (shd.fsdp_weight(params[w])
+                      for w in ("gate", "up", "down"))
+    with step_span("experts", rows=sum(n) if by_expert else e * c,
+                   kept=r.keep):
+        if by_expert:
+            outs = _experts_kept(buf[:e * c], n, gate, up, down)
+        else:
+            h = F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
+            h = shd.constrain(h, "moe_hidden")
+            out_buf = shd.constrain(torch.bmm(h, down), "moe_buffer")
     with step_span("combine"):
-        # the spare row of zeros is what a dropped assignment reads back;
-        # on a mesh the buffer is gathered whole (it is read whole below,
-        # and a capacity dim split over 'data' cannot be flattened into
-        # E*C)
-        out = torch.cat([shd.replicate(out_buf).view(e * c, d),
-                         x.new_zeros((1, d))])
-        # each rank reads its own assignments' rows of the whole buffer
+        # the spare row of zeros is what a dropped assignment reads back
+        if by_expert:
+            rows = packed
+            out = torch.cat([*outs, x.new_zeros((1, d))])
+        else:
+            # on a mesh the buffer is gathered whole (it is read whole
+            # below, and a capacity dim split over 'data' cannot be
+            # flattened into E*C)
+            out = torch.cat([shd.replicate(out_buf).view(e * c, d),
+                             x.new_zeros((1, d))])
         gathered = shd.local_map(lambda rows, out: out[rows], (rows, out),
                                  [(0,), (None,)], (0,))
         gathered = shd.constrain(gathered, "moe_tokens")
@@ -173,6 +207,42 @@ def _moe_dispatch(params, x, cfg, capacity_factor):
         for j in range(1, k):                    # the reference's adds
             y = y + parts[:, j]
     return shd.constrain(y, "moe_tokens").reshape(b, lc, d)
+
+
+def _by_expert(capacity_factor, src) -> bool:
+    """Whether a dispatch runs its expert products on each expert's kept
+    rows: where a capacity factor is given, the tokens `src` that fill
+    the buffer are a plain tensor (not a DTensor), and no CUDA graph is
+    being captured (a capture cannot read the counts)."""
+    return capacity_factor is not None and type(src) is torch.Tensor \
+        and not (src.is_cuda and torch.cuda.is_current_stream_capturing())
+
+
+def _read_counts(n: torch.Tensor):
+    """Starts the copy of the counts `n` to the host; returns the call
+    that waits for it and gives them as ints."""
+    host = n.to("cpu", non_blocking=True)
+    if not n.is_cuda:
+        return host.tolist
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(n.device))
+
+    def wait():
+        done.synchronize()
+        return host.tolist()
+    return wait
+
+
+def _experts_kept(buf, n, gate, up, down):
+    """Each expert's SwiGLU over its kept rows, the first n[e] of its
+    block of buf (E*C, d); the (n[e], d) outputs of the experts with any,
+    in expert order. Each weight stack is split once (one backward node
+    a stack, not one a slice)."""
+    c = buf.shape[0] // len(n)
+    held = buf.split([s for m in n for s in (m, c - m)])[::2]
+    return [(F.silu(xe @ g) * (xe @ u)) @ dn
+            for xe, g, u, dn, m in zip(held, gate.unbind(0), up.unbind(0),
+                                       down.unbind(0), n) if m]
 
 
 def _write_rows(src, rows, n: int):

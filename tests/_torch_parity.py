@@ -205,9 +205,12 @@ def check_train_step(arch: str, micro: int, reference) -> float:
 
 def moe_dispatch_indexed(params, x, cfg, capacity_factor):
     """`models.moe._moe_dispatch` in its serving-only form: the tokens
-    copied in by an indexing gather and the down projection written by
-    `bmm(out=)`, which autograd cannot differentiate. The differentiable
-    form must give its numbers bit for bit."""
+    copied in by an indexing gather and the down projections written by
+    `bmm(out=)` or `mm(out=)`, which autograd cannot differentiate. Where
+    a capacity factor is given the products run expert by expert on the
+    kept rows, packed, as the dispatch's own do; without one, batched
+    over the whole buffer. The differentiable form must give its numbers
+    bit for bit."""
     import torch.nn.functional as F
     from repro_torch.models.moe import route
     b, lc, d = x.shape
@@ -215,15 +218,31 @@ def moe_dispatch_indexed(params, x, cfg, capacity_factor):
     xf = x.reshape(t, d)
     r = route(params, xf, cfg, capacity_factor)
     c = r.capacity
-    rows = torch.where(r.keep, r.expert_ids.reshape(-1) * c + r.pos, e * c)
+    flat_e = r.expert_ids.reshape(-1)
+    rows = torch.where(r.keep, flat_e * c + r.pos, e * c)
     tok_ids = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = x.new_zeros((e * c + 1, d))
     buf[rows] = xf[tok_ids]
-    buf = buf[:e * c].view(e, c, d)
-    h = F.silu(torch.bmm(buf, params["gate"])) * torch.bmm(buf, params["up"])
-    out = x.new_empty((e * c + 1, d))
-    out[e * c] = 0
-    torch.bmm(h, params["down"], out=out[:e * c].view(e, c, d))
+    if capacity_factor is None:
+        buf = buf[:e * c].view(e, c, d)
+        h = F.silu(torch.bmm(buf, params["gate"])) \
+            * torch.bmm(buf, params["up"])
+        out = x.new_empty((e * c + 1, d))
+        out[e * c] = 0
+        torch.bmm(h, params["down"], out=out[:e * c].view(e, c, d))
+    else:
+        n = torch.bincount(flat_e[r.keep], minlength=e).tolist()
+        start = np.cumsum([0] + n)
+        out = x.new_empty((start[-1] + 1, d))
+        out[start[-1]] = 0
+        for i, m in enumerate(n):
+            if m:
+                xe = buf[i * c:i * c + m]
+                h = F.silu(xe @ params["gate"][i]) * (xe @ params["up"][i])
+                torch.mm(h, params["down"][i],
+                         out=out[start[i]:start[i] + m])
+        rows = torch.where(r.keep, torch.from_numpy(start[:-1]).to(
+            x.device)[flat_e] + r.pos, int(start[-1]))
     w = r.gates.reshape(-1, 1).to(x.dtype)
     parts = (out[rows] * w).reshape(t, k, d)
     y = parts[:, 0]

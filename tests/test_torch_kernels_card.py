@@ -48,6 +48,12 @@ SSD wrappers raise on an input that requires grad, and the MoE dispatch,
 the embedding gather and a remat'd block keep their serving numbers bit
 for bit, their gradients bit-equal across two runs.
 
+A Mixtral-width MoE layer (d 6,144, 8 experts of 16,384, top-2) at the
+benchmark's 4 x 1,024 and 4 x 1,536 prefill batches runs its expert
+products on each expert's kept rows: it must give the batched products'
+output within the bf16 flash bar, from the same routing and dropped
+set, and count the kept rows as the "experts" span's `rows`.
+
 Bars: forest leaf indices exact, sums within 1e-5 per tree of the plain
 version and bit-equal to its emulated summation order; template scores
 within rtol 5e-3 / atol 5e-4; flash atol 2e-5 in float32 and 2e-2 in
@@ -759,3 +765,56 @@ def test_training_forms_keep_serving_numbers_and_repeat(cuda):
     forward, and two backward passes give bit-equal gradients."""
     from _torch_parity import check_training_forms
     check_training_forms(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1024, 1536])
+def test_moe_kept_rows_match_batched_at_mixtral_width(cuda, monkeypatch,
+                                                       length):
+    """One bf16 MoE layer at Mixtral-8x22B's widths over 4 x `length`
+    tokens at capacity factor 1.25, its router leaning to expert 0: the
+    kept-rows products against the batched ones over the whole (E, C, d)
+    buffer. Only cuBLAS's kernel
+    for the smaller row counts differs, so the outputs agree within the
+    bf16 flash bar (atol and rtol 2e-2); the routing, and with it the
+    dropped set, is the same, and the kept path's `rows` is the sum over
+    experts of min(count, C), where the batched path's is E*C."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.obs import tracing as TR
+    cfg = get_config("mixtral-8x22b")
+    gen = torch.Generator(device=cuda).manual_seed(length)
+    params = M.moe_init(gen, cfg, torch.bfloat16, cuda)
+    x = torch.randn((4, length, cfg.d_model), generator=gen, device=cuda)
+    # a router leaning to expert 0, so that its capacity drops
+    # assignments (random weights alone share the tokens evenly)
+    x[..., 0] = x[..., 0].abs()
+    params["router"]["w"][0, 0] = 4.0
+    x = x.bfloat16()
+
+    def traced():
+        tr = TR.StepTracer(capacity=64)
+        routed = []
+        route = M.route
+
+        def recording(*a, **kw):
+            routed.append(route(*a, **kw))
+            return routed[-1]
+        with monkeypatch.context() as m:
+            m.setattr(M, "route", recording)
+            with tr.span("prefill_step", device=cuda):
+                y = M.moe_apply(params, x, cfg, 1.25)
+        spans = tr.batches("prefill_step")[0]
+        return y, routed[0], spans[spans["name"] == "experts"][0]
+
+    got, r, kept_span = traced()
+    with monkeypatch.context() as m:
+        m.setattr(M, "_by_expert", lambda *a: False)
+        want, r_batched, batched_span = traced()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert torch.equal(r.expert_ids, r_batched.expert_ids)
+    assert torch.equal(r.keep, r_batched.keep) and not r.keep.all()
+    e, c = cfg.n_experts, r.capacity
+    n = torch.bincount(r.expert_ids.reshape(-1), minlength=e).clamp(max=c)
+    assert kept_span["rows"] == int(n.sum()) == kept_span["kept"]
+    assert batched_span["rows"] == e * c > kept_span["rows"]

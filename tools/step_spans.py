@@ -14,10 +14,12 @@ warmed; `--root` and `--cell` name another benchmark root and cell,
 - under ``torch.profiler`` (CPU and CUDA activity) over one batch of
   each length: every span's ``record_function`` event lies within 1 ms
   of its `time.time_ns` start; each `experts` span's host interval
-  encloses the launch calls of its three GEMMs and of no other span's;
-  the device time of every kernel by the innermost span that launched
-  it (so the cuBLAS tiles split into the experts' and the projections'),
-  beside the spans' own device times;
+  encloses the launch calls of its GEMMs (three a kept-rows expert) and
+  of no other span's; the device time of every kernel by the innermost
+  span that launched it (so the cuBLAS tiles split into the experts' and
+  the projections'), beside the spans' own device times, and the expert
+  GEMMs' rate over the rows the `experts` spans count; the device's
+  idle gaps in those batches by the span that launched the next kernel;
 - the benchmark's traced reading (`portbench.trace.traced`, CUDA
   activity only) over 4 batches with the spans on and off, in turns:
   busy and window seconds, and no span of the program among its device
@@ -107,6 +109,36 @@ def innermost(spans, t_ns: int):
     return None if not len(hit) else hit[hit["host_ns"].argmin()]
 
 
+def idle_gaps(events, kernels, launch, spans, top: int = 12) -> dict:
+    """The device's idle time between its operations (kernels, copies,
+    sets) from the first to the last, each gap named by the span that
+    launched the kernel after it ("?" for a copy or a set) and that
+    kernel's name: the window, the idle sum and the largest names
+    (count, ms)."""
+    from torch.autograd import DeviceType
+    ops = sorted((e for e in events if e.device_type() == DeviceType.CUDA
+                  and not e.is_user_annotation()),
+                 key=lambda e: e.start_ns())
+    owner = {id(k): launch[i] for i, k in enumerate(kernels) if i in launch}
+    by, end = {}, ops[0].start_ns() if ops else 0
+    for e in ops:
+        gap = e.start_ns() - end
+        end = max(end, e.start_ns() + e.duration_ns())
+        if gap <= 0:
+            continue
+        call = owner.get(id(e))
+        span = None if call is None else innermost(spans, call.start_ns())
+        key = ("?" if span is None else str(span["name"])) \
+            + " before " + e.name()[:40]
+        row = by.setdefault(key, [0, 0.0])
+        row[0] += 1
+        row[1] += gap / 1e6
+    names = sorted(by.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"window_ms": (end - ops[0].start_ns()) / 1e6 if ops else 0.0,
+            "idle_ms": sum(v[1] for v in by.values()),
+            "largest": [[k, n, ms] for k, (n, ms) in names]}
+
+
 def check(args) -> int:
     import numpy as np
     import torch
@@ -161,7 +193,14 @@ def check(args) -> int:
          experts_spans=len(experts),
          gemms_per_experts_span=sorted(set(gemms_in.get(int(s), 0)
                                            for s in experts["seq"])),
-         by_innermost_span=by_span, span_device_s=own)
+         by_innermost_span=by_span, span_device_s=own,
+         experts_rows=int(experts["rows"].sum()),
+         experts_kept=int(experts["kept"].sum()),
+         experts_gemm_tflops=int(experts["rows"].sum()) * 6.0
+         * run.cfg.d_model * (run.cfg.moe_d_ff or run.cfg.d_ff)
+         / by_span.get("experts", {}).get("gemm_s", float("nan")) / 1e12)
+
+    emit(out, phase="gaps", **idle_gaps(events, kernels, launch, spans))
 
     for arm, step in (("on", on), ("off", off), ("on", on), ("off", off)):
         run.entry.step = step
