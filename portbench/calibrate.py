@@ -3,7 +3,7 @@ seed, a short window of the cell at its own load (long enough to finish
 every length the check samples), then the gaps of the program's served
 tokens against the reference; on the control seeds also those of the fp8
 control's tokens at the same positions. One process for all seeds, each
-with its own weights and traffic.
+with its own order of the shared weights and its own traffic.
 
     python3 portbench/calibrate.py --workload <cell> --seconds <s> \
         --seeds 1,2,... [--control-seeds 1,2,...] [--out FILE]

@@ -7,10 +7,13 @@ model family or metric is a file of its own, found by name:
   portbench/traffic/<mix>.json      entry, batch, lengths, generated
   portbench/entries/<entry>.py      drives one entry of the program
   portbench/reference/<family>.py   plain float32 model of a family
+  portbench/params/<family>.py      a family's seeded weights (`make`)
+  portbench/arithmetic/<family>.py  a family's whole-step counts
   portbench/metrics/<metric>.py     reads one metric (`read(ctx)`)
   portbench/limits/<cell>.json      the limit `correct` is judged by
 
-A run makes the weights and the token ids from the seed, warms the
+A run makes the weights (one draw for every seed, put in the seed's
+order) and the token ids from the seed, warms the
 shapes the traffic uses, then issues batches back to back for the
 window's seconds (the batch in flight when they run out is finished and
 counted). With tracing on, the profiler records the window's first
@@ -39,6 +42,32 @@ HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 
+def find(kind: str, name: str, ext: str, roots=()) -> Path:
+    """The file of `kind` named `name`: under each of `roots` in turn,
+    then beside this module."""
+    for base in (*roots, HERE):
+        p = base / kind / f"{name}{ext}"
+        if p.is_file():
+            return p
+    raise FileNotFoundError(f"no {kind} named {name!r} ({kind}/{name}{ext} "
+                            f"under {', '.join(map(str, (*roots, HERE)))})")
+
+
+def load(kind: str, name: str, roots=()):
+    """The module of `kind` named `name`, loaded from its file (`find`);
+    loaded anew where the module of that name came from another file."""
+    path = find(kind, name, ".py", roots)
+    key = f"{HERE.name}.{kind}._{name.replace('.', '_').replace('-', '_')}"
+    mod = sys.modules.get(key)
+    if mod is None or mod.__file__ != str(path):
+        spec = importlib.util.spec_from_file_location(key, path)
+        mod = importlib.util.module_from_spec(spec)
+        mod.__package__ = f"{HERE.name}.{kind}"
+        sys.modules[key] = mod
+        spec.loader.exec_module(mod)
+    return mod
+
+
 class Bench:
     """`BENCHMARK.json` under `root`, and the files it names. A file is
     looked up under `root`/portbench first, then beside this module."""
@@ -46,15 +75,7 @@ class Bench:
     def __init__(self, root):
         self.root = Path(root)
         self.spec = json.loads((self.root / "BENCHMARK.json").read_text())
-
-    def _find(self, kind: str, name: str, ext: str) -> Path:
-        for base in (self.root / HERE.name, HERE):
-            p = base / kind / f"{name}{ext}"
-            if p.is_file():
-                return p
-        raise FileNotFoundError(f"no {kind} named {name!r} ({kind}/{name}"
-                                f"{ext} under {self.root / HERE.name} or "
-                                f"{HERE})")
+        self.roots = (self.root / HERE.name,)
 
     def cell(self, name: str) -> dict:
         for w in self.spec["workloads"]:
@@ -69,22 +90,16 @@ class Bench:
         raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
 
     def traffic(self, name: str) -> dict:
-        return json.loads(self._find("traffic", name, ".json").read_text())
+        return json.loads(find("traffic", name, ".json", self.roots)
+                          .read_text())
 
     def limits(self, cell: str) -> dict:
-        return json.loads(self._find("limits", cell, ".json").read_text())
+        return json.loads(find("limits", cell, ".json", self.roots)
+                          .read_text())
 
     def module(self, kind: str, name: str):
         """The module of `kind` named `name`, loaded from its file."""
-        path = self._find(kind, name, ".py")
-        key = f"{HERE.name}.{kind}._{name.replace('.', '_').replace('-', '_')}"
-        if key not in sys.modules:
-            spec = importlib.util.spec_from_file_location(key, path)
-            mod = importlib.util.module_from_spec(spec)
-            mod.__package__ = f"{HERE.name}.{kind}"
-            sys.modules[key] = mod
-            spec.loader.exec_module(mod)
-        return sys.modules[key]
+        return load(kind, name, self.roots)
 
     def metrics(self, cell: str, kind: str) -> list:
         """The cell's `end_to_end` or `per_layer` metrics: those whose
@@ -117,12 +132,22 @@ def model_config(cfg_file: dict):
     return dataclasses.replace(base, **model)
 
 
+#: The weights' torch seed, the same for every run. Where the weights
+#: changed with the seed, so did the experts' loads, and with them the
+#: rows the expert products compute and the step's time: a run's seed
+#: draws the order of the weights (`make_params`' `order`, each layer's
+#: experts), so that every seed routes the same loads to the experts, in
+#: another order.
+WEIGHTS_SEED = 0
+
+
 def seeds(seed: int) -> dict:
-    """Independent streams of one seed: the weights' torch seed and numpy
-    generators for the token ids, the warm-up and the check's sample."""
+    """Independent streams of one seed: the weights' torch seed
+    (`WEIGHTS_SEED`) and numpy generators for the weights' order, the
+    token ids, the warm-up and the check's sample."""
     ss = np.random.SeedSequence(int(seed) % 2 ** 64)
-    w, traffic, warm, sample = ss.spawn(4)
-    return {"weights": int(w.generate_state(1, np.uint64)[0] >> 1),
+    order, traffic, warm, sample = ss.spawn(4)
+    return {"weights": WEIGHTS_SEED, "order": np.random.default_rng(order),
             "traffic": np.random.default_rng(traffic),
             "warm": np.random.default_rng(warm),
             "sample": np.random.default_rng(sample)}
@@ -174,7 +199,8 @@ class CellRun:
             build.load()
             self.stages["library"] = time.perf_counter()
         self.params = make_params(self.cfg, self.streams["weights"],
-                                  self.device)
+                                  self.device, find=self.bench.module,
+                                  order=self.streams["order"])
         if cuda:
             torch.cuda.synchronize(self.device)
         self.stages["weights"] = time.perf_counter()
@@ -243,7 +269,7 @@ class CellRun:
                                setup_s=setup_s, records=self.records,
                                trace=self.trace,
                                trace_records=self.records[:k],
-                               roofline=roofline)
+                               roofline=roofline.at(self.bench.module))
 
 
 def _summary(gaps) -> dict:

@@ -29,6 +29,10 @@ DECODE = dict(entry="serve_batch", impl="naive", batch=4, lengths=[8],
 #: the real configuration stay well under on the card.
 DECODE_LIMITS = {"mean_gap": {"limit": 0.12, "lower": 0.048,
                               "upper": 0.27}}
+#: End-to-end metrics that BENCHMARK.json reads in every cell and the
+#: small decode cell cannot report: this root reads them in the small
+#: prefill cells alone.
+PREFILL_METRICS = ("prefill_tokens_per_s", "ttft_p95_ms")
 DECODE_METRICS = (
     ("decode_tokens_per_s", "end_to_end", "tokens/s", None),
     ("step_mfu.decode", "per_layer", "%", "model step"),
@@ -66,6 +70,8 @@ def make_root(tmp: Path, sizes: dict = TINY, prefill: dict = PREFILL,
     for m in spec["end_to_end"] + spec["per_layer"]:
         if "workloads" in m:
             m["workloads"] = [renamed[w] for w in m["workloads"]]
+        elif m["name"] in PREFILL_METRICS:
+            m["workloads"] = list(PREFILL_CELLS)
     (tmp / "portbench" / "traffic" / "t.decode.json").write_text(
         json.dumps(decode))
     (tmp / "portbench" / "limits" / "tm.decode.json").write_text(

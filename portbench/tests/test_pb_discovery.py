@@ -7,6 +7,7 @@ import time
 
 import pytest
 
+from portbench import roofline
 from portbench.harness import Bench, model_config, run_cell
 from portbench.tests._tiny import PB, REPO, make_root
 
@@ -25,6 +26,9 @@ def test_every_cell_finds_its_files():
         traffic = b.traffic(w["traffic"])
         assert hasattr(b.module("entries", traffic["entry"]), "Entry")
         assert hasattr(b.module("reference", cfg.family), "forward")
+        assert callable(b.module("params", cfg.family).make)
+        steps = b.module("arithmetic", cfg.family)
+        assert all(callable(getattr(steps, f)) for f in roofline.STEPS)
         limits = b.limits(w["name"])
         assert limits and all(v["lower"] < v["limit"] < v["upper"]
                               for v in limits.values())

@@ -23,8 +23,10 @@ import portbench.calibrate, portbench.trace, portbench.weights
 b = Bench({root!r})
 for w in b.spec["workloads"]:
     b.module("entries", b.traffic(w["traffic"])["entry"])
-    b.module("reference", model_config(b.config(w["config"])).family)
-for kind in ("entries", "reference", "metrics"):
+    family = model_config(b.config(w["config"])).family
+    for kind in ("reference", "params", "arithmetic"):
+        b.module(kind, family)
+for kind in ("entries", "reference", "params", "arithmetic", "metrics"):
     for p in sorted((b.root / "portbench" / kind).glob("[!_]*.py")):
         b.module(kind, p.stem)
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))

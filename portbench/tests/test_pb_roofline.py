@@ -28,6 +28,19 @@ def test_ssd_bound_matches_the_kernel_table():
     assert round(ms, 3) == 0.026 and by == "bytes"
 
 
+def test_ssd_bound_reads_b_and_c_per_group():
+    one = rf.ssd_bound_ms(8, 512, 80, 64, 64)
+    assert rf.ssd_bound_ms(8, 512, 80, 64, 64, groups=1) == one
+    ms, by = rf.ssd_bound_ms(8, 512, 80, 64, 64, groups=2)
+    # a second group's B and C: 2 x (8 x 512 x 64) bf16 elements more
+    extra = 2 * 8 * 512 * 64 * rf.BF16 / rf.HBM_BYTES_PER_S * 1e3
+    assert by == "bytes" and ms == pytest.approx(one[0] + extra, rel=1e-12)
+    assert rf.ssd_ops(8, 512, 80, 64, 64, groups=2) \
+        == rf.ssd_ops(8, 512, 80, 64, 64)
+    with pytest.raises(ValueError, match="do not split"):
+        rf.ssd_ops(8, 512, 80, 64, 64, groups=3)
+
+
 def test_causal_pairs_with_a_window():
     assert rf.causal_pairs(4, 4) == 10
     assert rf.causal_pairs(4, 4, window=2) == 7
@@ -53,6 +66,6 @@ def test_prefill_flops_count_two_experts_and_the_head_once_a_prompt():
     assert per_token == 2 * active + c.n_layers * 4 * 128 * 48
     dense = dataclasses.replace(c, family="dense", n_experts=0, d_ff=1024)
     assert rf.layer_macs_per_token(dense) == \
-        rf._attn_weights(dense) + 3 * dense.d_model * 1024
+        rf.attn_weights(dense) + 3 * dense.d_model * 1024
     with pytest.raises(ValueError, match="no step arithmetic"):
         rf.prefill_flops(dataclasses.replace(c, family="hybrid"), 1, 8)

@@ -2,15 +2,18 @@
 `repro_torch.models.transformer.init_params` returns, so that the same
 tensors go to the program and to the plain reference.
 
-Each stacked tensor is drawn in one call, in the type it is served in
-(bf16; the MoE router in float32), from one `torch.Generator` on the
-device. The distributions are those of a freshly initialised model,
-with norm scales drawn about their initial value, so that every
-parameter the program reads changes the result.
+A family's file, `portbench/params/<family>.py`, draws its weights from
+the `Maker` here. Each stacked tensor is drawn in one call, in the type
+it is served in (bf16; the MoE router in float32), from one
+`torch.Generator` on the device. The distributions are those of a
+freshly initialised model, with norm scales drawn about their initial
+value, so that every parameter the program reads changes the result.
 """
 from __future__ import annotations
 
 import torch
+
+from portbench.harness import load
 
 NORM_SCALE_STD = 0.1
 EMBED_STD = 0.02
@@ -44,31 +47,36 @@ class Maker:
                 "wo": self.dense(lead, cfg.n_heads * hd, d)}
 
 
-def _moe(m: Maker, cfg, lead):
-    d, e = cfg.d_model, cfg.n_experts
-    dff = cfg.moe_d_ff or cfg.d_ff
-    if cfg.moe_dense_residual:
-        raise ValueError(f"{cfg.name}: a dense residual is not made here")
-    return {"router": {"w": m.normal((*lead, d, e), d ** -0.5,
-                                     torch.float32)},
-            "gate": m.normal((*lead, e, d, dff), d ** -0.5),
-            "up": m.normal((*lead, e, d, dff), d ** -0.5),
-            "down": m.normal((*lead, e, dff, d), dff ** -0.5)}
+def permute_(t, perm, dim: int) -> None:
+    """Puts what index `perm[i]` of `t` held along `dim` at index i, in
+    place, through one slice's copy: a stacked weight is reordered with
+    no second copy of it."""
+    done = [False] * len(perm)
+    for i in range(len(perm)):
+        if done[i] or int(perm[i]) == i:
+            continue
+        held, j = t.select(dim, i).clone(), i
+        while not done[j]:
+            done[j], src = True, int(perm[j])
+            t.select(dim, j).copy_(held if src == i else t.select(dim, src))
+            j = src
 
 
-def make_params(cfg, seed: int, device) -> dict:
-    """The model's weights for `seed` on `device`: the MoE family."""
-    if cfg.family != "moe":
-        raise ValueError(f"{cfg.name}: no weights for family {cfg.family!r}")
-    m = Maker(seed, device)
-    lead = (cfg.n_layers,)
-    layers = {"norm1": m.norm(*lead, cfg.d_model),
-              "attn": m.attention(cfg, lead),
-              "norm2": m.norm(*lead, cfg.d_model),
-              "moe": _moe(m, cfg, lead)}
-    params = {"embed": {"w": m.normal((cfg.vocab_size, cfg.d_model),
-                                      EMBED_STD)},
-              "layers": layers,
-              "final_norm": m.norm(cfg.d_model),
-              "lm_head": m.dense((), cfg.d_model, cfg.vocab_size)}
+def make_params(cfg, seed: int, device, find=None, order=None) -> dict:
+    """The model's weights for `seed` on `device`, drawn by its family's
+    file, `portbench/params/<family>.py` (`make(m, cfg)`), which `find`
+    loads (a `Bench`'s `module`, which looks under its root first; by
+    default the file beside the harness). With `order`, a numpy
+    generator, the family's `order(params, cfg, rng)`, where its file has
+    one, then reorders them in place without changing what they compute
+    (the MoE family's experts)."""
+    try:
+        family = (find or load)("params", cfg.family)
+    except FileNotFoundError:
+        raise ValueError(f"{cfg.name}: no weights for family "
+                         f"{cfg.family!r} (portbench/params/"
+                         f"{cfg.family}.py)") from None
+    params = family.make(Maker(seed, device), cfg)
+    if order is not None and hasattr(family, "order"):
+        family.order(params, cfg, order)
     return params
